@@ -1,0 +1,194 @@
+"""The port's cell-list k-NN (the plain path of kernel K1) and brute force,
+held against the JAX package on identical numpy inputs.
+
+JAX's ``pallas_cell_list_knn`` runs in interpret mode here. Neighbor sets,
+the overflow count and the certificate's verdict must be equal. On positions
+drawn from a dyadic lattice (multiples of 2^-10 in a box of 1, grid 8) every
+difference, square, sum and window margin is exact in float32, so the k-th
+distance reductions (``max_d2``, ``max_excess``) must be bit-equal and the
+neighbor rows equal in order, ties included. On continuous positions they
+agree to 4 float32 ulps, not bit for bit: XLA:CPU contracts the kernel's
+``d2 + delta * delta`` into FMAs, while the port, like its CUDA kernel,
+rounds the product and the sum separately.
+"""
+
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cosmology_gnn_simulation_tpu.ops.cell_list import CellGrid as JaxCellGrid
+from cosmology_gnn_simulation_tpu.ops.neighbors import knn_periodic as jax_knn_periodic
+from cosmology_gnn_simulation_tpu.ops.pallas_knn import (
+    pallas_cell_list_knn as jax_pallas_cell_list_knn,
+)
+from cosmology_gnn_simulation_tpu_torch.ops import pallas_knn
+from cosmology_gnn_simulation_tpu_torch.ops.cell_list import (
+    CellGrid,
+    choose_cell_grid,
+    poisson_occupancy_capacity,
+)
+from cosmology_gnn_simulation_tpu_torch.ops.neighbors import knn_periodic
+from cosmology_gnn_simulation_tpu_torch.ops.pallas_knn import (
+    knn_select,
+    knn_select_reference,
+    pallas_cell_list_knn,
+)
+
+ULP_TOLERANCE = 4
+
+
+def _sets_equal(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    bad = [i for i, (x, y) in enumerate(zip(a, b)) if set(x.tolist()) != set(y.tolist())]
+    assert not bad, f"{len(bad)} rows differ, first {bad[:5]}"
+
+
+def _close_ulps(a, b, ref_scale):
+    tol = ULP_TOLERANCE * np.spacing(np.float32(abs(ref_scale)))
+    assert abs(float(a) - float(b)) <= tol, (float(a), float(b), tol)
+
+
+def _uniform(seed, n):
+    return np.random.default_rng(seed).uniform(0, 1, (n, 3)).astype(np.float32)
+
+
+def _spill(seed):
+    """One cell crammed past the table capacity (the JAX spill test's layout)."""
+    rng = np.random.default_rng(seed)
+    bg = rng.uniform(0, 1, (2048, 3))
+    cram = 0.44 + 0.04 * rng.uniform(0, 1, (40, 3))
+    return np.concatenate([bg, cram]).astype(np.float32)
+
+
+def _corners(seed):
+    """Particles hugging every face and corner: their neighborhoods cross the
+    periodic boundary in all three axes."""
+    rng = np.random.default_rng(seed)
+    eps = np.array([0.001, 0.999])
+    corners = np.stack(np.meshgrid(eps, eps, eps), -1).reshape(-1, 3)
+    faces = rng.uniform(0, 1, (64, 3))
+    faces[np.arange(64), rng.integers(0, 3, 64)] = rng.choice([0.0005, 0.9995], 64)
+    return np.concatenate([corners, faces, rng.uniform(0, 1, (2600, 3))]).astype(np.float32)
+
+
+LATTICE = 1024
+
+
+def _lattice(seed, n, cram=0):
+    """Positions on the 2^-10 lattice; ``cram`` of them packed into one
+    cell of the 8^3 grid, past its table capacity."""
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, LATTICE, (n, 3))
+    pos[:cram] = 450 + rng.integers(0, 40, (cram, 3))
+    return (pos / LATTICE).astype(np.float32)
+
+
+def _lattice_grid(n):
+    return (8, poisson_occupancy_capacity(n / 8**3, 8**3))
+
+
+# name: (positions, k, grid spec or None for choose_cell_grid, bit-exact)
+CASES = {
+    "uniform": (lambda: _uniform(0, 3000), 8, None, False),
+    "spill": (lambda: _spill(1234), 8, (8, 16), False),
+    "cross_boundary": (lambda: _corners(7), 8, None, False),
+    "lattice": (lambda: _lattice(11, 4096), 8, _lattice_grid(4096), True),
+    "lattice_spill": (lambda: _lattice(12, 4096, cram=40), 8, _lattice_grid(4096), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cell_list_knn_matches_jax_kernel(case):
+    make, k, grid_spec, bit_exact = CASES[case]
+    pos = make()
+    n = pos.shape[0]
+    grid = CellGrid(*grid_spec) if grid_spec else choose_cell_grid(n, k)
+    jidx, (jovf, jmax_d2, jexcess) = jax_pallas_cell_list_knn(
+        jnp.asarray(pos), k, 1.0, JaxCellGrid(*grid), return_diagnostics=True,
+        interpret=True,
+    )
+    idx, (ovf, max_d2, excess) = pallas_cell_list_knn(
+        torch.from_numpy(pos), k, 1.0, grid, return_diagnostics=True
+    )
+    _sets_equal(idx, jidx)
+    assert int(ovf) == int(jovf)
+    if bit_exact:
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+        assert np.float32(max_d2) == np.float32(jmax_d2)
+        assert np.float32(excess) == np.float32(jexcess)
+    else:
+        _close_ulps(max_d2, jmax_d2, jmax_d2)
+        _close_ulps(excess, jexcess, jmax_d2)
+    assert (float(excess) <= 0) == (float(jexcess) <= 0)
+    if case.endswith("spill"):
+        # The cram really overflows the table into the spill block.
+        cap, _, spill_cap = pallas_knn.spill_layout(n, k, grid)
+        assert spill_cap > 0
+        table = pallas_knn.build_table(torch.from_numpy(pos), grid.grid_size, cap,
+                                       torch.tensor(1.0))
+        assert int(table.overflow) > 0
+    # Brute force stays the yardstick of exactness.
+    _sets_equal(idx, knn_periodic(torch.from_numpy(pos), k, 1.0))
+
+
+@pytest.mark.parametrize("box", [1.0, 3.7])
+def test_bruteforce_matches_jax(box):
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(0, box, (1000, 3)).astype(np.float32)
+    idx, d2 = knn_periodic(torch.from_numpy(pos), 8, box, query_tile=128,
+                           return_distances=True)
+    jidx, jd2 = jax_knn_periodic(jnp.asarray(pos), 8, box, query_tile=128,
+                                 return_distances=True)
+    _sets_equal(idx, jidx)
+    np.testing.assert_allclose(d2.numpy(), np.asarray(jd2), rtol=1e-6, atol=1e-12)
+    assert (idx[:, 0] == torch.arange(1000)).all()  # self first
+
+
+def test_bruteforce_smallest_index_wins_ties():
+    # A lattice: many exactly equal distances.
+    g = np.arange(6, dtype=np.float32) / 6
+    pos = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    idx = knn_periodic(torch.from_numpy(pos), 7, 1.0)
+    jidx = jax_knn_periodic(jnp.asarray(pos), 7, 1.0)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+
+
+def test_knn_select_wrapper_takes_plain_version_on_cpu():
+    pos = torch.from_numpy(_uniform(5, 1500))
+    n, k = pos.shape[0], 8
+    grid = choose_cell_grid(n, k)
+    cap, _, spill_cap = pallas_knn.spill_layout(n, k, grid)
+    box = torch.tensor(1.0)
+    t = pallas_knn.build_table(pos, grid.grid_size, cap, box)
+    spill = pallas_knn.build_spill(pos, t.particle_rank, cap, spill_cap)
+    args = dict(k=k, n=n, g=grid.grid_size, box=box,
+                mi_start=pallas_knn.min_image_start(cap, spill_cap))
+    planes = (t.x, t.y, t.z, t.ids)
+    ids, kth = knn_select(planes, spill, **args)
+    ref_ids, ref_kth = knn_select_reference(planes, spill, **args)
+    assert torch.equal(ids, ref_ids) and torch.equal(kth, ref_kth)
+    # Empty table rows are sentinel rows.
+    empty_rows = t.ids.reshape(-1) == n
+    assert (ids[empty_rows] == n).all() and (kth[empty_rows] == 1e30).all()
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "import cosmology_gnn_simulation_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m.split('.')[0] == 'cosmology_gnn_simulation_tpu']\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
