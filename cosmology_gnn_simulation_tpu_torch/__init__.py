@@ -1,9 +1,9 @@
 """PyTorch + CUDA port of the learned cosmological particle simulator.
 
-The JAX package ``cosmology_gnn_simulation_tpu`` is the reference; this
-package mirrors its module names (``types.py``, ``ops/periodic.py``,
-``models/mlp.py``, ...) so every function has a findable counterpart, and
-imports nothing from it (nor JAX). Its TPU kernels become hand-written CUDA
+The JAX package beside it (the same name without ``_torch``) is the
+reference; this package mirrors its module names (``types.py``,
+``ops/periodic.py``, ``models/mlp.py``, ...) so every function has a
+findable counterpart, and imports nothing from it (nor JAX). Its TPU kernels become hand-written CUDA
 kernels for Hopper (``csrc/``), each beside a plain PyTorch version of the
 same function that the CPU path and the tests use.
 

@@ -1,14 +1,15 @@
 // K5: fused message-passing step tail, forward.
 //
-// Replaces the TPU kernel cosmology_gnn_simulation_tpu/ops/fused_step.py::
+// Replaces the JAX package's TPU kernel ops/fused_step.py::
 // _tail_kernel (pallas_call in _tail_core), for the default model's layout
 // (latent = hidden = 128, one hidden Linear between the first and final):
 //   h   = relu(bf16(x) @ bf16(W0) + agg + b0)
 //   h   = relu(bf16(h) @ bf16(W1) + b1)
 //   y   = bf16(h) @ bf16(Wf) + bf
 //   out = x + LayerNorm(y) * scale + bias          (f32, eps 1e-5)
-// Products take bf16 operands into f32 accumulators; agg is read as bf16 and
-// widened in registers; LayerNorm, biases and the residual are f32.
+// Products take bf16 operands into f32 accumulators; agg is read as bf16 (the
+// gather path) or f32 (the cell-block path: K4's output) and widened in
+// registers; LayerNorm, biases and the residual are f32.
 //
 // Bound on the H100: bytes. Per row it reads x (512 B f32) and agg (256 B
 // bf16) and writes out (512 B) against 3 * 2 * 128 * 128 = 98 kFLOP of bf16
@@ -84,8 +85,18 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[KT][4], const float (&h)[NT][
   }
 }
 
+__device__ __forceinline__ float2 load_agg2(const __nv_bfloat16* p, bool ok) {
+  return ok ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p))
+            : make_float2(0.f, 0.f);
+}
+
+__device__ __forceinline__ float2 load_agg2(const float* p, bool ok) {
+  return ok ? *reinterpret_cast<const float2*>(p) : make_float2(0.f, 0.f);
+}
+
+template <typename AggT>
 __global__ void __launch_bounds__(THREADS, 1) fused_tail_kernel(
-    const float* __restrict__ x, const __nv_bfloat16* __restrict__ agg,
+    const float* __restrict__ x, const AggT* __restrict__ agg,
     const float* __restrict__ w0, const float* __restrict__ b0,
     const float* __restrict__ w1, const float* __restrict__ b1,
     const float* __restrict__ wf, const float* __restrict__ bf,
@@ -132,16 +143,13 @@ __global__ void __launch_bounds__(THREADS, 1) fused_tail_kernel(
 
     float h[NT][4];
     gemm(h, a, wt, gid, tig);
-    const __nv_bfloat16* g0 = agg + (size_t)r0 * D;
-    const __nv_bfloat16* g1 = g0 + 8 * D;
+    const AggT* g0 = agg + (size_t)r0 * D;
+    const AggT* g1 = g0 + 8 * D;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int c = nt * 8 + 2 * tig;
-      const __nv_bfloat162 zb = __floats2bfloat162_rn(0.f, 0.f);
-      const float2 e0 = __bfloat1622float2(
-          ok0 ? *reinterpret_cast<const __nv_bfloat162*>(g0 + c) : zb);
-      const float2 e1 = __bfloat1622float2(
-          ok1 ? *reinterpret_cast<const __nv_bfloat162*>(g1 + c) : zb);
+      const float2 e0 = load_agg2(g0 + c, ok0);
+      const float2 e1 = load_agg2(g1 + c, ok1);
       h[nt][0] = fmaxf(h[nt][0] + e0.x + vec[c], 0.f);
       h[nt][1] = fmaxf(h[nt][1] + e0.y + vec[c + 1], 0.f);
       h[nt][2] = fmaxf(h[nt][2] + e1.x + vec[c], 0.f);
@@ -215,19 +223,14 @@ __global__ void __launch_bounds__(THREADS, 1) fused_tail_kernel(
   }
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes). x, out: [n, 128] f32; agg:
-// [n, 128] bf16; w0, w1, wf: [128, 128] f32 in the JAX [in, out] layout;
-// b0, b1, bf, ln_scale, ln_bias: [128] f32. All contiguous, out not aliasing
-// x. Launches on `stream`, does not synchronize, returns the cudaError_t.
-extern "C" int fused_tail_launch(const float* x, const void* agg, const float* w0,
-                                 const float* b0, const float* w1, const float* b1,
-                                 const float* wf, const float* bf,
-                                 const float* ln_scale, const float* ln_bias,
-                                 float* out, int n, void* stream) {
+template <typename AggT>
+int launch(const float* x, const AggT* agg, const float* w0, const float* b0,
+           const float* w1, const float* b1, const float* wf, const float* bf,
+           const float* ln_scale, const float* ln_bias, float* out, int n,
+           void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+      fused_tail_kernel<AggT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
@@ -235,15 +238,42 @@ extern "C" int fused_tail_launch(const float* x, const void* agg, const float* w
       cudaSuccess)
     return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_tail_kernel, THREADS, kSmemBytes)) != cudaSuccess)
+           &per_sm, fused_tail_kernel<AggT>, THREADS, kSmemBytes)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int num_tiles = (n + TILE_ROWS - 1) / TILE_ROWS;
   int blocks = sms * per_sm;
   if (blocks > num_tiles) blocks = num_tiles;
   if (blocks < 1) return (int)cudaSuccess;
-  fused_tail_kernel<<<blocks, THREADS, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      x, static_cast<const __nv_bfloat16*>(agg), w0, b0, w1, b1, wf, bf, ln_scale,
-      ln_bias, out, n);
+  fused_tail_kernel<AggT><<<blocks, THREADS, kSmemBytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      x, agg, w0, b0, w1, b1, wf, bf, ln_scale, ln_bias, out, n);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes). x, out: [n, 128] f32; agg:
+// [n, 128] bf16 (fused_tail_launch) or f32 (fused_tail_f32agg_launch); w0,
+// w1, wf: [128, 128] f32 in the JAX [in, out] layout; b0, b1, bf, ln_scale,
+// ln_bias: [128] f32. All contiguous, out not aliasing x. Launch on
+// `stream`, do not synchronize, return the cudaError_t.
+extern "C" int fused_tail_launch(const float* x, const void* agg, const float* w0,
+                                 const float* b0, const float* w1, const float* b1,
+                                 const float* wf, const float* bf,
+                                 const float* ln_scale, const float* ln_bias,
+                                 float* out, int n, void* stream) {
+  return launch(x, static_cast<const __nv_bfloat16*>(agg), w0, b0, w1, b1, wf, bf,
+                ln_scale, ln_bias, out, n, stream);
+}
+
+extern "C" int fused_tail_f32agg_launch(const float* x, const void* agg,
+                                        const float* w0, const float* b0,
+                                        const float* w1, const float* b1,
+                                        const float* wf, const float* bf,
+                                        const float* ln_scale,
+                                        const float* ln_bias, float* out, int n,
+                                        void* stream) {
+  return launch(x, static_cast<const float*>(agg), w0, b0, w1, b1, wf, bf,
+                ln_scale, ln_bias, out, n, stream);
 }

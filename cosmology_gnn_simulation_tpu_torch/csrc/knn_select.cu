@@ -1,17 +1,21 @@
-// K1: exact cell-list k-NN selection, ids mode.
+// K1: exact cell-list k-NN selection, ids mode and codes mode (K1').
 //
-// Replaces the TPU kernel cosmology_gnn_simulation_tpu/ops/pallas_knn.py::
-// _select_kernel (ids body `kernel`; pallas_call in pallas_cell_list_knn).
-// Computes what it computes, per table row (cell, rank):
+// Replaces the JAX package's TPU kernel ops/pallas_knn.py::
+// _select_kernel (ids body `kernel`, codes body `codes_kernel`; pallas_call
+// in pallas_cell_list_knn). Computes what it computes, per table row
+// (cell, rank):
 //   * candidates: the 27 neighbor cells' rows of the [G^3, cap] tables in lane
 //     order j27 * cap + rank (dx slowest), a coordinate pre-shifted by +-box
 //     where its neighbor index wraps, then the spill_cap global spill lanes;
 //   * d2 = ((dx^2) + dy^2) + dz^2 of the plain differences q - c, with the
 //     lanes from mi_start on min-imaged by the same two selects
 //     (d > box/2 -> d - box, then d < -box/2 -> d + box);
-//   * the k smallest (d2, id) pairs, ascending: smallest id wins exact ties,
-//     picks past the row's valid candidates are the sentinel id n, and kth is
-//     the k-th d2 (1e30 when exhausted). Empty table rows get sentinel rows.
+//   * ids mode: the k smallest (d2, id) pairs, ascending: smallest id wins
+//     exact ties, picks past the row's valid candidates are the sentinel id
+//     n. Codes mode: the k smallest (d2, lane) pairs, the candidate LANE as
+//     the only payload: smallest lane wins exact ties, exhausted picks are
+//     the sentinel lane 27 * cap + spill_cap. kth is the k-th d2 (1e30 when
+//     exhausted). Empty table rows get sentinel rows.
 // The arithmetic uses __fsub_rn/__fmul_rn/__fadd_rn, which nvcc never
 // contracts into FMAs, so every d2 is bit-equal to the plain PyTorch version.
 //
@@ -23,10 +27,12 @@
 // pre-shift on the way (the TPU path materialized four [G^3, 768] candidate
 // planes through 27 rolls in HBM instead). Then each lane owns one query row,
 // passes over the candidates once (shared-memory broadcast reads, empty slots
-// skipped) and keeps a sorted top-KT list of (d2, id) in registers: an
+// skipped) and keeps a sorted top-KT list of (d2, payload) in registers: an
 // insertion is one unrolled compare-swap pass, taken only by candidates that
 // beat the current k-th. Rows past the cell's occupancy exit at once, which
-// the TPU kernel could not do (row gating serialized its pipeline).
+// the TPU kernel could not do (row gating serialized its pipeline). The
+// codes mode differs only in the payload (the lane index c instead of the
+// candidate's id), so both modes share the body as a template flag.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,7 +50,7 @@ __device__ __forceinline__ float min_image(float d, float box, float half) {
   return d;
 }
 
-template <int KT>
+template <int KT, bool CODES>
 __global__ void knn_select_kernel(
     const float* __restrict__ tx, const float* __restrict__ ty,
     const float* __restrict__ tz, const int* __restrict__ tids,
@@ -89,11 +95,12 @@ __global__ void knn_select_kernel(
   __syncwarp();
 
   const float half = 0.5f * box;
+  const int sentinel = CODES ? ncand : n;
   for (int r = lane; r < cap; r += 32) {
     const int row = cell * cap + r;
     int* oi = out_ids + (size_t)row * k;
     if (tids[row] >= n) {
-      for (int j = 0; j < k; ++j) oi[j] = n;
+      for (int j = 0; j < k; ++j) oi[j] = sentinel;
       out_kth[row] = kBig;
       continue;
     }
@@ -101,7 +108,7 @@ __global__ void knn_select_kernel(
     float bd[KT];
     int bi[KT];
 #pragma unroll
-    for (int j = 0; j < KT; ++j) { bd[j] = kBig; bi[j] = n; }
+    for (int j = 0; j < KT; ++j) { bd[j] = kBig; bi[j] = sentinel; }
     for (int c = 0; c < ncand; ++c) {
       const int id = cid[c];
       if (id >= n) continue;
@@ -116,9 +123,10 @@ __global__ void knn_select_kernel(
       float d2 = __fmul_rn(dx, dx);
       d2 = __fadd_rn(d2, __fmul_rn(dy, dy));
       d2 = __fadd_rn(d2, __fmul_rn(dz, dz));
-      if (lex_less(d2, id, bd[KT - 1], bi[KT - 1])) {
+      const int payload = CODES ? c : id;
+      if (lex_less(d2, payload, bd[KT - 1], bi[KT - 1])) {
         bd[KT - 1] = d2;
-        bi[KT - 1] = id;
+        bi[KT - 1] = payload;
 #pragma unroll
         for (int j = KT - 1; j > 0; --j) {
           if (lex_less(bd[j], bi[j], bd[j - 1], bi[j - 1])) {
@@ -131,14 +139,14 @@ __global__ void knn_select_kernel(
     float kth = kBig;
 #pragma unroll
     for (int j = 0; j < KT; ++j) {
-      if (j < k) oi[j] = bd[j] < 0.5f * kBig ? bi[j] : n;
+      if (j < k) oi[j] = bd[j] < 0.5f * kBig ? bi[j] : sentinel;
       if (j == k - 1) kth = bd[j];
     }
     out_kth[row] = kth;
   }
 }
 
-template <int KT>
+template <int KT, bool CODES>
 cudaError_t launch(const float* tx, const float* ty, const float* tz,
                    const int* tids, const float* sx, const float* sy,
                    const float* sz, const int* sids, int num_cells, int g,
@@ -152,37 +160,60 @@ cudaError_t launch(const float* tx, const float* ty, const float* tz,
   const size_t smem = per_warp * warps;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        knn_select_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        knn_select_kernel<KT, CODES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int blocks = (num_cells + warps - 1) / warps;
-  knn_select_kernel<KT><<<blocks, 32 * warps, smem, stream>>>(
+  knn_select_kernel<KT, CODES><<<blocks, 32 * warps, smem, stream>>>(
       tx, ty, tz, tids, sx, sy, sz, sids, num_cells, g, cap, spill_cap, k, n,
       box, mi_start, out_ids, out_kth);
   return cudaGetLastError();
 }
 
+template <bool CODES>
+int dispatch(const float* tx, const float* ty, const float* tz, const int* tids,
+             const float* sx, const float* sy, const float* sz, const int* sids,
+             int num_cells, int g, int cap, int spill_cap, int k, int n,
+             float box, int mi_start, int* out, float* out_kth, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 1 || k > 32) return (int)cudaErrorInvalidValue;
+  if (k <= 8)
+    return (int)launch<8, CODES>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells,
+                                 g, cap, spill_cap, k, n, box, mi_start, out,
+                                 out_kth, s);
+  if (k <= 16)
+    return (int)launch<16, CODES>(tx, ty, tz, tids, sx, sy, sz, sids,
+                                  num_cells, g, cap, spill_cap, k, n, box,
+                                  mi_start, out, out_kth, s);
+  return (int)launch<32, CODES>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells,
+                                g, cap, spill_cap, k, n, box, mi_start, out,
+                                out_kth, s);
+}
+
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Table planes are [num_cells, cap]
-// row-major, spill planes [spill_cap]; out_ids [num_cells * cap, k] int32,
-// out_kth [num_cells * cap] float32. Launches on `stream`, does not
-// synchronize, returns the launch's cudaError_t.
+// Plain C entry points (loaded with ctypes). Table planes are [num_cells, cap]
+// row-major, spill planes [spill_cap]; out [num_cells * cap, k] int32 (ids,
+// or candidate lanes for knn_codes_launch), out_kth [num_cells * cap]
+// float32. Launch on `stream`, do not synchronize, return the launch's
+// cudaError_t.
 extern "C" int knn_select_launch(
     const float* tx, const float* ty, const float* tz, const int* tids,
     const float* sx, const float* sy, const float* sz, const int* sids,
     int num_cells, int g, int cap, int spill_cap, int k, int n, float box,
     int mi_start, int* out_ids, float* out_kth, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k < 1 || k > 32) return (int)cudaErrorInvalidValue;
-  if (k <= 8)
-    return (int)launch<8>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells, g, cap,
-                          spill_cap, k, n, box, mi_start, out_ids, out_kth, s);
-  if (k <= 16)
-    return (int)launch<16>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells, g,
-                           cap, spill_cap, k, n, box, mi_start, out_ids,
-                           out_kth, s);
-  return (int)launch<32>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells, g, cap,
-                         spill_cap, k, n, box, mi_start, out_ids, out_kth, s);
+  return dispatch<false>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells, g, cap,
+                         spill_cap, k, n, box, mi_start, out_ids, out_kth,
+                         stream);
+}
+
+extern "C" int knn_codes_launch(
+    const float* tx, const float* ty, const float* tz, const int* tids,
+    const float* sx, const float* sy, const float* sz, const int* sids,
+    int num_cells, int g, int cap, int spill_cap, int k, int n, float box,
+    int mi_start, int* out_codes, float* out_kth, void* stream) {
+  return dispatch<true>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells, g, cap,
+                        spill_cap, k, n, box, mi_start, out_codes, out_kth,
+                        stream);
 }

@@ -13,7 +13,10 @@ from cosmology_gnn_simulation_tpu_torch.ops.noise import (
     random_walk_position_noise,
     random_walk_temperature_noise,
 )
-from cosmology_gnn_simulation_tpu_torch.ops.pallas_knn import pallas_cell_list_knn
+from cosmology_gnn_simulation_tpu_torch.ops.pallas_knn import (
+    codes_packing_cap,
+    pallas_cell_list_knn,
+)
 from cosmology_gnn_simulation_tpu_torch.ops.periodic import (
     min_image_displacement,
     wrap_positions,
@@ -38,6 +41,8 @@ def neighbor_search_certified(
     *,
     method: str = "auto",
     query_tile: int = 512,
+    with_codes: bool = False,
+    codes_only: bool = False,
 ):
     """k-NN search plus its exactness certificate.
 
@@ -50,6 +55,12 @@ def neighbor_search_certified(
     name for its fused cell-list kernel); ``"bruteforce"`` the exact tiled
     search; ``"auto"`` picks brute force below 8192 particles, else K1.
     Brute force also serves when no grid of >= 3 cells per edge exists.
+
+    ``with_codes=True`` returns ``(neighbors, codes, codes_cap, spill,
+    exact)``: the cell-list kernel's candidate codes, their packing
+    capacity and spill tables for the cell-block plan build, or ``None``
+    for all three when brute force served. With ``codes_only`` the kernel
+    runs in its codes mode K1' and ``neighbors`` is ``None``.
     """
     if method not in ("auto", "pallas", "bruteforce"):
         raise ValueError(f"unknown neighbor method: {method}")
@@ -59,7 +70,15 @@ def neighbor_search_certified(
     grid = choose_cell_grid(n, k)
     if method == "bruteforce" or grid.grid_size < 3:
         idx = knn_periodic(positions, k, box_size, query_tile=query_tile)
-        return idx, torch.ones((), dtype=torch.bool, device=positions.device)
+        exact = torch.ones((), dtype=torch.bool, device=positions.device)
+        return (idx, None, None, None, exact) if with_codes else (idx, exact)
+    if with_codes:
+        idx, codes, spill, (overflow, _, max_excess) = pallas_cell_list_knn(
+            positions, k, box_size, grid, return_diagnostics=True,
+            with_codes=True, codes_only=codes_only,
+        )
+        exact = (overflow == 0) & (max_excess <= 0.0)
+        return idx, codes, codes_packing_cap(n, k, grid), spill, exact
     idx, (overflow, _, max_excess) = pallas_cell_list_knn(
         positions, k, box_size, grid, return_diagnostics=True
     )
@@ -80,7 +99,7 @@ def featurize(
     (``neighbor_search_certified``; the caller searches, so it can keep the
     certificate and reuse a table across steps). ``build_edges=False``
     skips the ``[N, k, 4]`` edge features that the pruned model never
-    reads."""
+    reads; ``neighbors`` may then be ``None`` (the cell-block path)."""
     box = stats.box_size
     dt = stats.dt
     pos_seq = position_seq.float().transpose(0, 1)  # [N, T, 3]

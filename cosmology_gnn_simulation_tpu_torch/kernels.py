@@ -7,9 +7,10 @@ seconds. Libraries go to ``build/kernels/`` at the repository root, named by
 a hash of their source and flags, so an edited source is rebuilt and a
 stale library is never loaded.
 
-``launches[name]`` counts the launches of kernel ``name``: each wrapper adds
-one where it launches its kernel and nowhere else, so a caller can zero the
-counts, drive a path, and see which kernels it went through.
+``launches[name]`` counts the launches of kernel ``name`` (one source may
+host several: ``knn_select.cu`` has ``knn_select`` and ``knn_codes``): each
+wrapper adds one where it launches its kernel and nowhere else, so a caller
+can zero the counts, drive a path, and see which kernels it went through.
 """
 
 from __future__ import annotations
@@ -28,13 +29,15 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
-SOURCES = ("knn_select", "fused_tail")
+SOURCES = ("knn_select", "fused_tail", "s_decode", "s_onehot", "window_matmul")
+KERNELS = ("knn_select", "knn_codes", "s_decode", "s_onehot", "window_matmul",
+           "fused_tail")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-launches: Dict[str, int] = {name: 0 for name in SOURCES}
+launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
 def reset_launches() -> None:

@@ -1,5 +1,6 @@
 """Encode-Process-Decode interaction network (counterpart of
-``models/encode_process_decode.py``), forward pass, gather aggregation.
+``models/encode_process_decode.py``), forward pass, gather or hybrid
+cell-block aggregation.
 
 Semantics of the JAX package, kept exactly:
 
@@ -14,8 +15,11 @@ Semantics of the JAX package, kept exactly:
   ``dtype`` z is carried in that dtype through the gather.
 
 The gather-sum stays plain PyTorch (``index_select`` + ``sum``): in the JAX
-package it is XLA, not a Pallas kernel. With ``fused_tail`` the step's tail
-after the aggregation is the CUDA kernel K5 (``ops/fused_step.py``).
+package it is XLA, not a Pallas kernel. When the graph carries a cell-block
+plan (``cellblock_mode="hybrid"``) the aggregation is instead the window
+matmul K4 (``ops/cellblock.py``) on the cell-sorted rows. With
+``fused_tail`` the step's tail after the aggregation is the CUDA kernel K5
+(``ops/fused_step.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from cosmology_gnn_simulation_tpu_torch.models.mlp import (
     layer_norm,
     matmul,
 )
+from cosmology_gnn_simulation_tpu_torch.ops.cellblock import cellblock_aggregate
 from cosmology_gnn_simulation_tpu_torch.ops.fused_step import fused_step_tail
 from cosmology_gnn_simulation_tpu_torch.types import ParticleGraph, resolve_device, tree_map
 
@@ -165,19 +170,28 @@ def _processor_step(x, e, neighbors, params: Params, aggregate: str, dtype):
     return _mlp_tail(params["node"], h_n, dtype), e_new
 
 
-def _pruned_processor_step(x, neighbors, params: Params, dtype, fused_tail: bool):
+def _pruned_processor_step(x, neighbors, params: Params, dtype, fused_tail: bool,
+                           cellblock=None, cellblock_spec=None):
     """Node-stream-only step under ``sender_latents`` aggregation. With
     ``fused_tail`` it returns the full new carry (residual included, kernel
-    K5); otherwise the pre-residual step output."""
+    K5); otherwise the pre-residual step output. With a ``cellblock`` plan
+    the aggregation is the hybrid cell-block one: expand the projected
+    latents to slots, K4, compact back (float32 result)."""
     latent = x.shape[-1]
     node_first = params["node"]["layers"][0]
     w_self, w_agg = node_first["w"][:latent], node_first["w"][latent:]
     z = matmul(x, w_agg, dtype)
-    if dtype is not None:
-        # The gather-sum is the bandwidth-dominant op of the step; carry it
-        # in the reduced dtype, as the JAX package does.
-        z = z.to(dtype)
-    agg_h = _gather_sum(z, neighbors)
+    if cellblock is not None:
+        agg_h = cellblock_aggregate(
+            z, cellblock, cellblock_spec,
+            carry_dtype=torch.float32 if dtype is None else dtype,
+        )
+    else:
+        if dtype is not None:
+            # The gather-sum is the bandwidth-dominant op of the step; carry
+            # it in the reduced dtype, as the JAX package does.
+            z = z.to(dtype)
+        agg_h = _gather_sum(z, neighbors)
     if fused_tail:
         # The kernel widens agg on read: no f32 copy of it is made.
         return fused_step_tail(
@@ -192,9 +206,34 @@ def apply_encode_process_decode(
     graph: ParticleGraph,
     config: EncodeProcessDecodeConfig,
     dtype: Optional[torch.dtype] = None,
+    cellblock_spec=None,
+    cellblock_mode: str = "slots",
 ) -> Dict[str, torch.Tensor]:
-    """Forward pass: ``{'acceleration': [N, 3], 'temp_rate': [N, 1]}``."""
+    """Forward pass: ``{'acceleration': [N, 3], 'temp_rate': [N, 1]}``.
+
+    When ``graph.cellblock`` is set (rows cell-sorted; ``cellblock_spec``
+    the plan's spec) the pruned path aggregates through the cell-block
+    plan. ``cellblock_mode="hybrid"`` keeps the carry on the N particle
+    rows and pays expand -> K4 -> compact each step; the JAX package's
+    slot-space carry (``"slots"``) is not ported and raises.
+    """
+    if cellblock_mode not in ("slots", "hybrid"):
+        raise ValueError(f"unknown cellblock_mode: {cellblock_mode}")
     prune = config.aggregate == "sender_latents" and config.prune_dead_edge_stream
+    if graph.cellblock is not None:
+        if cellblock_spec is None:
+            raise ValueError(
+                "graph carries a cellblock plan but cellblock_spec was not passed"
+            )
+        if not prune:
+            raise ValueError(
+                "cellblock aggregation requires the pruned sender_latents mode "
+                "(the edge_messages gather is not a segment sum)"
+            )
+        if cellblock_mode != "hybrid":
+            raise NotImplementedError(
+                "cellblock_mode='slots' (slot-space carry) is not ported; use 'hybrid'"
+            )
     if config.fused_tail and not prune:
         raise ValueError(
             "fused_tail requires the pruned sender_latents mode (the edge "
@@ -205,7 +244,8 @@ def apply_encode_process_decode(
     if prune:
         for i in range(m):
             x_new = _pruned_processor_step(
-                x, graph.neighbors, step_params(params, i), dtype, config.fused_tail
+                x, graph.neighbors, step_params(params, i), dtype, config.fused_tail,
+                graph.cellblock, cellblock_spec,
             )
             x = x_new if config.fused_tail else x + x_new
     else:

@@ -42,6 +42,14 @@ def run_starts(sorted_keys: torch.Tensor) -> torch.Tensor:
     return torch.cummax(torch.where(is_start, iota, 0), dim=0).values
 
 
+def bucket_boundaries(sorted_keys: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """``b[v]`` = first index ``i`` with ``sorted_keys[i] >= v`` for
+    ``v in [0, num_buckets]``, so bucket ``v`` spans ``[b[v], b[v+1])``."""
+    values = torch.arange(num_buckets + 1, device=sorted_keys.device,
+                          dtype=sorted_keys.dtype)
+    return torch.searchsorted(sorted_keys, values)
+
+
 def bin_by_key(keys: torch.Tensor, num_keys: int, capacity: int, payload=()) -> Binning:
     """Stable-sort ``keys`` and compute per-group ranks + capacity slots."""
     sorted_keys, order = torch.sort(keys, stable=True)

@@ -42,8 +42,9 @@ def fused_step_tail_reference(x, agg, node_params, *, dtype=torch.bfloat16):
 def _lib():
     lib = kernels.library("fused_tail")
     p = ctypes.c_void_p
-    lib.fused_tail_launch.argtypes = [p] * 11 + [ctypes.c_int, p]
-    lib.fused_tail_launch.restype = ctypes.c_int
+    for entry in (lib.fused_tail_launch, lib.fused_tail_f32agg_launch):
+        entry.argtypes = [p] * 11 + [ctypes.c_int, p]
+        entry.restype = ctypes.c_int
     return lib
 
 
@@ -61,8 +62,8 @@ def fused_step_tail(x: torch.Tensor, agg: torch.Tensor, node_params, *,
 
     CPU tensors take the plain version. CUDA tensors launch the kernel K5,
     which takes the default model's layout — L = H = 128, one hidden
-    Linear, f32 x and weights, bf16 agg and operands — and raises on any
-    other.
+    Linear, f32 x and weights, bf16 operands, agg bf16 (the gather path) or
+    f32 (the cell-block path) — and raises on any other.
     """
     if x.device.type == "cpu":
         return fused_step_tail_reference(x, agg, node_params, dtype=dtype)
@@ -81,7 +82,9 @@ def fused_step_tail(x: torch.Tensor, agg: torch.Tensor, node_params, *,
         layers[2]["b"], node_params["ln"]["scale"], node_params["ln"]["bias"],
     ]
     shapes = [(128, 128), (128,)] * 3 + [(128,), (128,)]
-    checks = [("x", x, (n, 128), torch.float32), ("agg", agg, (n, 128), torch.bfloat16)]
+    if agg.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_step_tail kernel takes bf16 or f32 agg, got {agg.dtype}")
+    checks = [("x", x, (n, 128), torch.float32), ("agg", agg, (n, 128), agg.dtype)]
     checks += [(f"weight {i}", w, s, torch.float32)
                for i, (w, s) in enumerate(zip(weights, shapes))]
     for name, t, shape, dt in checks:
@@ -92,7 +95,9 @@ def fused_step_tail(x: torch.Tensor, agg: torch.Tensor, node_params, *,
                 f"on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     out = torch.empty_like(x)
-    err = _lib().fused_tail_launch(
+    launch = (_lib().fused_tail_launch if agg.dtype == torch.bfloat16
+              else _lib().fused_tail_f32agg_launch)
+    err = launch(
         kernels.ptr(x), kernels.ptr(agg), *[kernels.ptr(w) for w in weights],
         kernels.ptr(out), n, kernels.stream_handle(x.device),
     )

@@ -1,17 +1,20 @@
 """Exact cell-list periodic k-NN around the CUDA kernel K1 (counterpart of
 ``ops/pallas_knn.py``; the Pallas kernel ``_select_kernel`` becomes
-``csrc/knn_select.cu``, ids mode).
+``csrc/knn_select.cu``: ids mode, and the codes mode K1' that the cell-block
+plan build decodes).
 
 Pipeline of ``pallas_cell_list_knn``:
   1. [torch] bin particles into a G^3 grid (stable sort by cell id) and
      scatter dense ``[G^3, cap]`` tables of x, y, z and particle id. ``cap``
      holds the common case (lam + 4.5 sigma); particles past it go to a
      static global SPILL block that every query also scans.
-  2. [kernel ``knn_select``] per cell: candidates = the 27 neighbor cells'
-     table rows, pre-shifted by +-box where the neighbor index wraps, then
-     the spill lanes; plain-difference d^2 (min-imaged in the trailing
-     lanes that hold the spill block); the exact k smallest in (d^2, id)
-     order — smallest particle id wins exact ties — and the k-th d^2.
+  2. [kernel ``knn_select`` / ``knn_codes``] per cell: candidates = the 27
+     neighbor cells' table rows, pre-shifted by +-box where the neighbor
+     index wraps, then the spill lanes; plain-difference d^2 (min-imaged in
+     the trailing lanes that hold the spill block); the exact k smallest in
+     (d^2, id) order — smallest particle id wins exact ties — or, in codes
+     mode, in (d^2, lane) order with the candidate lane as the payload; and
+     the k-th d^2.
   3. [torch] reorder to particle order via each particle's (cell, rank);
      solve the spilled particles exactly against their own cell's
      candidate row; reduce the exactness certificate.
@@ -85,6 +88,12 @@ def spill_layout(n: int, k: int, grid: CellGrid):
     return cap, num_cand, spill_cap
 
 
+def codes_packing_cap(n: int, k: int, grid: CellGrid) -> int:
+    """The per-cell capacity of the codes' lane packing ``j27 * cap + rank``
+    (the ``codes_cap`` to hand ``build_cellblock``)."""
+    return spill_layout(n, k, grid)[0]
+
+
 def min_image_start(cap: int, spill_cap: int) -> int:
     """First min-imaged candidate lane: the 128-lane tile holding the start
     of the spill block (a few ring lanes share it; min-imaging a pre-shifted
@@ -121,10 +130,15 @@ def build_table(positions: torch.Tensor, g: int, cap: int, box: torch.Tensor) ->
 
 
 def build_spill(positions: torch.Tensor, particle_rank: torch.Tensor, cap: int,
-                spill_cap: int):
+                spill_cap: int, cell_id=None):
     """The spill block's ``[spill_cap]`` x, y, z and id planes: the particles
     past ``cap`` in their cell, in particle order. Unused slots hold id
-    ``n``; particles past ``spill_cap`` are dropped (counted as overflow)."""
+    ``n``; particles past ``spill_cap`` are dropped (counted as overflow).
+
+    With ``cell_id`` it also returns the codes' spill resolution tables
+    ``(spill_cells, spill_ranks)``: each spilled particle's cell and its
+    stable-sort rank within that cell (unused slots: cell 0, rank 2**20,
+    past any column capacity)."""
     n, dev = positions.shape[0], positions.device
     spilled = particle_rank >= cap
     slot = torch.where(spilled, torch.cumsum(spilled, 0) - 1, spill_cap)
@@ -135,12 +149,16 @@ def build_spill(positions: torch.Tensor, particle_rank: torch.Tensor, cap: int,
         out[slot] = v.to(dtype)
         return out[:-1]
 
-    return (
+    planes = (
         plane(positions[:, 0], 0.0, torch.float32),
         plane(positions[:, 1], 0.0, torch.float32),
         plane(positions[:, 2], 0.0, torch.float32),
         plane(torch.arange(n, device=dev), n, torch.int32),
     )
+    if cell_id is None:
+        return planes
+    return planes, (plane(cell_id, 0, torch.int32),
+                    plane(particle_rank, 2**20, torch.int32))
 
 
 def candidate_rows(table, spill, cells: torch.Tensor, g: int, box: torch.Tensor):
@@ -181,17 +199,7 @@ def _lex_smallest(d2: torch.Tensor, ids: torch.Tensor, k: int):
     return d2_sorted[..., :k], torch.gather(ids, -1, order[..., :k])
 
 
-def knn_select_reference(table, spill, *, k: int, n: int, g: int, box: torch.Tensor,
-                         mi_start: int):
-    """Plain PyTorch version of the ``knn_select`` kernel (K1).
-
-    ``table`` = ``(x, y, z, ids)`` ``[G^3, cap]`` (float32 x3, int32; id
-    ``n`` = empty), ``spill`` = the same four ``[spill_cap]`` planes.
-    Returns ``(ids [G^3 * cap, k] int32, kth [G^3 * cap] float32)``: per table
-    row, the k nearest candidates in (d^2, id) order and the k-th d^2.
-    Picks past the row's valid candidates are the sentinel ``n`` with kth
-    1e30; empty table rows are all-sentinel rows.
-    """
+def _select_reference(table, spill, *, k, n, g, box, mi_start, codes):
     tx, ty, tz, tids = table
     num_cells, cap = tx.shape
     dev = tx.device
@@ -199,7 +207,9 @@ def knn_select_reference(table, spill, *, k: int, n: int, g: int, box: torch.Ten
     # Bound the [cells, cap, num_cand] d^2 temporary at ~2^24 elements.
     num_cand = 27 * cap + spill[0].shape[0]
     chunk = max(1, (1 << 24) // (cap * num_cand))
-    lane_mi = torch.arange(num_cand, device=dev) >= mi_start
+    lanes = torch.arange(num_cand, device=dev)
+    lane_mi = lanes >= mi_start
+    sentinel = num_cand if codes else n
     out_ids, out_kth = [], []
     for start in range(0, num_cells, chunk):
         cells = torch.arange(start, min(start + chunk, num_cells), device=dev)
@@ -213,24 +223,90 @@ def knn_select_reference(table, spill, *, k: int, n: int, g: int, box: torch.Ten
             d2 = delta * delta if d2 is None else d2 + delta * delta
         ids = cid[:, None, :].expand_as(d2)
         d2 = torch.where(ids >= n, big, d2)
-        d2_k, ids_k = _lex_smallest(d2, ids, k)
-        picks = torch.where(d2_k < 0.5 * big, ids_k, n)
+        if codes:
+            # Lanes ascend along each row: a stable sort by d^2 is the
+            # (d^2, lane) order.
+            d2_sorted, order = torch.sort(d2, dim=-1, stable=True)
+            d2_k, payload_k = d2_sorted[..., :k], order[..., :k]
+        else:
+            d2_k, payload_k = _lex_smallest(d2, ids, k)
+        picks = torch.where(d2_k < 0.5 * big, payload_k, sentinel)
         kth = d2_k[..., k - 1]
         empty = tids[cells] >= n  # [M, cap]
-        picks = torch.where(empty[..., None], n, picks)
+        picks = torch.where(empty[..., None], sentinel, picks)
         kth = torch.where(empty, big, kth)
         out_ids.append(picks.reshape(-1, k).to(torch.int32))
         out_kth.append(kth.reshape(-1))
     return torch.cat(out_ids), torch.cat(out_kth)
 
 
+def knn_select_reference(table, spill, *, k: int, n: int, g: int, box: torch.Tensor,
+                         mi_start: int):
+    """Plain PyTorch version of the ``knn_select`` kernel (K1).
+
+    ``table`` = ``(x, y, z, ids)`` ``[G^3, cap]`` (float32 x3, int32; id
+    ``n`` = empty), ``spill`` = the same four ``[spill_cap]`` planes.
+    Returns ``(ids [G^3 * cap, k] int32, kth [G^3 * cap] float32)``: per table
+    row, the k nearest candidates in (d^2, id) order and the k-th d^2.
+    Picks past the row's valid candidates are the sentinel ``n`` with kth
+    1e30; empty table rows are all-sentinel rows.
+    """
+    return _select_reference(table, spill, k=k, n=n, g=g, box=box,
+                             mi_start=mi_start, codes=False)
+
+
+def knn_codes_reference(table, spill, *, k: int, n: int, g: int, box: torch.Tensor,
+                        mi_start: int):
+    """Plain PyTorch version of the ``knn_codes`` kernel (K1', codes mode).
+
+    The same selection as ``knn_select_reference`` with the candidate LANE
+    (``j27 * cap + rank``, then ``27 * cap + s`` for spill slot ``s``) as the
+    payload: the k nearest in (d^2, lane) order, so the smallest lane wins
+    exact ties. Exhausted picks and empty table rows carry the sentinel lane
+    ``27 * cap + spill_cap``."""
+    return _select_reference(table, spill, k=k, n=n, g=g, box=box,
+                             mi_start=mi_start, codes=True)
+
+
 @functools.cache
 def _lib():
     lib = kernels.library("knn_select")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.knn_select_launch.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, i, p, p, p]
-    lib.knn_select_launch.restype = i
+    for entry in (lib.knn_select_launch, lib.knn_codes_launch):
+        entry.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, i, p, p, p]
+        entry.restype = i
     return lib
+
+
+def _launch(name: str, table, spill, *, k, n, g, box, mi_start):
+    tx = table[0]
+    num_cells, cap = tx.shape
+    spill_cap = spill[0].shape[0]
+    if num_cells != g**3:
+        raise ValueError(f"table has {num_cells} cells, grid {g}^3 = {g**3}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{name} kernel supports 1 <= k <= {MAX_K}, got {k}")
+    dtypes = (torch.float32,) * 3 + (torch.int32,)
+    checks = [("table", t, (num_cells, cap), dt) for t, dt in zip(table, dtypes)]
+    checks += [("spill", t, (spill_cap,), dt) for t, dt in zip(spill, dtypes)]
+    for label, t, shape, dtype in checks:
+        if (t.device != tx.device or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: {label} plane must be a contiguous {dtype} {shape} "
+                f"tensor on {tx.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    out = torch.empty((num_cells * cap, k), dtype=torch.int32, device=tx.device)
+    out_kth = torch.empty((num_cells * cap,), dtype=torch.float32, device=tx.device)
+    entry = getattr(_lib(), f"{name}_launch")
+    err = entry(
+        *[kernels.ptr(t) for t in table], *[kernels.ptr(t) for t in spill],
+        num_cells, g, cap, spill_cap, k, n, ctypes.c_float(float(box)), mi_start,
+        kernels.ptr(out), kernels.ptr(out_kth), kernels.stream_handle(tx.device),
+    )
+    kernels.check(name, err)
+    kernels.launches[name] += 1
+    return out, out_kth
 
 
 def knn_select(table, spill, *, k: int, n: int, g: int, box: torch.Tensor,
@@ -239,36 +315,23 @@ def knn_select(table, spill, *, k: int, n: int, g: int, box: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch
     ``csrc/knn_select.cu`` or raise."""
-    tx = table[0]
-    if tx.device.type == "cpu":
+    if table[0].device.type == "cpu":
         return knn_select_reference(table, spill, k=k, n=n, g=g, box=box,
                                     mi_start=mi_start)
-    num_cells, cap = tx.shape
-    spill_cap = spill[0].shape[0]
-    if num_cells != g**3:
-        raise ValueError(f"table has {num_cells} cells, grid {g}^3 = {g**3}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn_select kernel supports 1 <= k <= {MAX_K}, got {k}")
-    dtypes = (torch.float32,) * 3 + (torch.int32,)
-    checks = [("table", t, (num_cells, cap), dt) for t, dt in zip(table, dtypes)]
-    checks += [("spill", t, (spill_cap,), dt) for t, dt in zip(spill, dtypes)]
-    for name, t, shape, dtype in checks:
-        if (t.device != tx.device or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"knn_select: {name} plane must be a contiguous {dtype} {shape} "
-                f"tensor on {tx.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-    out_ids = torch.empty((num_cells * cap, k), dtype=torch.int32, device=tx.device)
-    out_kth = torch.empty((num_cells * cap,), dtype=torch.float32, device=tx.device)
-    err = _lib().knn_select_launch(
-        *[kernels.ptr(t) for t in table], *[kernels.ptr(t) for t in spill],
-        num_cells, g, cap, spill_cap, k, n, ctypes.c_float(float(box)), mi_start,
-        kernels.ptr(out_ids), kernels.ptr(out_kth), kernels.stream_handle(tx.device),
-    )
-    kernels.check("knn_select", err)
-    kernels.launches["knn_select"] += 1
-    return out_ids, out_kth
+    return _launch("knn_select", table, spill, k=k, n=n, g=g, box=box,
+                   mi_start=mi_start)
+
+
+def knn_codes(table, spill, *, k: int, n: int, g: int, box: torch.Tensor,
+              mi_start: int):
+    """K1': per-cell exact k-NN selection emitting candidate lanes (see
+    ``knn_codes_reference``). CPU tensors take the plain version; CUDA
+    tensors launch the codes mode of ``csrc/knn_select.cu`` or raise."""
+    if table[0].device.type == "cpu":
+        return knn_codes_reference(table, spill, k=k, n=n, g=g, box=box,
+                                   mi_start=mi_start)
+    return _launch("knn_codes", table, spill, k=k, n=n, g=g, box=box,
+                   mi_start=mi_start)
 
 
 def pallas_cell_list_knn(
@@ -278,6 +341,8 @@ def pallas_cell_list_knn(
     grid: CellGrid,
     *,
     return_diagnostics: bool = False,
+    with_codes: bool = False,
+    codes_only: bool = False,
 ):
     """Exact periodic k-NN (self-query) through the cell-list kernel K1.
 
@@ -286,7 +351,22 @@ def pallas_cell_list_knn(
     is provably exact iff ``overflow == 0`` (no spill-block exhaustion) and
     ``max_excess <= 0`` (every query's k-th neighbor within its window
     margin, ``cell_list.window_margin_sq``). All three stay on the device.
+
+    ``codes_only=True`` runs the codes mode K1' instead and returns
+    ``(None, codes, spill)`` (then the diagnostics): ``codes [N, k]`` int32
+    holds each neighbor's candidate lane ``j27 * cap + rank`` (``cap`` =
+    ``codes_packing_cap``; ``j27`` the neighbor cell's offset, dx slowest)
+    or ``27 * cap + s`` for spill slot ``s``, in (d^2, lane) order — the
+    smallest lane wins exact ties. Exhausted picks repeat the row's first
+    code. ``spill`` is ``None`` without a spill block, else the resolution
+    tables ``(spill_cells, spill_ranks)`` of ``build_spill``. Asking for
+    ids and codes together (``with_codes`` alone) is not ported.
     """
+    if with_codes and not codes_only:
+        raise NotImplementedError(
+            "pallas_cell_list_knn(with_codes=True) without codes_only (ids and "
+            "codes together) is not ported; pass codes_only=True"
+        )
     g = grid.grid_size
     if g < 3:
         raise ValueError("grid_size must be >= 3")
@@ -297,19 +377,27 @@ def pallas_cell_list_knn(
     cap, _, spill_cap = spill_layout(n, k, grid)
     table = build_table(pos, g, cap, box)
     overflow = table.overflow
-    spill = build_spill(pos, table.particle_rank, cap, spill_cap)
+    spill, spill_info = build_spill(pos, table.particle_rank, cap, spill_cap,
+                                    cell_id=table.cell_id)
     if spill_cap:
         overflow = torch.clamp(overflow - spill_cap, min=0)
     planes = (table.x, table.y, table.z, table.ids)
-    ids_tab, kth = knn_select(planes, spill, k=k, n=n, g=g, box=box,
-                              mi_start=min_image_start(cap, spill_cap))
+    select = knn_codes if codes_only else knn_select
+    picked, kth = select(planes, spill, k=k, n=n, g=g, box=box,
+                         mi_start=min_image_start(cap, spill_cap))
 
     # Back to particle order. A particle past `cap` has no table row: it
     # reads its cell's last row, then the spill solve overwrites it.
     table_row = table.cell_id * cap + torch.clamp(table.particle_rank, max=cap - 1)
-    out = ids_tab[table_row].long()
-    # Exhausted picks (uncertified regime only) repeat the row's first pick.
-    out = torch.where(out == n, out[:, :1], out)
+    out = picked[table_row]
+    if codes_only:
+        # Exhausted picks (uncertified regime only) repeat the row's first
+        # code; the kth keeps 1e30, so the certificate fails on such rows.
+        out = torch.where(out >= 27 * cap + spill_cap, out[:, :1], out)
+    else:
+        out = out.long()
+        # Exhausted picks (uncertified regime only) repeat the row's first pick.
+        out = torch.where(out == n, out[:, :1], out)
 
     if spill_cap:
         # Spilled queries: exact solve against their own cell's candidate
@@ -326,15 +414,25 @@ def pallas_cell_list_knn(
             d2s = dd * dd if d2s is None else d2s + dd * dd
         sp_ids = cand[3].long()
         d2s = torch.where(sp_ids >= n, f32(_BIG, dev), d2s)
-        d2_k, picks = _lex_smallest(d2s, sp_ids, k)
+        if codes_only:
+            # (d2, lane) order: lanes ascend along the row, so a stable sort
+            # by d2 ties on the smallest lane, as the codes kernel does.
+            d2_sorted, lane_sorted = torch.sort(d2s, dim=1, stable=True)
+            d2_k = d2_sorted[:, :k]
+            picks = torch.where(d2_k >= 0.5 * _BIG, lane_sorted[:, :1],
+                                lane_sorted[:, :k])
+        else:
+            d2_k, picks = _lex_smallest(d2s, sp_ids, k)
+            picks = torch.where(picks == n, picks[:, :1], picks)
+            picks = torch.where(picks == n, 0, picks)
         spill_kth = d2_k[:, k - 1]
-        picks = torch.where(picks == n, picks[:, :1], picks)
-        picks = torch.where(picks == n, 0, picks)
         scatter = torch.where(spill_valid, spill[3].long(), n)
         out_ext = torch.cat([out, out.new_zeros((1, k))])
-        out_ext[scatter] = picks
+        out_ext[scatter] = picks.to(out.dtype)
         out = out_ext[:n]
 
+    if codes_only:
+        out = (None, out, spill_info if spill_cap else None)
     if not return_diagnostics:
         return out
     # Certificate: per occupied table slot, its k-th d^2 against the window
@@ -356,4 +454,5 @@ def pallas_cell_list_knn(
         sp_excess = torch.where(spill_valid, spill_kth - window_margin_sq(sp_pos, box, grid), -_BIG)
         max_d2 = torch.maximum(max_d2, torch.where(spill_valid, spill_kth, 0.0).max())
         max_excess = torch.maximum(max_excess, sp_excess.max())
-    return out, (overflow, max_d2, max_excess)
+    diagnostics = (overflow, max_d2, max_excess)
+    return (*out, diagnostics) if codes_only else (out, diagnostics)

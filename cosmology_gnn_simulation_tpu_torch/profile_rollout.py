@@ -1,12 +1,15 @@
 """Where a rollout step's time goes on the card.
 
     python -m cosmology_gnn_simulation_tpu_torch.profile_rollout [--n N] [--steps S]
+        [--aggregation gather|cellblock_hybrid]
 
-Runs the gather rollout of the default model (bf16, k = 16, certificate
-on) once to warm up, times ``--steps`` steps with CUDA events, then traces
-the same steps with ``torch.profiler`` and prints the device time by kernel
-(largest first), the device's busy share of the traced window, and the
-card's name and power limit. Needs a CUDA device.
+Runs the rollout of the default model (bf16, k = 16, certificate on) with
+the given aggregation once to warm up, times ``--steps`` steps with CUDA
+events, then traces the same steps with ``torch.profiler`` and prints the
+device time by kernel (largest first), the device's busy share of the
+traced window, the device operations (kernels, copies, fills) launched per
+step, the peak device memory of the timed run, and the card's name and
+power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ def main() -> None:
     parser.add_argument("--n", type=int, default=65536)
     parser.add_argument("--steps", type=int, default=4)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--aggregation", default="gather",
+                        choices=("gather", "cellblock_hybrid"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA device")
@@ -51,16 +56,18 @@ def main() -> None:
 
     def run():
         return rollout(params, cfg, pos, temp, stats, args.steps, num_neighbors=16,
-                       dtype=torch.bfloat16, device=dev)
+                       dtype=torch.bfloat16, aggregation=args.aggregation, device=dev)
 
     run()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     run()
     end.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / args.steps
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -73,9 +80,11 @@ def main() -> None:
     for e in kernels:
         busy[e.name] = busy.get(e.name, 0.0) + e.device_time / 1e3  # ms
     total = sum(busy.values())
-    print(f"N={args.n}, {args.steps} steps: {step_ms:.3f} ms/step (CUDA events); traced "
-          f"window {wall_ms:.1f} ms wall, device busy {total:.1f} ms "
-          f"({100 * total / wall_ms:.1f} %, idle {100 - 100 * total / wall_ms:.1f} %)")
+    print(f"{args.aggregation}, N={args.n}, {args.steps} steps: {step_ms:.3f} ms/step (CUDA "
+          f"events), peak memory {peak_gib:.3f} GiB; traced window {wall_ms:.1f} ms wall, "
+          f"device busy {total:.1f} ms ({100 * total / wall_ms:.1f} %, idle "
+          f"{100 - 100 * total / wall_ms:.1f} %), {len(kernels) / args.steps:.1f} device "
+          f"operations per step")
     print(f"{'device ms/step':>14} {'share':>6}  kernel")
     for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:30]:
         print(f"{ms / args.steps:14.4f} {100 * ms / total:5.1f}%  {name[:110]}")

@@ -1,4 +1,4 @@
-"""Container types (counterpart of ``cosmology_gnn_simulation_tpu/types.py``).
+"""Container types (counterpart of the JAX package's ``types.py``).
 
 The k-NN graph is regular — exactly ``k`` incoming edges per node, self-loop
 included — so it is a dense ``[N, k]`` index tensor, as in the JAX package.
@@ -44,16 +44,21 @@ class ParticleGraph(NamedTuple):
       neighbors: ``[N, k]`` int64 — ``neighbors[i, j]`` is the j-th nearest
                  neighbor of particle i under the minimum-image metric
                  (self first); edge (sender=neighbors[i, j], receiver=i).
+                 None on the cell-block path, which never reads ids.
       edges:     ``[N, k, 4]`` raw (NOT minimum-image) displacement
                  ``pos[sender] - pos[receiver]`` plus its norm, or None when
                  the pruned model does not read them.
       positions: ``[N, 3]`` most recent (wrapped) positions.
+      cellblock: optional per-graph cell-block plan
+                 (``ops.cellblock.CellBlockGraph``); when set, the rows are
+                 cell-sorted and the pruned model aggregates through it.
     """
 
     nodes: torch.Tensor
-    neighbors: torch.Tensor
+    neighbors: Optional[torch.Tensor]
     edges: Optional[torch.Tensor]
     positions: torch.Tensor
+    cellblock: Optional[tuple] = None
 
 
 class NormalizationStats(NamedTuple):

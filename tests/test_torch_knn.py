@@ -1,5 +1,6 @@
-"""The port's cell-list k-NN (the plain path of kernel K1) and brute force,
-held against the JAX package on identical numpy inputs.
+"""The port's cell-list k-NN (the plain paths of kernel K1 and of its codes
+mode K1') and brute force, held against the JAX package on identical numpy
+inputs.
 
 JAX's ``pallas_cell_list_knn`` runs in interpret mode here. Neighbor sets,
 the overflow count and the certificate's verdict must be equal. On positions
@@ -10,6 +11,11 @@ neighbor rows equal in order, ties included. On continuous positions they
 agree to 4 float32 ulps, not bit for bit: XLA:CPU contracts the kernel's
 ``d2 + delta * delta`` into FMAs, while the port, like its CUDA kernel,
 rounds the product and the sum separately.
+
+The codes mode (``codes_only``) is held the same way: on the lattice its
+codes are bit-equal to JAX's in order, ties included (smallest lane wins);
+on continuous positions the code sets of every row are equal, and the S
+table the plan build makes from them is bit-equal.
 """
 
 import subprocess
@@ -25,7 +31,7 @@ from cosmology_gnn_simulation_tpu.ops.neighbors import knn_periodic as jax_knn_p
 from cosmology_gnn_simulation_tpu.ops.pallas_knn import (
     pallas_cell_list_knn as jax_pallas_cell_list_knn,
 )
-from cosmology_gnn_simulation_tpu_torch.ops import pallas_knn
+from cosmology_gnn_simulation_tpu_torch.ops import cellblock, pallas_knn
 from cosmology_gnn_simulation_tpu_torch.ops.cell_list import (
     CellGrid,
     choose_cell_grid,
@@ -33,6 +39,9 @@ from cosmology_gnn_simulation_tpu_torch.ops.cell_list import (
 )
 from cosmology_gnn_simulation_tpu_torch.ops.neighbors import knn_periodic
 from cosmology_gnn_simulation_tpu_torch.ops.pallas_knn import (
+    codes_packing_cap,
+    knn_codes,
+    knn_codes_reference,
     knn_select,
     knn_select_reference,
     pallas_cell_list_knn,
@@ -134,6 +143,84 @@ def test_cell_list_knn_matches_jax_kernel(case):
         assert int(table.overflow) > 0
     # Brute force stays the yardstick of exactness.
     _sets_equal(idx, knn_periodic(torch.from_numpy(pos), k, 1.0))
+
+
+def _s_table(pos, codes, spill, k, grid):
+    """The plan build's S table from one side's codes (same spec both sides)."""
+    n, g = pos.shape[0], grid.grid_size
+    spec = cellblock._plan_spec(g, n / g**2, n / g**3, 256, None)
+    plan = cellblock.build_cellblock(
+        torch.from_numpy(pos), None, 1.0, spec, neighbor_codes=codes,
+        codes_cap=codes_packing_cap(n, k, grid), codes_spill=spill,
+    )
+    return plan.s_table, int(plan.dropped_edges)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_codes_mode_matches_jax_kernel(case):
+    make, k, grid_spec, bit_exact = CASES[case]
+    pos = make()
+    n = pos.shape[0]
+    grid = CellGrid(*grid_spec) if grid_spec else choose_cell_grid(n, k)
+    jnone, jcodes, jspill, (jovf, jmax_d2, jexcess) = jax_pallas_cell_list_knn(
+        jnp.asarray(pos), k, 1.0, JaxCellGrid(*grid), return_diagnostics=True,
+        with_codes=True, codes_only=True, interpret=True,
+    )
+    none, codes, spill, (ovf, max_d2, excess) = pallas_cell_list_knn(
+        torch.from_numpy(pos), k, 1.0, grid, return_diagnostics=True, codes_only=True
+    )
+    assert none is None and jnone is None
+    assert codes.dtype == torch.int32 and codes.shape == (n, k)
+    assert (spill is None) == (jspill is None)
+    if spill is not None:
+        for a, b in zip(spill, jspill):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int(ovf) == int(jovf)
+    jcodes = torch.from_numpy(np.array(jcodes))
+    if bit_exact:
+        assert torch.equal(codes, jcodes)
+        assert np.float32(max_d2) == np.float32(jmax_d2)
+        assert np.float32(excess) == np.float32(jexcess)
+    else:
+        _sets_equal(codes, jcodes)
+        _close_ulps(max_d2, jmax_d2, jmax_d2)
+        _close_ulps(excess, jexcess, jmax_d2)
+        tspill = None if spill is None else tuple(torch.from_numpy(np.array(t)) for t in jspill)
+        s_port, drop_port = _s_table(pos, codes, spill, k, grid)
+        s_jax, drop_jax = _s_table(pos, jcodes, tspill, k, grid)
+        assert torch.equal(s_port, s_jax) and drop_port == drop_jax
+    assert (float(excess) <= 0) == (float(jexcess) <= 0)
+    if case.endswith("spill"):
+        cap = codes_packing_cap(n, k, grid)
+        assert int((codes >= 27 * cap).sum()) > 0  # picks reach the spill block
+
+
+def test_knn_codes_wrapper_takes_plain_version_on_cpu():
+    pos = torch.from_numpy(_spill(9))
+    n, k = pos.shape[0], 8
+    grid = CellGrid(8, 16)
+    cap, _, spill_cap = pallas_knn.spill_layout(n, k, grid)
+    box = torch.tensor(1.0)
+    t = pallas_knn.build_table(pos, grid.grid_size, cap, box)
+    spill = pallas_knn.build_spill(pos, t.particle_rank, cap, spill_cap)
+    args = dict(k=k, n=n, g=grid.grid_size, box=box,
+                mi_start=pallas_knn.min_image_start(cap, spill_cap))
+    planes = (t.x, t.y, t.z, t.ids)
+    codes, kth = knn_codes(planes, spill, **args)
+    ref_codes, ref_kth = knn_codes_reference(planes, spill, **args)
+    assert torch.equal(codes, ref_codes) and torch.equal(kth, ref_kth)
+    sentinel = 27 * cap + spill_cap
+    empty_rows = t.ids.reshape(-1) == n
+    assert (codes[empty_rows] == sentinel).all() and (kth[empty_rows] == 1e30).all()
+    assert bool((codes[~empty_rows] < sentinel).all())
+    # The same selection as the ids mode: each row's lanes name the same
+    # particles as its ids (continuous data has no distance ties).
+    ids, ids_kth = knn_select_reference(planes, spill, **args)
+    assert torch.equal(kth, ids_kth)
+    rows = torch.nonzero(~empty_rows).squeeze(1)
+    cand_ids = pallas_knn.candidate_rows(planes, spill, rows // cap, grid.grid_size, box)[3]
+    lane_ids = torch.gather(cand_ids, 1, codes[rows].long())
+    assert torch.equal(lane_ids.sort(1).values, ids[rows].sort(1).values)
 
 
 @pytest.mark.parametrize("box", [1.0, 3.7])

@@ -208,8 +208,11 @@ def test_unported_options_raise():
         rollout(tparams, tcfg, pos, temp, stats, 1, exactness_guard="fallback",
                 device="cpu")
     with pytest.raises(NotImplementedError):
-        rollout(tparams, tcfg, pos, temp, stats, 1, aggregation="cellblock_hybrid",
+        rollout(tparams, tcfg, pos, temp, stats, 1, aggregation="cellblock",
                 device="cpu")
+    with pytest.raises(NotImplementedError):
+        rollout(tparams, tcfg, pos, temp, stats, 1, aggregation="cellblock_hybrid",
+                cellblock_variable=True, device="cpu")
 
 
 def test_cuda_entry_points_raise_without_a_card():
