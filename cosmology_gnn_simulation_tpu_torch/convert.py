@@ -1,4 +1,4 @@
-"""Carry JAX parameters across to the port.
+"""Carry JAX parameters across to the port, and back.
 
 The JAX param pytree is nested dicts and tuples of arrays; the port uses the
 same tree of tensors, in the same ``w: [in, out]`` layout, with the
@@ -28,3 +28,9 @@ def params_from_jax(tree, device="cuda"):
         return torch.from_numpy(np.array(arr, dtype=np.float32)).to(device)
 
     return tree_map(convert, tree)
+
+
+def params_to_numpy(tree):
+    """The inverse of ``params_from_jax``: the same tree with each tensor as
+    a float32 numpy array on the host (tuples stay tuples)."""
+    return tree_map(lambda t: t.detach().float().cpu().numpy(), tree)

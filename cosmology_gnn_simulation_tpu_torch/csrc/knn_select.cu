@@ -33,6 +33,12 @@
 // the TPU kernel could not do (row gating serialized its pipeline). The
 // codes mode differs only in the payload (the lane index c instead of the
 // candidate's id), so both modes share the body as a template flag.
+// The list length KT is a template parameter, instantiated at 8, 16, 32, 64
+// and 128 (k <= 128, the TPU kernel's limit). At KT = 64 the list still
+// fits the registers (168, no spills); at KT = 128 it outgrows them and
+// the compiler spills about 200 bytes of it to local memory (L1-cached;
+// nvcc -Xptxas -v reports it): the same exact selection, slower per
+// candidate. A list in shared memory is the route if k > 64 ever matters.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -177,7 +183,7 @@ int dispatch(const float* tx, const float* ty, const float* tz, const int* tids,
              int num_cells, int g, int cap, int spill_cap, int k, int n,
              float box, int mi_start, int* out, float* out_kth, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k < 1 || k > 32) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > 128) return (int)cudaErrorInvalidValue;
   if (k <= 8)
     return (int)launch<8, CODES>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells,
                                  g, cap, spill_cap, k, n, box, mi_start, out,
@@ -186,9 +192,17 @@ int dispatch(const float* tx, const float* ty, const float* tz, const int* tids,
     return (int)launch<16, CODES>(tx, ty, tz, tids, sx, sy, sz, sids,
                                   num_cells, g, cap, spill_cap, k, n, box,
                                   mi_start, out, out_kth, s);
-  return (int)launch<32, CODES>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells,
-                                g, cap, spill_cap, k, n, box, mi_start, out,
-                                out_kth, s);
+  if (k <= 32)
+    return (int)launch<32, CODES>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells,
+                                  g, cap, spill_cap, k, n, box, mi_start, out,
+                                  out_kth, s);
+  if (k <= 64)
+    return (int)launch<64, CODES>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells,
+                                  g, cap, spill_cap, k, n, box, mi_start, out,
+                                  out_kth, s);
+  return (int)launch<128, CODES>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells,
+                                 g, cap, spill_cap, k, n, box, mi_start, out,
+                                 out_kth, s);
 }
 
 }  // namespace

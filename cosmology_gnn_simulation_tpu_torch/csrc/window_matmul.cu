@@ -23,6 +23,18 @@
 // rows past W and columns past H are zero-filled, so any QB (multiple of
 // 32), W (multiple of 8) and H (multiple of 8) work. wgmma, TMA and double
 // buffering are later work.
+//
+// K4^T, the S^T mode (the TPU kernel's s_rev3=True, run by
+// _aggregate_slots_bwd): the training backward of the same aggregation,
+//   dz[t*QB + q, :] = sum_{j<9} sum_{w<W} S_rev[t, j*W + w, q] * g_pad[start[t, j] + w, :]
+// with the reverse table S_rev [num_tiles, 9W, rev_lanes] int8 (the
+// transpose selection matrices; rev_lanes = QB rounded up to 128, lanes past
+// QB never set). Its A operand is S_rev's [W, rev_lanes] block read
+// transposed, so only the staging of S differs: each 8-byte load of a window
+// row's lanes is scattered into the [row q][window row w] stage the forward
+// mode reads, and the products, windows and f32 sums are K4's. Rows q >= QB
+// are computed from in-bounds lanes and dropped. Bound: as K4's, the 213 MB
+// of S_rev plus the padded bf16 cotangent and the f32 output, 87 us.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,6 +67,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// TRANS = false: s_table is S [num_tiles * qb, width], width = 9w.
+// TRANS = true: s_table is S_rev [num_tiles, 9w, width], width = rev_lanes.
+template <bool TRANS>
 __global__ void __launch_bounds__(THREADS, 2) window_matmul_kernel(
     const int8_t* __restrict__ s_table, const __nv_bfloat16* __restrict__ z_pad,
     const int* __restrict__ starts, float* __restrict__ out, int qb, int w,
@@ -82,15 +97,30 @@ __global__ void __launch_bounds__(THREADS, 2) window_matmul_kernel(
     const int start = starts[tile * 9 + j];
     for (int kk = 0; kk < w; kk += BK) {
       __syncthreads();
-      // S chunk: BM rows x BK int8, 8 bytes a load (W % 8 == 0, so a load
-      // is wholly inside or outside the window).
-      for (int i = threadIdx.x; i < BM * (BK / 8); i += THREADS) {
-        const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-        uint2 v = make_uint2(0u, 0u);
-        if (row0 + r < row_end && kk + c < w)
-          v = *reinterpret_cast<const uint2*>(
-              s_table + (size_t)(row0 + r) * width + j * w + kk + c);
-        *reinterpret_cast<uint2*>(s_stage + r * LDS + c) = v;
+      if (!TRANS) {
+        // S chunk: BM rows x BK int8, 8 bytes a load (W % 8 == 0, so a load
+        // is wholly inside or outside the window).
+        for (int i = threadIdx.x; i < BM * (BK / 8); i += THREADS) {
+          const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+          uint2 v = make_uint2(0u, 0u);
+          if (row0 + r < row_end && kk + c < w)
+            v = *reinterpret_cast<const uint2*>(
+                s_table + (size_t)(row0 + r) * width + j * w + kk + c);
+          *reinterpret_cast<uint2*>(s_stage + r * LDS + c) = v;
+        }
+      } else {
+        // S_rev chunk: BK window rows x BM lanes, 8 lanes a load, written
+        // transposed to the stage (lane q = row0 - tile * qb + c + b).
+        const int8_t* src = s_table + ((size_t)tile * 9 * w + j * w + kk) * width +
+                            (row0 - tile * qb);
+        for (int i = threadIdx.x; i < BK * (BM / 8); i += THREADS) {
+          const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
+          uint2 v = make_uint2(0u, 0u);
+          if (kk + r < w) v = *reinterpret_cast<const uint2*>(src + (size_t)r * width + c);
+          const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) s_stage[(c + e) * LDS + r] = b[e];
+        }
       }
       // Window chunk: BK rows x BN bf16 columns, 16 bytes a load.
       for (int i = threadIdx.x; i < BK * (BN / 8); i += THREADS) {
@@ -154,9 +184,28 @@ extern "C" int window_matmul_launch(const void* s_table, const void* z_pad,
   if (num_tiles == 0) return (int)cudaSuccess;
   const int mblocks = (qb + BM - 1) / BM;
   const dim3 grid((unsigned)(num_tiles * mblocks), (unsigned)((h + BN - 1) / BN));
-  window_matmul_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  window_matmul_kernel<false><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(s_table),
       static_cast<const __nv_bfloat16*>(z_pad), starts, out, qb, w, h, num_pad,
       width);
+  return (int)cudaGetLastError();
+}
+
+// S^T mode. s_rev [num_tiles, 9 * w, rev_lanes] int8 with rev_lanes % 128 == 0
+// and qb <= rev_lanes; g_pad [num_pad, h] bf16; starts and out as above.
+extern "C" int window_matmul_t_launch(const void* s_rev, const void* g_pad,
+                                      const int* starts, float* out, int num_tiles,
+                                      int qb, int w, int h, int num_pad, int rev_lanes,
+                                      void* stream) {
+  if (qb % 32 || w % 8 || h % 8 || rev_lanes % BM || qb > rev_lanes || qb <= 0 || w <= 0 ||
+      h <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (num_tiles == 0) return (int)cudaSuccess;
+  const int mblocks = (qb + BM - 1) / BM;
+  const dim3 grid((unsigned)(num_tiles * mblocks), (unsigned)((h + BN - 1) / BN));
+  window_matmul_kernel<true><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(s_rev),
+      static_cast<const __nv_bfloat16*>(g_pad), starts, out, qb, w, h, num_pad,
+      rev_lanes);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,16 @@
 """Graph featurization (counterpart of ``featurize.py``): noise-then-wrap
 positions, minimum-image finite-difference velocities, node features of
-normalized velocity + temperature history, the certified k-NN search, and
-the raw (non-minimum-image) edge features when the model reads them."""
+normalized velocity + temperature history, the certified k-NN search, the
+raw (non-minimum-image) edge features when the model reads them, and the
+training targets and sender-sorted edge stream."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from cosmology_gnn_simulation_tpu_torch.ops.aggregation import build_sorted_edges
 from cosmology_gnn_simulation_tpu_torch.ops.cell_list import choose_cell_grid
 from cosmology_gnn_simulation_tpu_torch.ops.neighbors import knn_periodic
 from cosmology_gnn_simulation_tpu_torch.ops.noise import (
@@ -89,28 +93,50 @@ def featurize(
     position_seq: torch.Tensor,
     temperature_seq: torch.Tensor,
     stats: NormalizationStats,
-    neighbors: torch.Tensor,
+    neighbors: Optional[torch.Tensor] = None,
     *,
+    generator: Optional[torch.Generator] = None,
     noise_std=0.0,
+    num_neighbors: Optional[int] = None,
+    neighbor_method: str = "auto",
+    neighbor_query_tile: int = 512,
+    target_position: Optional[torch.Tensor] = None,
+    target_temperature: Optional[torch.Tensor] = None,
     build_edges: bool = True,
-) -> ParticleGraph:
+    build_reverse: bool = False,
+    with_codes: bool = False,
+    codes_only: bool = False,
+):
     """Build a ``ParticleGraph`` from a ``[T, N, 3]`` / ``[T, N, 1]``
-    time-major window and the ``[N, k]`` neighbors of its last frame
-    (``neighbor_search_certified``; the caller searches, so it can keep the
-    certificate and reuse a table across steps). ``build_edges=False``
-    skips the ``[N, k, 4]`` edge features that the pruned model never
-    reads; ``neighbors`` may then be ``None`` (the cell-block path)."""
+    time-major window.
+
+    Neighbors: the caller's ``[N, k]`` table of the last frame
+    (``neighbor_search_certified``, so it can keep the certificate and reuse
+    a table across steps), or, with ``num_neighbors``, a search here on the
+    noised, wrapped last frame (the training path, whose noise the caller
+    cannot see). ``with_codes`` then returns ``(graph, codes, codes_cap,
+    spill)``, the cell-list kernel's codes for the cell-block plan (all None
+    when brute force served); with ``codes_only`` the ids are not made.
+    ``build_edges=False`` skips the ``[N, k, 4]`` edge features the pruned
+    model never reads (``neighbors`` may then be None: the cell-block path).
+
+    Training: ``noise_std`` adds the random-walk noise drawn from
+    ``generator``; ``target_position`` / ``target_temperature`` ``[N, 3]`` /
+    ``[N, 1]`` attach the normalized targets, shifted by the last noise
+    frame; ``build_reverse`` attaches the sender-sorted edge stream
+    (``graph.sorted_edges``) for the scatter-free aggregation backward.
+    """
     box = stats.box_size
     dt = stats.dt
     pos_seq = position_seq.float().transpose(0, 1)  # [N, T, 3]
     temp_seq = temperature_seq.float().transpose(0, 1)
 
-    pos_seq = wrap_positions(
-        pos_seq + random_walk_position_noise(pos_seq, noise_std, dt), box
+    position_noise = random_walk_position_noise(pos_seq, noise_std, dt, generator)
+    pos_seq = wrap_positions(pos_seq + position_noise, box)
+    temperature_noise = random_walk_temperature_noise(
+        temp_seq, noise_std, stats.temp_rate_std, dt, generator
     )
-    temp_seq = temp_seq + random_walk_temperature_noise(
-        temp_seq, noise_std, stats.temp_rate_std, dt
-    )
+    temp_seq = temp_seq + temperature_noise
 
     recent_position = pos_seq[:, -1]
     velocity_seq = min_image_displacement(pos_seq[:, 1:] - pos_seq[:, :-1], box) / dt
@@ -120,11 +146,42 @@ def featurize(
     nodes = torch.cat(
         [normal_velocity.reshape(n, -1), normal_temp.reshape(n, -1)], dim=-1
     )
+    codes = codes_cap = spill = None
+    if num_neighbors is not None:
+        if neighbors is not None:
+            raise ValueError("pass neighbors or num_neighbors, not both")
+        if codes_only and (build_edges or build_reverse):
+            raise ValueError("codes_only returns no neighbor ids: incompatible "
+                             "with build_edges/build_reverse")
+        found = neighbor_search_certified(
+            recent_position, num_neighbors, box, method=neighbor_method,
+            query_tile=neighbor_query_tile, with_codes=with_codes, codes_only=codes_only,
+        )
+        neighbors = found[0]
+        if with_codes:
+            codes, codes_cap, spill = found[1:4]
     edges = None
     if build_edges:
         # Raw sender - receiver displacement, deliberately NOT minimum-image
         # (the reference's edge features).
         disp = recent_position[neighbors] - recent_position[:, None, :]
         edges = torch.cat([disp, torch.linalg.norm(disp, dim=-1, keepdim=True)], dim=-1)
-    return ParticleGraph(nodes=nodes, neighbors=neighbors, edges=edges,
-                         positions=recent_position)
+    sorted_edges = build_sorted_edges(neighbors) if build_reverse else None
+
+    target_acceleration = target_temp_rate = None
+    if target_position is not None:
+        shifted = target_position.float() + position_noise[:, -1]
+        next_velocity = min_image_displacement(shifted - recent_position, box) / dt
+        acceleration = (next_velocity - velocity_seq[:, -1]) / dt
+        target_acceleration = (acceleration - stats.acc_mean) / stats.acc_std
+    if target_temperature is not None:
+        shifted_temp = target_temperature.float() + temperature_noise[:, -1]
+        temp_rate = (shifted_temp - temp_seq[:, -1]) / dt
+        target_temp_rate = (temp_rate - stats.temp_rate_mean) / stats.temp_rate_std
+    graph = ParticleGraph(nodes=nodes, neighbors=neighbors, edges=edges,
+                          positions=recent_position,
+                          target_acceleration=target_acceleration,
+                          target_temp_rate=target_temp_rate, sorted_edges=sorted_edges)
+    if with_codes:
+        return graph, codes, codes_cap, spill
+    return graph

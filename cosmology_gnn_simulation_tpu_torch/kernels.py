@@ -8,7 +8,9 @@ a hash of their source and flags, so an edited source is rebuilt and a
 stale library is never loaded.
 
 ``launches[name]`` counts the launches of kernel ``name`` (one source may
-host several: ``knn_select.cu`` has ``knn_select`` and ``knn_codes``): each
+host several: ``knn_select.cu`` has ``knn_select`` and ``knn_codes``,
+``window_matmul.cu`` has ``window_matmul`` and its S^T mode
+``window_matmul_t``): each
 wrapper adds one where it launches its kernel and nowhere else, so a caller
 can zero the counts, drive a path, and see which kernels it went through.
 """
@@ -29,9 +31,10 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
-SOURCES = ("knn_select", "fused_tail", "s_decode", "s_onehot", "window_matmul")
-KERNELS = ("knn_select", "knn_codes", "s_decode", "s_onehot", "window_matmul",
-           "fused_tail")
+SOURCES = ("knn_select", "fused_tail", "fused_tail_bwd", "s_decode", "s_onehot",
+           "window_matmul", "reverse_table")
+KERNELS = ("knn_select", "knn_codes", "s_decode", "s_onehot", "reverse_table",
+           "window_matmul", "window_matmul_t", "fused_tail", "fused_tail_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,6 +1,6 @@
 """Encode-Process-Decode interaction network (counterpart of
-``models/encode_process_decode.py``), forward pass, gather or hybrid
-cell-block aggregation.
+``models/encode_process_decode.py``), gather or hybrid cell-block
+aggregation, differentiable on both.
 
 Semantics of the JAX package, kept exactly:
 
@@ -15,11 +15,13 @@ Semantics of the JAX package, kept exactly:
   ``dtype`` z is carried in that dtype through the gather.
 
 The gather-sum stays plain PyTorch (``index_select`` + ``sum``): in the JAX
-package it is XLA, not a Pallas kernel. When the graph carries a cell-block
-plan (``cellblock_mode="hybrid"``) the aggregation is instead the window
-matmul K4 (``ops/cellblock.py``) on the cell-sorted rows. With
-``fused_tail`` the step's tail after the aggregation is the CUDA kernel K5
-(``ops/fused_step.py``).
+package it is XLA, not a Pallas kernel; with ``graph.sorted_edges`` its
+backward is the sorted-edge segment sum (``ops/aggregation.py``). When the
+graph carries a cell-block plan (``cellblock_mode="hybrid"``) the
+aggregation is instead the window matmul K4 (``ops/cellblock.py``) on the
+cell-sorted rows, whose backward is its S^T mode K4^T over the plan's
+reverse table. With ``fused_tail`` the step's tail after the aggregation is
+the CUDA kernel K5, with K6 as its backward (``ops/fused_step.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,10 @@ from cosmology_gnn_simulation_tpu_torch.models.mlp import (
     init_mlp,
     layer_norm,
     matmul,
+)
+from cosmology_gnn_simulation_tpu_torch.ops.aggregation import (
+    aggregate_sender_latents,
+    gather_sum,
 )
 from cosmology_gnn_simulation_tpu_torch.ops.cellblock import cellblock_aggregate
 from cosmology_gnn_simulation_tpu_torch.ops.fused_step import fused_step_tail
@@ -56,6 +62,10 @@ class EncodeProcessDecodeConfig(NamedTuple):
     aggregate: str = "sender_latents"  # or "edge_messages"
     prune_dead_edge_stream: bool = True
     fused_tail: bool = False
+    # Activation checkpointing (the JAX config's remat / remat_chunk): not
+    # ported; any other value than the default raises.
+    remat: bool = False
+    remat_chunk: Optional[int] = None
 
 
 def default_model_config(
@@ -126,26 +136,17 @@ def _mlp_tail(params: Params, h: torch.Tensor, dtype) -> torch.Tensor:
     return h
 
 
-# Above this many bytes for the gathered [N, k, H] tensor (counted at 4 B an
-# element, as in the JAX package), the gather-sum runs over row chunks.
-_GATHER_CHUNK_BYTES = 1 << 28
+def _gather_sum(values: torch.Tensor, neighbors: torch.Tensor, sorted_edges=None) -> torch.Tensor:
+    """``out[i] = sum_j values[neighbors[i, j]]`` in ``values.dtype``. With
+    ``sorted_edges`` (training graphs) the backward is the sorted-edge
+    segment sum (``ops/aggregation.py``); without, autograd's own."""
+    if sorted_edges is not None:
+        return aggregate_sender_latents(values, neighbors, sorted_edges)
+    return gather_sum(values, neighbors)
 
 
-def _gather_sum(values: torch.Tensor, neighbors: torch.Tensor) -> torch.Tensor:
-    """``out[i] = sum_j values[neighbors[i, j]]``, summed in f32 and returned
-    in ``values.dtype``; chunked so the gathered rows stay under ~256 MB."""
-    n, k = neighbors.shape
-    h = values.shape[-1]
-    rows = max(1, _GATHER_CHUNK_BYTES // (k * h * 4))
-    out = torch.empty((n, h), dtype=values.dtype, device=values.device)
-    for start in range(0, n, rows):
-        nb = neighbors[start:start + rows]
-        gathered = values.index_select(0, nb.reshape(-1)).view(nb.shape[0], k, h)
-        out[start:start + rows] = gathered.sum(dim=1, dtype=torch.float32)
-    return out
-
-
-def _processor_step(x, e, neighbors, params: Params, aggregate: str, dtype):
+def _processor_step(x, e, neighbors, params: Params, aggregate: str, dtype,
+                    sorted_edges=None):
     """One unpruned InteractionNetwork step (pre-residual outputs)."""
     latent = x.shape[-1]
     edge_first = params["edge"]["layers"][0]
@@ -161,7 +162,7 @@ def _processor_step(x, e, neighbors, params: Params, aggregate: str, dtype):
     node_first = params["node"]["layers"][0]
     w_self, w_agg = node_first["w"][:latent], node_first["w"][latent:]
     if aggregate == "sender_latents":
-        agg_h = _gather_sum(matmul(x, w_agg, dtype), neighbors)
+        agg_h = _gather_sum(matmul(x, w_agg, dtype), neighbors, sorted_edges)
     elif aggregate == "edge_messages":
         agg_h = matmul(e_new.sum(dim=1), w_agg, dtype)
     else:
@@ -171,7 +172,7 @@ def _processor_step(x, e, neighbors, params: Params, aggregate: str, dtype):
 
 
 def _pruned_processor_step(x, neighbors, params: Params, dtype, fused_tail: bool,
-                           cellblock=None, cellblock_spec=None):
+                           cellblock=None, cellblock_spec=None, sorted_edges=None):
     """Node-stream-only step under ``sender_latents`` aggregation. With
     ``fused_tail`` it returns the full new carry (residual included, kernel
     K5); otherwise the pre-residual step output. With a ``cellblock`` plan
@@ -191,7 +192,7 @@ def _pruned_processor_step(x, neighbors, params: Params, dtype, fused_tail: bool
             # The gather-sum is the bandwidth-dominant op of the step; carry
             # it in the reduced dtype, as the JAX package does.
             z = z.to(dtype)
-        agg_h = _gather_sum(z, neighbors)
+        agg_h = _gather_sum(z, neighbors, sorted_edges)
     if fused_tail:
         # The kernel widens agg on read: no f32 copy of it is made.
         return fused_step_tail(
@@ -239,20 +240,24 @@ def apply_encode_process_decode(
             "fused_tail requires the pruned sender_latents mode (the edge "
             "stream's tail is not fused)"
         )
+    if config.remat or (config.remat_chunk or 0) > 1:
+        raise NotImplementedError("remat / remat_chunk (activation checkpointing) "
+                                  "is not ported")
     x = apply_mlp(params["encoder"]["node"], graph.nodes, dtype)
     m = config.num_message_passing_steps
     if prune:
         for i in range(m):
             x_new = _pruned_processor_step(
                 x, graph.neighbors, step_params(params, i), dtype, config.fused_tail,
-                graph.cellblock, cellblock_spec,
+                graph.cellblock, cellblock_spec, graph.sorted_edges,
             )
             x = x_new if config.fused_tail else x + x_new
     else:
         e = apply_mlp(params["encoder"]["edge"], graph.edges, dtype)
         for i in range(m):
             x_new, e_new = _processor_step(
-                x, e, graph.neighbors, step_params(params, i), config.aggregate, dtype
+                x, e, graph.neighbors, step_params(params, i), config.aggregate, dtype,
+                graph.sorted_edges,
             )
             x, e = x + x_new, e + e_new
     return {

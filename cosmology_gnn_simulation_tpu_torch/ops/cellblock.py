@@ -1,13 +1,17 @@
 """Cell-block neighbor aggregation (counterpart of ``ops/cellblock.py``):
 the aggregation ``agg[i] = sum_j z[neighbors[i, j]]`` as selection-matrix
-products over a periodic cell decomposition, around three CUDA kernels:
+products over a periodic cell decomposition, around five CUDA kernels:
 
 * K2 ``s_decode`` (``csrc/s_decode.cu``, the Pallas ``_s_from_codes_fused``):
   the k-NN kernel's candidate codes -> per-edge S-lane offsets;
 * K3 ``s_onehot`` (``csrc/s_onehot.cu``, the Pallas ``_s_from_offsets``):
   offsets -> int8 S rows of multiplicity counts;
+* K7 ``reverse_table`` (``csrc/reverse_table.cu``, the Pallas
+  ``_reverse_table_kernel``): the transpose table S_rev for training;
 * K4 ``window_matmul`` (``csrc/window_matmul.cu``, the Pallas
-  ``_window_kernel``): per query tile ``out = sum_j S_j @ window_j``.
+  ``_window_kernel``): per query tile ``out = sum_j S_j @ window_j``, and
+  its S^T mode K4^T ``window_matmul_t`` (the Pallas kernel's ``s_rev3``),
+  the aggregation's backward ``dz = sum_j S_rev_j^T @ window_j(g)``.
 
 Layout (the JAX package's, kept exactly so the S table is bit-equal):
 particles sort by cell id and pack per (gx, gy) COLUMN, column ``col``
@@ -19,16 +23,19 @@ for each of the 9 columns of its 3x3 ring, one contiguous window of W
 padded rows starting at ``window_starts[t, j]`` (floored to 16 rows, as the
 TPU's sublane tiling wanted; the S lane offsets depend on it). S row ``q``
 holds, at lane ``j * W + off``, how many of q's k neighbors sit at offset
-``off`` of window ``j``.
+``off`` of window ``j``. S_rev holds, per SENDER tile, how many edges each
+of its slots sends to each row of its 9 windows.
 
 Exact (gather-sum up to summation order) whenever ``overflow == 0`` and
-``dropped_edges == 0``; both are counted, never silent.
+``dropped_edges == 0``; both are counted, never silent. The backward is
+exact when ``reverse_mismatch == 0`` too.
 
 Ported: the uniform cubic layout, the codes path of the plan build in the
-particle codes layout, and the forward aggregation. Not ported (each raises
-``NotImplementedError``): plans from neighbor ids (the aux path), the
-reverse table and slot-space VJP (training), variable capacities, the table
-codes layout, the dense search, non-cubic grids and validity masks.
+particle codes layout (with the reverse table), and the hybrid aggregation
+with its backward (expand and compact as monotone gathers both ways). Not
+ported (each raises ``NotImplementedError``): plans from neighbor ids (the
+aux path), variable capacities, the table codes layout, the dense search,
+non-cubic grids and validity masks.
 """
 
 from __future__ import annotations
@@ -115,6 +122,13 @@ class CellBlockSpec(NamedTuple):
     @property
     def s_width(self) -> int:
         return 9 * self.window
+
+    @property
+    def rev_lanes(self) -> int:
+        """The reverse table's minor dimension: QB rounded up to 128 (the TPU
+        kernel's lane padding, kept so the table is bit-equal); lanes past QB
+        are never set."""
+        return _round_up(self.query_block, _LANE)
 
     def validate(self) -> None:
         """The JAX spec checks of the uniform layout (the window and wrap
@@ -222,6 +236,11 @@ class CellBlockGraph(NamedTuple):
       dropped_edges:   scalar — edges S cannot represent although their
                        receiver has a slot.
       window_overflow: scalar — most rows a tile's needed range exceeds W by.
+      s_rev_table:     ``[num_tiles, 9W, rev_lanes]`` int8 or None — the
+                       transpose selection matrices (``with_reverse=True``),
+                       read by the aggregation's backward.
+      reverse_mismatch: scalar or None — (edges in S) - (edges in S_rev);
+                       0 certifies S_rev as the exact transpose of S.
     """
 
     order: torch.Tensor
@@ -233,6 +252,8 @@ class CellBlockGraph(NamedTuple):
     overflow: torch.Tensor
     dropped_edges: torch.Tensor
     window_overflow: torch.Tensor
+    s_rev_table: Optional[torch.Tensor] = None
+    reverse_mismatch: Optional[torch.Tensor] = None
 
 
 # The 27 neighbor-cell offsets of the k-NN codes, dx slowest.
@@ -245,7 +266,9 @@ class CellBlockLayout(NamedTuple):
     the codes decode reads — each sorted particle's z-cell, the clipped
     compact start of every cell within its column ``cstart_rel [C, G]``,
     and the per-(tile, ring column) window constants ``tile_const
-    [T, 45]`` int32 (``[w_loc, cP, m, cA, cstart_g1]`` at ``j * 5 + i``)."""
+    [T, 45]`` int32 (``[w_loc, cP, m, cA, cstart_g1]`` at ``j * 5 + i``) —
+    and each column's count of wrap rows before its main rows ``c_pre
+    [C]`` (the reverse table's main-image positions)."""
 
     order: torch.Tensor
     slot_of_sorted: torch.Tensor
@@ -257,6 +280,7 @@ class CellBlockLayout(NamedTuple):
     sorted_cz: torch.Tensor
     cstart_rel: torch.Tensor
     tile_const: torch.Tensor
+    c_pre: torch.Tensor
 
 
 def cellblock_layout(positions: torch.Tensor, box_size, spec: CellBlockSpec) -> CellBlockLayout:
@@ -347,24 +371,34 @@ def cellblock_layout(positions: torch.Tensor, box_size, spec: CellBlockSpec) -> 
         order=order, slot_of_sorted=slot_of_sorted, particle_of_slot=particle_of_slot,
         pad_src=pad_src, window_starts=window_starts, overflow=overflow,
         window_overflow=window_overflow, sorted_cz=sorted_cz, cstart_rel=cstart_rel,
-        tile_const=tile_const,
+        tile_const=tile_const, c_pre=c_pre,
     )
 
 
-def s_decode_inputs(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes_cap: int,
-                    codes_spill, spec: CellBlockSpec):
-    """K2's inputs: ``(codes [num_slots, k], qz_slot [num_slots],
-    cstart27 [G^3, 27], tile_const [T, 45])``, all int32 — the k-NN codes
-    moved to their query's slot and pre-normalized (the JAX ``_invalidate``
-    / ``_resolve``): ring picks stay ``j27 * cap + rank``; resolved spill
-    senders become ``27 * cap + jring * (CC * G) + r * G + cz``; real spill
-    senders outside the 3x3 ring ``DROP_MARK``; everything else (empty
-    slots, unused spill lanes) ``INVALID``."""
+class SlotCodes(NamedTuple):
+    """The k-NN codes moved to their query's slot, with what decoding them
+    reads: ``codes [num_slots, k]`` int32 (empty slots and slotless
+    particles' rows hold an always-invalid sentinel), the slot's query
+    z-cell ``qz_slot [num_slots]``, the compact starts of each cell's 27
+    neighbor cells in code order ``cstart27 [G^3, 27]``, and each spill
+    candidate's packed sender ``slot * G + cz`` (``sp_aux [spill_len]``, the
+    overflow sentinel ``num_slots * G`` past capacity; None without a spill
+    block)."""
+
+    codes: torch.Tensor
+    qz_slot: torch.Tensor
+    cstart27: torch.Tensor
+    sp_aux: Optional[torch.Tensor]
+
+
+def slot_codes(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes_cap: int,
+               codes_spill, spec: CellBlockSpec) -> SlotCodes:
+    """Move the k-NN codes to their query's slot (the JAX plan build's codes
+    path, particle layout, up to its decode)."""
     g, cc = spec.grid_size, spec.col_capacity
     num_slots = spec.num_slots
-    n, k = neighbor_codes.shape
+    k = neighbor_codes.shape[1]
     dev = neighbor_codes.device
-    codes = neighbor_codes.to(torch.int32)
     spill_len = 0 if codes_spill is None else codes_spill[0].shape[0]
     # Always-invalid code for empty slots: past the ring and the spill block.
     code_sentinel = 27 * codes_cap + spill_len
@@ -375,29 +409,48 @@ def s_decode_inputs(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes
     slot_of_particle[order] = slot_of_sorted
     codes_slots = torch.full((num_slots + 1, k), code_sentinel, dtype=torch.int32,
                              device=dev)
-    codes_slots[slot_of_particle] = codes
-    codes_slots = codes_slots[:num_slots]
+    codes_slots[slot_of_particle] = neighbor_codes.to(torch.int32)
     qz_slot = torch.zeros(num_slots + 1, dtype=torch.int32, device=dev)
     qz_slot[slot_of_sorted] = layout.sorted_cz.to(torch.int32)
-    qz_slot = qz_slot[:num_slots]
-
-    res_base = 27 * codes_cap
-    ccg = cc * g
-    drop_mark = res_base + 9 * ccg
-    invalid = drop_mark + 1
-    normalized = torch.where(codes_slots >= res_base, invalid, codes_slots)
+    # Compact starts of each cell's 27 neighbor cells, in code order.
+    cstart3 = layout.cstart_rel.reshape(g, g, g)
+    cstart27 = torch.stack(
+        [torch.roll(cstart3, (-dx, -dy, -dz), dims=(0, 1, 2)) for dx, dy, dz in _OFFSETS27],
+        dim=-1,
+    ).reshape(g**3, 27).to(torch.int32).contiguous()
+    sp_aux = None
     if spill_len:
-        # Branch-free: without live spill codes this reduces to the plain
-        # invalidation above, as the two arms of the JAX lax.cond do.
         sp_cells = torch.clamp(codes_spill[0].long(), 0, g**3 - 1)
         sp_col, sp_cz = sp_cells // g, sp_cells % g
         sp_rs = layout.cstart_rel.reshape(-1)[sp_cells] + codes_spill[1].long()
         sp_in = sp_rs < cc
         sp_slot = torch.where(sp_in, sp_col * cc + sp_rs, num_slots)
         sp_aux = sp_slot * g + torch.where(sp_in, sp_cz, 0)
+    return SlotCodes(codes=codes_slots[:num_slots], qz_slot=qz_slot[:num_slots],
+                     cstart27=cstart27, sp_aux=sp_aux)
+
+
+def _normalized_codes(sc: SlotCodes, codes_cap: int, spec: CellBlockSpec) -> torch.Tensor:
+    """K2's pre-normalized codes (the JAX ``_invalidate`` / ``_resolve``):
+    ring picks stay ``j27 * cap + rank``; resolved spill senders become
+    ``27 * cap + jring * (CC * G) + r * G + cz``; real spill senders outside
+    the 3x3 ring ``DROP_MARK``; everything else ``INVALID``."""
+    g, cc = spec.grid_size, spec.col_capacity
+    num_slots = spec.num_slots
+    codes_slots = sc.codes
+    dev = codes_slots.device
+    res_base = 27 * codes_cap
+    ccg = cc * g
+    drop_mark = res_base + 9 * ccg
+    invalid = drop_mark + 1
+    normalized = torch.where(codes_slots >= res_base, invalid, codes_slots)
+    if sc.sp_aux is not None:
+        # Branch-free: without live spill codes this reduces to the plain
+        # invalidation above, as the two arms of the JAX lax.cond do.
+        spill_len = sc.sp_aux.shape[0]
         sp_idx = codes_slots.long() - res_base
         is_sp = (sp_idx >= 0) & (sp_idx < spill_len)
-        aux_sp = sp_aux[torch.clamp(sp_idx, 0, spill_len - 1)]
+        aux_sp = sc.sp_aux[torch.clamp(sp_idx, 0, spill_len - 1)]
         slot_sp = aux_sp // g
         real = is_sp & (slot_sp < num_slots)
         col_sp = slot_sp // cc
@@ -408,14 +461,60 @@ def s_decode_inputs(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes
         packed_sp = res_base + (dxm * 3 + dym) * ccg + (slot_sp % cc) * g + aux_sp % g
         v = torch.where(in3, packed_sp, torch.where(real, drop_mark, invalid))
         normalized = torch.where(is_sp, v.to(torch.int32), normalized)
+    return normalized.contiguous()
 
-    # Compact starts of each cell's 27 neighbor cells, in code order.
-    cstart3 = layout.cstart_rel.reshape(g, g, g)
-    cstart27 = torch.stack(
-        [torch.roll(cstart3, (-dx, -dy, -dz), dims=(0, 1, 2)) for dx, dy, dz in _OFFSETS27],
-        dim=-1,
-    ).reshape(g**3, 27).to(torch.int32).contiguous()
-    return normalized.contiguous(), qz_slot.contiguous(), cstart27, layout.tile_const
+
+def s_decode_inputs(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes_cap: int,
+                    codes_spill, spec: CellBlockSpec):
+    """K2's inputs: ``(codes [num_slots, k], qz_slot [num_slots],
+    cstart27 [G^3, 27], tile_const [T, 45])``, all int32 — the k-NN codes
+    moved to their query's slot and pre-normalized (``slot_codes``,
+    ``_normalized_codes``)."""
+    sc = slot_codes(layout, neighbor_codes, codes_cap, codes_spill, spec)
+    return (_normalized_codes(sc, codes_cap, spec), sc.qz_slot.contiguous(), sc.cstart27,
+            layout.tile_const)
+
+
+def sender_packs(sc: SlotCodes, codes_cap: int, spec: CellBlockSpec) -> torch.Tensor:
+    """Each slot's k sender PACK ids ``col * CC + rank`` ``[num_slots, k]``
+    int32, ``num_slots`` where there is no sender (the JAX codes path's
+    arithmetic decode, which its reverse build reads): a ring code names
+    the neighbor cell ``j27`` of the query's cell and the sender's rank in
+    it; a spill code reads the spill candidate's packed sender."""
+    g, cc = spec.grid_size, spec.col_capacity
+    num_slots = spec.num_slots
+    dev = sc.codes.device
+    codes = sc.codes.long()
+    col_q = (torch.arange(num_slots, device=dev) // cc)[:, None]
+    j27 = codes // codes_cap
+    rank = codes - j27 * codes_cap
+    valid = j27 < 27
+    j27 = torch.where(valid, j27, 0)
+    start = torch.gather(sc.cstart27.long()[col_q[:, 0] * g + sc.qz_slot.long()], 1, j27)
+    scol = ((col_q // g + j27 // 9 - 1) % g) * g + (col_q % g + (j27 // 3) % 3 - 1) % g
+    sr = start + rank
+    pack = torch.where(valid & (sr < cc), scol * cc + sr, num_slots)
+    if sc.sp_aux is not None:
+        spill_len = sc.sp_aux.shape[0]
+        sp_idx = codes - 27 * codes_cap
+        is_sp = (sp_idx >= 0) & (sp_idx < spill_len)
+        pack = torch.where(is_sp, sc.sp_aux[torch.clamp(sp_idx, 0, spill_len - 1)] // g, pack)
+    return pack.to(torch.int32)
+
+
+def reverse_candidates(packs: torch.Tensor, layout: CellBlockLayout,
+                       spec: CellBlockSpec) -> torch.Tensor:
+    """K7's input ``[num_padded, k + 1]`` int32: per padded-image row, the
+    sender packs of its particle's neighbor list and, last, the padded row
+    of the particle's main image (``num_slots`` throughout for unused
+    rows)."""
+    cc = spec.col_capacity
+    num_slots = spec.num_slots
+    slots = torch.arange(num_slots, device=packs.device)
+    main_pos = (slots // cc) * spec.padded_col + layout.c_pre[slots // cc] + slots % cc
+    packed = torch.cat([packs, main_pos.to(torch.int32)[:, None]], dim=1)
+    packed = torch.cat([packed, packed.new_full((1, packed.shape[1]), num_slots)])
+    return packed.index_select(0, layout.pad_src).contiguous()
 
 
 def build_cellblock(
@@ -439,7 +538,9 @@ def build_cellblock(
     ``pallas_cell_list_knn(..., codes_only=True)`` returned on the SAME grid
     size as ``spec.grid_size``, ``codes_cap`` its ``codes_packing_cap``.
     The S table is built by K2 then K3 (``s_build="kernel"``, the JAX
-    package's kernel route). Every other input form raises
+    package's kernel route). ``with_reverse=True`` (training) also builds
+    the reverse table with K7 from each slot's decoded sender packs, and
+    ``reverse_mismatch``. Every other input form raises
     ``NotImplementedError``.
     """
     if neighbors is not None or neighbor_codes is None:
@@ -449,8 +550,6 @@ def build_cellblock(
         )
     if codes_cap is None:
         raise ValueError("neighbor_codes and codes_cap go together")
-    if with_reverse:
-        raise NotImplementedError("the reverse table (with_reverse) is not ported")
     if s_build != "kernel":
         raise NotImplementedError(f"s_build={s_build!r} is not ported (only 'kernel')")
     if valid is not None:
@@ -463,18 +562,28 @@ def build_cellblock(
         raise ValueError(f"k={neighbor_codes.shape[1]} exceeds 127 — S-table "
                          "entries are int8 counts")
     layout = cellblock_layout(positions, box_size, spec)
-    offsets = s_decode(*s_decode_inputs(layout, neighbor_codes, codes_cap, codes_spill, spec),
-                       spec=spec, codes_cap=codes_cap)
+    sc = slot_codes(layout, neighbor_codes, codes_cap, codes_spill, spec)
+    offsets = s_decode(_normalized_codes(sc, codes_cap, spec), sc.qz_slot.contiguous(),
+                       sc.cstart27, layout.tile_const, spec=spec, codes_cap=codes_cap)
+    s_table = s_onehot(offsets, width=spec.s_width)
+    s_rev_table = reverse_mismatch = None
+    if with_reverse:
+        packed = reverse_candidates(sender_packs(sc, codes_cap, spec), layout, spec)
+        s_rev_table = reverse_table(packed, layout.window_starts, spec=spec)
+        reverse_mismatch = (s_table.sum(dtype=torch.int64)
+                            - s_rev_table.sum(dtype=torch.int64))
     return CellBlockGraph(
         order=layout.order,
         slot_of_sorted=layout.slot_of_sorted,
         particle_of_slot=layout.particle_of_slot,
         pad_src=layout.pad_src,
         window_starts=layout.window_starts,
-        s_table=s_onehot(offsets, width=spec.s_width),
+        s_table=s_table,
         overflow=layout.overflow,
         dropped_edges=(offsets == spec.s_width + 1).sum(),
         window_overflow=layout.window_overflow,
+        s_rev_table=s_rev_table,
+        reverse_mismatch=reverse_mismatch,
     )
 
 
@@ -550,12 +659,17 @@ def _lib(name: str):
     lib = kernels.library(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "s_decode":
-        lib.s_decode_launch.argtypes = [p] * 5 + [i] * 7 + [p]
+        entries = {"s_decode_launch": [p] * 5 + [i] * 7 + [p]}
     elif name == "s_onehot":
-        lib.s_onehot_launch.argtypes = [p, p, i, i, i, p]
+        entries = {"s_onehot_launch": [p, p, i, i, i, p]}
+    elif name == "reverse_table":
+        entries = {"reverse_table_launch": [p] * 3 + [i] * 5 + [p]}
     else:
-        lib.window_matmul_launch.argtypes = [p] * 4 + [i] * 6 + [p]
-    getattr(lib, f"{name}_launch").restype = i
+        entries = {"window_matmul_launch": [p] * 4 + [i] * 6 + [p],
+                   "window_matmul_t_launch": [p] * 4 + [i] * 6 + [p]}
+    for entry, argtypes in entries.items():
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = i
     return lib
 
 
@@ -644,24 +758,124 @@ def s_onehot(offsets: torch.Tensor, *, width: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Slot space and K4, the window matmul
+# K7: the reverse table
+# ---------------------------------------------------------------------------
+
+# Query tiles per chunk of the plain window matmuls and reverse table
+# (bounds their gathered [tiles, W, ...] windows).
+_PLAIN_TILES = 64
+
+
+def reverse_table_reference(packed: torch.Tensor, window_starts: torch.Tensor, *,
+                            spec: CellBlockSpec) -> torch.Tensor:
+    """Plain PyTorch version of K7 (the Pallas ``_reverse_table_kernel``):
+    ``S_rev [num_tiles, 9W, rev_lanes]`` int8, where entry ``(t, j*W + p,
+    q)`` counts the senders ``t * QB + q`` in the neighbor list of padded
+    row ``window_starts[t, j] + p`` of ``packed [num_padded, k + 1]`` (see
+    ``reverse_candidates``), if that row speaks for its particle: it is the
+    particle's main image, or the main image lies outside the window."""
+    qb, w, lanes = spec.query_block, spec.window, spec.rev_lanes
+    num_tiles = window_starts.shape[0]
+    k = packed.shape[1] - 1
+    dev = packed.device
+    offs = torch.arange(w, device=dev)
+    out = torch.empty((num_tiles, 9 * w, lanes), dtype=torch.int8, device=dev)
+    for t0 in range(0, num_tiles, _PLAIN_TILES):
+        t1 = min(t0 + _PLAIN_TILES, num_tiles)
+        starts = window_starts[t0:t1].long()[:, :, None]  # [T, 9, 1]
+        rows = starts + offs  # [T, 9, W]
+        win = packed[rows].long()  # [T, 9, W, k + 1]
+        main = win[..., k]
+        canonical = (main == rows) | (main < starts) | (main >= starts + w)
+        local = win[..., :k] - (torch.arange(t0, t1, device=dev) * qb)[:, None, None, None]
+        ok = canonical[..., None] & (local >= 0) & (local < qb)
+        row_ids = torch.arange((t1 - t0) * 9 * w, device=dev).view(t1 - t0, 9, w, 1)
+        size = (t1 - t0) * 9 * w * lanes
+        flat = torch.where(ok, row_ids * lanes + local, size)
+        counts = torch.zeros(size + 1, dtype=torch.int32, device=dev)
+        counts.index_add_(0, flat.reshape(-1), torch.ones(flat.numel(), dtype=torch.int32,
+                                                          device=dev))
+        out[t0:t1] = counts[:-1].view(t1 - t0, 9 * w, lanes).to(torch.int8)
+    return out
+
+
+def reverse_table(packed: torch.Tensor, window_starts: torch.Tensor, *,
+                  spec: CellBlockSpec) -> torch.Tensor:
+    """K7: the reverse selection table (see ``reverse_table_reference``;
+    ``k <= 127``, so counts fit int8). CPU tensors take the plain version;
+    CUDA tensors launch ``csrc/reverse_table.cu`` or raise."""
+    if packed.device.type == "cpu":
+        return reverse_table_reference(packed, window_starts, spec=spec)
+    k = packed.shape[1] - 1
+    if not 1 <= k <= 127:
+        raise ValueError(f"reverse_table kernel takes 1 <= k <= 127, got {k}")
+    _check("reverse_table", packed.device, [
+        ("packed", packed, (spec.num_padded, k + 1), torch.int32),
+        ("window_starts", window_starts, (spec.num_tiles, 9), torch.int32),
+    ])
+    out = torch.empty((spec.num_tiles, spec.s_width, spec.rev_lanes), dtype=torch.int8,
+                      device=packed.device)
+    err = _lib("reverse_table").reverse_table_launch(
+        kernels.ptr(packed), kernels.ptr(window_starts), kernels.ptr(out), spec.num_tiles,
+        spec.query_block, spec.window, k, spec.rev_lanes,
+        kernels.stream_handle(packed.device),
+    )
+    kernels.check("reverse_table", err)
+    kernels.launches["reverse_table"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Slot space (monotone row gathers both ways) and K4, the window matmul
 # ---------------------------------------------------------------------------
 
 
+class _Expand(torch.autograd.Function):
+    """Sorted rows -> slots; the backward gathers by ``slot_of_sorted``."""
+
+    @staticmethod
+    def forward(ctx, x_sorted, particle_of_slot, slot_of_sorted):
+        ctx.save_for_backward(slot_of_sorted)
+        x_ext = torch.cat([x_sorted, x_sorted.new_zeros((1, x_sorted.shape[1]))])
+        return x_ext.index_select(0, particle_of_slot)
+
+    @staticmethod
+    def backward(ctx, gr):
+        (slot_of_sorted,) = ctx.saved_tensors
+        g_ext = torch.cat([gr, gr.new_zeros((1, gr.shape[1]))])
+        return g_ext.index_select(0, slot_of_sorted), None, None
+
+
+class _Compact(torch.autograd.Function):
+    """Slots -> sorted rows; the backward gathers by ``particle_of_slot``."""
+
+    @staticmethod
+    def forward(ctx, x_slots, particle_of_slot, slot_of_sorted):
+        ctx.save_for_backward(particle_of_slot)
+        idx = torch.clamp(slot_of_sorted, max=x_slots.shape[0] - 1)
+        return x_slots.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, gr):
+        (particle_of_slot,) = ctx.saved_tensors
+        g_ext = torch.cat([gr, gr.new_zeros((1, gr.shape[1]))])
+        return g_ext.index_select(0, particle_of_slot), None, None
+
+
 def expand_to_slots(x_sorted: torch.Tensor, plan: CellBlockGraph, dtype=None) -> torch.Tensor:
-    """``[N, F]`` cell-sorted rows -> ``[num_slots, F]``; empty slots zero."""
+    """``[N, F]`` cell-sorted rows -> ``[num_slots, F]``; empty slots zero.
+    A monotone row gather both ways: the backward gathers the slot rows
+    back by ``slot_of_sorted`` (never an ``index_add``)."""
     if dtype is not None:
         x_sorted = x_sorted.to(dtype)
-    x_ext = torch.cat([x_sorted, x_sorted.new_zeros((1, x_sorted.shape[1]))])
-    return x_ext.index_select(0, plan.particle_of_slot)
+    return _Expand.apply(x_sorted, plan.particle_of_slot, plan.slot_of_sorted)
 
 
 def compact_from_slots(x_slots: torch.Tensor, plan: CellBlockGraph) -> torch.Tensor:
     """``[num_slots, F]`` -> ``[N, F]`` cell-sorted rows (the overflow
     sentinel clamps to the last slot, as JAX's clip gather — flagged by
-    ``plan.overflow``)."""
-    idx = torch.clamp(plan.slot_of_sorted, max=x_slots.shape[0] - 1)
-    return x_slots.index_select(0, idx)
+    ``plan.overflow``); the backward gathers by ``particle_of_slot``."""
+    return _Compact.apply(x_slots, plan.particle_of_slot, plan.slot_of_sorted)
 
 
 def _pad_candidates(z_slots: torch.Tensor, pad_src: torch.Tensor, carry_dtype) -> torch.Tensor:
@@ -671,11 +885,6 @@ def _pad_candidates(z_slots: torch.Tensor, pad_src: torch.Tensor, carry_dtype) -
     return z_ext.index_select(0, pad_src)
 
 
-# Query tiles per chunk of the plain window matmul (bounds its gathered
-# [tiles, W, H] windows on the CPU).
-_PLAIN_TILES = 64
-
-
 def window_matmul_reference(s_table, z_pad, window_starts, *, spec: CellBlockSpec) -> torch.Tensor:
     """Plain PyTorch version of K4: per query tile ``t``,
     ``out[t*QB:(t+1)*QB] = sum_j S_j @ z_pad[start[t, j] : +W]`` with
@@ -683,20 +892,51 @@ def window_matmul_reference(s_table, z_pad, window_starts, *, spec: CellBlockSpe
     for int8 counts) and products and sums in float32. Returns
     ``[num_slots, H]`` float32."""
     qb, w = spec.query_block, spec.window
+    s = s_table.view(window_starts.shape[0], qb, 9, w)
+    return _window_products(lambda t0, t1, j: s[t0:t1, :, j, :], z_pad, window_starts, spec)
+
+
+def window_matmul_t_reference(s_rev, g_pad, window_starts, *, spec: CellBlockSpec) -> torch.Tensor:
+    """Plain PyTorch version of K4^T (the TPU kernel's ``s_rev3`` mode): per
+    tile ``t``, ``out[t*QB:(t+1)*QB] = sum_j S_rev[t, j*W:(j+1)*W, :QB]^T @
+    g_pad[start[t, j] : +W]``, products and sums in float32. Returns
+    ``[num_slots, H]`` float32."""
+    qb, w = spec.query_block, spec.window
+    return _window_products(lambda t0, t1, j: s_rev[t0:t1, j * w:(j + 1) * w, :qb].transpose(1, 2),
+                            g_pad, window_starts, spec)
+
+
+def _window_products(s_block, z_pad, window_starts, spec):
+    """``sum_j s_block(t0, t1, j) @ window_j`` per chunk of tiles."""
+    qb, w = spec.query_block, spec.window
     num_tiles = window_starts.shape[0]
     h = z_pad.shape[1]
-    s = s_table.view(num_tiles, qb, 9, w)
     lanes = torch.arange(w, device=z_pad.device)
     out = torch.empty((num_tiles, qb, h), dtype=torch.float32, device=z_pad.device)
     for t0 in range(0, num_tiles, _PLAIN_TILES):
         t1 = min(t0 + _PLAIN_TILES, num_tiles)
         acc = torch.zeros((t1 - t0, qb, h), dtype=torch.float32, device=z_pad.device)
         for j in range(9):
-            sj = s[t0:t1, :, j, :].to(z_pad.dtype).float()
+            sj = s_block(t0, t1, j).to(z_pad.dtype).float()
             rows = window_starts[t0:t1, j].long()[:, None] + lanes
             acc += torch.bmm(sj, z_pad[rows].float())
         out[t0:t1] = acc
     return out.reshape(num_tiles * qb, h)
+
+
+def _window_output(name, s, s_shape, z_pad, window_starts, spec):
+    """Check a window matmul's inputs; allocate its ``[num_slots, H]`` f32
+    output."""
+    h = z_pad.shape[1]
+    if z_pad.dtype != torch.bfloat16 or h % 8:
+        raise ValueError(f"{name} kernel takes a bf16 candidate table with H % 8 == 0, "
+                         f"got {z_pad.dtype} with H = {h}")
+    _check(name, s.device, [
+        ("selection table", s, s_shape, torch.int8),
+        ("candidates", z_pad, (spec.num_padded, h), torch.bfloat16),
+        ("window_starts", window_starts, (spec.num_tiles, 9), torch.int32),
+    ])
+    return torch.empty((spec.num_slots, h), dtype=torch.float32, device=z_pad.device)
 
 
 def window_matmul(s_table, z_pad, window_starts, *, spec: CellBlockSpec) -> torch.Tensor:
@@ -706,24 +946,69 @@ def window_matmul(s_table, z_pad, window_starts, *, spec: CellBlockSpec) -> torc
     ``H % 8 == 0``) or raise."""
     if s_table.device.type == "cpu":
         return window_matmul_reference(s_table, z_pad, window_starts, spec=spec)
-    num_pad, h = z_pad.shape
-    if z_pad.dtype != torch.bfloat16 or h % 8:
-        raise ValueError(f"window_matmul kernel takes a bf16 z_pad with H % 8 == 0, "
-                         f"got {z_pad.dtype} with H = {h}")
-    _check("window_matmul", s_table.device, [
-        ("s_table", s_table, (spec.num_slots, spec.s_width), torch.int8),
-        ("z_pad", z_pad, (spec.num_padded, h), torch.bfloat16),
-        ("window_starts", window_starts, (spec.num_tiles, 9), torch.int32),
-    ])
-    out = torch.empty((spec.num_slots, h), dtype=torch.float32, device=z_pad.device)
+    out = _window_output("window_matmul", s_table, (spec.num_slots, spec.s_width),
+                               z_pad, window_starts, spec)
     err = _lib("window_matmul").window_matmul_launch(
         kernels.ptr(s_table), kernels.ptr(z_pad), kernels.ptr(window_starts),
-        kernels.ptr(out), spec.num_tiles, spec.query_block, spec.window, h,
-        num_pad, spec.s_width, kernels.stream_handle(z_pad.device),
+        kernels.ptr(out), spec.num_tiles, spec.query_block, spec.window, z_pad.shape[1],
+        z_pad.shape[0], spec.s_width, kernels.stream_handle(z_pad.device),
     )
     kernels.check("window_matmul", err)
     kernels.launches["window_matmul"] += 1
     return out
+
+
+def window_matmul_t(s_rev, g_pad, window_starts, *, spec: CellBlockSpec) -> torch.Tensor:
+    """K4^T: the aggregation's backward in slot space, ``dz = S^T g`` through
+    the reverse table (see ``window_matmul_t_reference``). CPU tensors take
+    the plain version; CUDA tensors launch the S^T mode of
+    ``csrc/window_matmul.cu`` (bf16 ``g_pad`` with ``H % 8 == 0``) or
+    raise."""
+    if s_rev.device.type == "cpu":
+        return window_matmul_t_reference(s_rev, g_pad, window_starts, spec=spec)
+    out = _window_output(
+        "window_matmul_t", s_rev, (spec.num_tiles, spec.s_width, spec.rev_lanes), g_pad,
+        window_starts, spec)
+    err = _lib("window_matmul").window_matmul_t_launch(
+        kernels.ptr(s_rev), kernels.ptr(g_pad), kernels.ptr(window_starts),
+        kernels.ptr(out), spec.num_tiles, spec.query_block, spec.window, g_pad.shape[1],
+        g_pad.shape[0], spec.rev_lanes, kernels.stream_handle(g_pad.device),
+    )
+    kernels.check("window_matmul_t", err)
+    kernels.launches["window_matmul_t"] += 1
+    return out
+
+
+class _AggregateSlots(torch.autograd.Function):
+    """Pad + K4 forward; backward pads the cotangent in the carry dtype and
+    runs K4^T over the reverse table (never a scatter through pad_src)."""
+
+    @staticmethod
+    def forward(ctx, z_slots, plan, spec, carry_dtype):
+        ctx.spec, ctx.carry_dtype, ctx.z_dtype = spec, carry_dtype, z_slots.dtype
+        ctx.plan = plan
+        z_pad = _pad_candidates(z_slots, plan.pad_src, carry_dtype)
+        return window_matmul(plan.s_table, z_pad, plan.window_starts, spec=spec)
+
+    @staticmethod
+    def backward(ctx, gr):
+        plan = ctx.plan
+        if plan.s_rev_table is None:
+            raise ValueError(
+                "the cell-block aggregation's backward needs the reverse table: "
+                "build the plan with build_cellblock(..., with_reverse=True)"
+            )
+        g_pad = _pad_candidates(gr, plan.pad_src, ctx.carry_dtype)
+        dz = window_matmul_t(plan.s_rev_table, g_pad, plan.window_starts, spec=ctx.spec)
+        return dz.to(ctx.z_dtype), None, None, None
+
+
+def cellblock_aggregate_slots(z_slots: torch.Tensor, plan: CellBlockGraph, spec: CellBlockSpec,
+                              *, carry_dtype=torch.bfloat16) -> torch.Tensor:
+    """Slot-space aggregation ``out[slot q] = sum over q's neighbor slots``,
+    float32. Differentiable in ``z_slots`` when the plan carries its reverse
+    table: the backward is K4^T, certified by ``plan.reverse_mismatch == 0``."""
+    return _AggregateSlots.apply(z_slots, plan, spec, carry_dtype)
 
 
 def cellblock_aggregate(z_sorted: torch.Tensor, plan: CellBlockGraph, spec: CellBlockSpec,
@@ -732,8 +1017,7 @@ def cellblock_aggregate(z_sorted: torch.Tensor, plan: CellBlockGraph, spec: Cell
     expand to slots, pad, K4, compact. ``carry_dtype`` is the candidates'
     precision inside the product (sums are float32); returns float32."""
     z_slots = expand_to_slots(z_sorted, plan, dtype=carry_dtype)
-    z_pad = _pad_candidates(z_slots, plan.pad_src, carry_dtype)
-    out = window_matmul(plan.s_table, z_pad, plan.window_starts, spec=spec)
+    out = cellblock_aggregate_slots(z_slots, plan, spec, carry_dtype=carry_dtype)
     return compact_from_slots(out, plan)
 
 

@@ -47,8 +47,8 @@ from cosmology_gnn_simulation_tpu_torch.ops.periodic import min_image_displaceme
 
 _BIG = 1e30
 _LANE = 128
-# Largest k the kernel's register-resident top-k list is built for.
-MAX_K = 32
+# Largest k the kernel's top-k list is built for (the JAX kernel's limit).
+MAX_K = 128
 
 # The 27 neighbor-cell offsets in lane order: dx slowest, dz fastest.
 _OFFSETS = np.array(

@@ -1,7 +1,7 @@
-"""Where a rollout step's time goes on the card.
+"""Where a rollout step's (or a train step's) time goes on the card.
 
     python -m cosmology_gnn_simulation_tpu_torch.profile_rollout [--n N] [--steps S]
-        [--aggregation gather|cellblock_hybrid]
+        [--aggregation gather|cellblock_hybrid] [--train]
 
 Runs the rollout of the default model (bf16, k = 16, certificate on) with
 the given aggregation once to warm up, times ``--steps`` steps with CUDA
@@ -9,7 +9,9 @@ events, then traces the same steps with ``torch.profiler`` and prints the
 device time by kernel (largest first), the device's busy share of the
 traced window, the device operations (kernels, copies, fills) launched per
 step, the peak device memory of the timed run, and the card's name and
-power limit. Needs a CUDA device.
+power limit. ``--train`` does the same for ``--steps`` train steps (batch
+1, noise 3e-4, Adam; the fused tail on) in place of the rollout. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -26,6 +28,11 @@ from cosmology_gnn_simulation_tpu_torch.models.encode_process_decode import (
     init_encode_process_decode,
 )
 from cosmology_gnn_simulation_tpu_torch.rollout import rollout
+from cosmology_gnn_simulation_tpu_torch.training import (
+    TrainConfig,
+    make_optimizer,
+    make_train_step,
+)
 from cosmology_gnn_simulation_tpu_torch.types import NormalizationStats
 
 METADATA = {
@@ -42,6 +49,7 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--aggregation", default="gather",
                         choices=("gather", "cellblock_hybrid"))
+    parser.add_argument("--train", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA device")
@@ -57,6 +65,24 @@ def main() -> None:
     def run():
         return rollout(params, cfg, pos, temp, stats, args.steps, num_neighbors=16,
                        dtype=torch.bfloat16, aggregation=args.aggregation, device=dev)
+
+    if args.train:
+        # Six frames: a window of five and its target; temperatures drift.
+        tpos = np.remainder(rng.uniform(0, 1, (1, args.n, 3))
+                            + rng.normal(0, 5e-4, (6, args.n, 3)).cumsum(0), 1.0)
+        ttemp = 1.0 + rng.normal(0, 1e-3, (6, args.n, 1)).cumsum(0)
+        batch = {"positions": tpos[None, :5], "temperatures": ttemp[None, :5],
+                 "target_positions": tpos[None, 5], "target_temperatures": ttemp[None, 5]}
+        tc = TrainConfig(aggregation=args.aggregation, compute_dtype="bfloat16",
+                         noise_std=3e-4)
+        optimizer = make_optimizer(tc, steps_per_epoch=100)
+        state = optimizer.init(params)
+        step = make_train_step(cfg, stats, tc, optimizer)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+        def run():  # noqa: F811
+            for _ in range(args.steps):
+                step(params, state, batch, gen)
 
     run()
     torch.cuda.synchronize()
@@ -80,7 +106,8 @@ def main() -> None:
     for e in kernels:
         busy[e.name] = busy.get(e.name, 0.0) + e.device_time / 1e3  # ms
     total = sum(busy.values())
-    print(f"{args.aggregation}, N={args.n}, {args.steps} steps: {step_ms:.3f} ms/step (CUDA "
+    what = "train" if args.train else "rollout"
+    print(f"{what} {args.aggregation}, N={args.n}, {args.steps} steps: {step_ms:.3f} ms/step (CUDA "
           f"events), peak memory {peak_gib:.3f} GiB; traced window {wall_ms:.1f} ms wall, "
           f"device busy {total:.1f} ms ({100 * total / wall_ms:.1f} %, idle "
           f"{100 - 100 * total / wall_ms:.1f} %), {len(kernels) / args.steps:.1f} device "

@@ -31,6 +31,7 @@ from cosmology_gnn_simulation_tpu_torch.ops.cellblock import (
     build_cellblock,
     choose_cellblock_spec,
 )
+from cosmology_gnn_simulation_tpu_torch.ops.fused_step import resolve_fused_tail
 from cosmology_gnn_simulation_tpu_torch.ops.periodic import (
     min_image_displacement,
     wrap_positions,
@@ -121,7 +122,9 @@ def rollout(
       cellblock_spec: the cell-block spec (default ``choose_cellblock_spec``
         on the k-NN grid); ``cellblock_variable`` is not ported.
       fused_tail: run each message-passing step's tail as the kernel K5;
-        ``None`` = on for the pruned model with bf16 operands on CUDA.
+        ``None`` = on for the pruned model on CUDA where K5 takes the shape
+        (``ops.fused_step.kernel_takes``: bf16, latent = hidden = 128, one
+        hidden Linear). ``True`` on another shape raises on the card.
       device: ``"cuda"`` (default; raises without a card) or ``"cpu"``,
         where every kernel is its plain PyTorch version.
 
@@ -157,11 +160,8 @@ def rollout(
         model_config.aggregate == "sender_latents"
         and model_config.prune_dead_edge_stream
     )
-    if fused_tail is None:
-        fused_tail = pruned and device.type == "cuda" and dtype == torch.bfloat16
-    elif fused_tail and not pruned:
-        raise ValueError("fused_tail requires the pruned sender_latents mode")
-    model_config = model_config._replace(fused_tail=bool(fused_tail))
+    model_config = model_config._replace(
+        fused_tail=resolve_fused_tail(fused_tail, model_config, device, dtype))
     guard = exactness_guard != "off"
 
     pos_window = torch.as_tensor(initial_positions, device=device).float()

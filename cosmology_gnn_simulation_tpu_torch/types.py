@@ -36,6 +36,15 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a parameter tree, in ``tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [leaf for key in tree for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    return [tree]
+
+
 class ParticleGraph(NamedTuple):
     """A static-shape particle-interaction graph.
 
@@ -52,6 +61,11 @@ class ParticleGraph(NamedTuple):
       cellblock: optional per-graph cell-block plan
                  (``ops.cellblock.CellBlockGraph``); when set, the rows are
                  cell-sorted and the pruned model aggregates through it.
+      target_acceleration: ``[N, 3]`` normalized training target, or None.
+      target_temp_rate:    ``[N, 1]`` normalized training target, or None.
+      sorted_edges: the sender-sorted edge stream
+                 (``ops.aggregation.SortedEdges``) for the scatter-free
+                 aggregation backward, or None.
     """
 
     nodes: torch.Tensor
@@ -59,6 +73,9 @@ class ParticleGraph(NamedTuple):
     edges: Optional[torch.Tensor]
     positions: torch.Tensor
     cellblock: Optional[tuple] = None
+    target_acceleration: Optional[torch.Tensor] = None
+    target_temp_rate: Optional[torch.Tensor] = None
+    sorted_edges: Optional[tuple] = None
 
 
 class NormalizationStats(NamedTuple):

@@ -233,7 +233,7 @@ def test_unported_plan_options_raise():
     ok = dict(neighbor_codes=tcodes, codes_cap=cap, codes_spill=_torch_spill(spill))
     with pytest.raises(NotImplementedError, match="aux path"):
         cellblock.build_cellblock(tpos, knn_periodic(tpos, K, 1.0), 1.0, tspec)
-    for kw in (dict(with_reverse=True), dict(s_build="contract"),
+    for kw in (dict(s_build="contract"),
                dict(codes_layout="table"), dict(valid=torch.ones(len(pos), dtype=bool)),
                dict(dense_search=object())):
         with pytest.raises(NotImplementedError):

@@ -20,6 +20,7 @@ table the plan build makes from them is bit-equal.
 
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -104,6 +105,8 @@ def _lattice_grid(n):
 # name: (positions, k, grid spec or None for choose_cell_grid, bit-exact)
 CASES = {
     "uniform": (lambda: _uniform(0, 3000), 8, None, False),
+    # k above the kernel's old register cap of 32 (its KT = 64 list).
+    "uniform_k48": (lambda: _uniform(3, 3000), 48, None, False),
     "spill": (lambda: _spill(1234), 8, (8, 16), False),
     "cross_boundary": (lambda: _corners(7), 8, None, False),
     "lattice": (lambda: _lattice(11, 4096), 8, _lattice_grid(4096), True),
@@ -270,12 +273,17 @@ def test_port_imports_no_jax():
         "import cosmology_gnn_simulation_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('training.trainer', 'training.losses', 'ops.aggregation', 'ops.noise'):\n"
+        "    assert p.__name__ + '.' + m in sys.modules, m\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'cosmology_gnn_simulation_tpu']\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=120)
+                         timeout=120, cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
