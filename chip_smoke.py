@@ -2,29 +2,36 @@
 
     python3 chip_smoke.py [--seed S]
 
-Drives the port's two rollout paths and its two train-step paths of the
-default model (latent 128, 10 message-passing steps) at N = 65,536
-particles, k = 16, bf16 operands: the gather rollout and the hybrid
-cell-block rollout that is the JAX package's main path, re-neighboring
-every step with the exactness certificate; then the gather and the hybrid
-train step (batch 1, noise 3e-4, Adam, the fused tail). Before that it
-builds every CUDA kernel from ``csrc/`` and holds each against its plain
-PyTorch version at the shapes the paths give it. Phases, each timed on its
-own line:
+Drives the port's rollout paths, its one-step prediction and its two
+train-step paths of the default model (latent 128, 10 message-passing
+steps) at N = 65,536 particles, k = 16, bf16 operands: the gather rollout,
+the hybrid cell-block rollout that is the JAX package's main path, and the
+hybrid rollout's two other re-neighboring routes (the fused dense-query
+search, and the plan from neighbor ids on a spec of another grid), each
+re-neighboring every step with the exactness certificate; then the gather
+and the hybrid train step (batch 1, noise 3e-4, Adam, the fused tail).
+Before that it builds every CUDA kernel from ``csrc/`` and holds each
+against its plain PyTorch version at the shapes the paths give it. Phases,
+each timed on its own line:
 
   1. device and build: the card's name and power limit, one nvcc per source
      (all started together), each build's -Xptxas -v report;
-  2. K1 (cell-list k-NN) and its codes mode K1' against their plain versions
-     on a uniform frame and on a frame with cells past capacity (spill):
-     equal ids / codes, bit-equal k-th distances and certificate; brute
-     force as the yardstick of exactness; both modes again at k = 48;
+  2. K1 (cell-list k-NN), its codes mode K1' and its dual mode K1'' (ids and
+     codes) against their plain versions on a uniform frame and on a frame
+     with cells past capacity (spill): equal ids and codes (the dual mode's
+     ids also equal to the ids mode's), bit-equal k-th distances and
+     certificate; brute force as the yardstick of exactness; all three
+     modes again at k = 48;
   3. K5 (fused step tail) and K6 (its recompute-backward) against their
      plain versions at [65536, 128], with bf16 and with float32 aggregates;
      K6 also against autograd through the plain forward;
   4. K2 (codes -> S offsets), K3 (int8 S rows), K7 (the reverse table), K4
      (window matmul) and K4^T (its S^T mode) against their plain versions at
      the flagship cell-block spec (K2, K3, K7 on both frames, with the
-     transpose certificate reverse_mismatch == 0);
+     transpose certificate reverse_mismatch == 0); K8 (the dense-query
+     search) against its plain version on the dense plan's inputs of the
+     uniform frame and of a frame whose search windows truncate, and the
+     dense plan on the card against the CPU plain path on both;
   5. the gather slice: launch counts zeroed, 8 rollout steps, counts read (K1
      once and K5 ten times per step), trajectory finite, certificate true
      every step, ms per step from CUDA events after a warm-up; a 2-step
@@ -33,14 +40,21 @@ own line:
      K2, K3 once and K4, K5 ten times per step; the certificate includes no
      column overflow and no dropped edge), its peak device memory, and the
      N = 8,192 check against the CPU plain path and the card's gather path;
-  7. the gather train slice: launch counts zeroed, 1 warm-up and 4 timed
+  7. the hybrid dense slice: the same for cellblock_search="dense" (K8, K3
+     once and K4, K5 ten times per step; the certificate also requires no
+     search-window truncation and every k-th neighbor within its margin);
+  8. the hybrid aux slice: the same on choose_cellblock_spec(N) (grid 14,
+     the k-NN grid 19): K1'' and K3 once, K4 and K5 ten times per step;
+  9. one-step prediction on the gather, hybrid (codes) and hybrid aux
+     routes against the first frame of a 1-step rollout of the same window;
+ 10. the gather train slice: launch counts zeroed, 1 warm-up and 4 timed
      train steps, counts read (K1 once, K5 and K6 ten times per step), loss
      finite every step, ms per step from CUDA events, peak device memory;
-  8. the hybrid train slice: the same (K1', K2, K3, K7 once, K4, K4^T, K5,
+ 11. the hybrid train slice: the same (K1', K2, K3, K7 once, K4, K4^T, K5,
      K6 ten times per step; cellblock_violations 0 every step); then at
      N = 8,192 one train step of each path on the card against the CPU
      plain path (loss and every gradient), and hybrid against gather;
-  9. one JSON line of every ported kernel: launches on its path, time, bound,
+ 12. one JSON line of every ported kernel: launches on its path, time, bound,
      plain version's time, library yardstick's time.
 
 The last line is the contract line ``{"ok": true, "device": {...}}``. Any
@@ -66,6 +80,8 @@ F32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12
 
 N, K, WINDOW, STEPS = 65536, 16, 5, 8
+# One-step prediction against a 1-step rollout: the same operations.
+ONE_STEP_TOL = 1e-6
 K5_MAX_ABS_TOL, K5_MEAN_ABS_TOL = 5e-2, 2e-3
 # K4: exact products (int8 counts x bf16), float32 sums in another order.
 K4_MAX_ABS_TOL, K4_MEAN_ABS_TOL = 1e-3, 1e-5
@@ -188,7 +204,7 @@ def main() -> None:
         fused_step_tail_reference,
     )
     from cosmology_gnn_simulation_tpu_torch.ops.neighbors import knn_periodic
-    from cosmology_gnn_simulation_tpu_torch.rollout import rollout
+    from cosmology_gnn_simulation_tpu_torch.rollout import one_step_prediction, rollout
     from cosmology_gnn_simulation_tpu_torch.training import (
         TrainConfig,
         make_optimizer,
@@ -243,6 +259,17 @@ def main() -> None:
                  f"{int((ids != ref_ids).any(1).sum())} rows")
         if not torch.equal(kth.view(torch.int32), ref_kth.view(torch.int32)):
             fail(f"K1 {label}: kth not bit-equal to the plain version")
+        dual_ids, dual_codes, dkth = pallas_knn.knn_dual(table, spill, **k1_args)
+        ref_dids, ref_dcodes, ref_dkth = pallas_knn.knn_dual_reference(table, spill, **k1_args)
+        if not (torch.equal(dual_ids, ids) and torch.equal(dual_ids, ref_dids)):
+            fail(f"K1'' {label}: ids differ from K1's in "
+                 f"{int((dual_ids != ids).any(1).sum())} rows")
+        if not torch.equal(dual_codes, ref_dcodes):
+            fail(f"K1'' {label}: codes differ from the plain version in "
+                 f"{int((dual_codes != ref_dcodes).any(1).sum())} rows")
+        if not (torch.equal(dkth.view(torch.int32), ref_dkth.view(torch.int32))
+                and torch.equal(dkth.view(torch.int32), kth.view(torch.int32))):
+            fail(f"K1'' {label}: kth not bit-equal to the plain version and K1")
         codes, ckth = pallas_knn.knn_codes(table, spill, **k1_args)
         ref_codes, ref_ckth = pallas_knn.knn_codes_reference(table, spill, **k1_args)
         if not torch.equal(codes, ref_codes):
@@ -263,16 +290,19 @@ def main() -> None:
         print(f"K1 {label}: ids equal, kth bit-equal, certificate true "
               f"(max_d2 {float(max_d2):.6g}, max_excess {float(excess):.6g}, "
               f"{n_spilled} spilled), sets equal to brute force; K1' codes equal, "
-              f"kth bit-equal")
+              f"kth bit-equal; K1'' ids equal to K1's, codes equal, kth bit-equal")
         if label == "uniform":
             k1_table, k1_spill = table, spill
             k1_err = float((kth - ref_kth).abs().max())
             k1c_err = float((ckth - ref_ckth).abs().max())
+            k1d_err = float((dkth - ref_dkth).abs().max())
     kernels.reset_launches()
     k1_ms = time_ms(lambda: pallas_knn.knn_select(k1_table, k1_spill, **k1_args), 50)
     k1_plain_ms = time_ms(lambda: pallas_knn.knn_select_reference(k1_table, k1_spill, **k1_args), 3)
     k1c_ms = time_ms(lambda: pallas_knn.knn_codes(k1_table, k1_spill, **k1_args), 50)
     k1c_plain_ms = time_ms(lambda: pallas_knn.knn_codes_reference(k1_table, k1_spill, **k1_args), 3)
+    k1d_ms = time_ms(lambda: pallas_knn.knn_dual(k1_table, k1_spill, **k1_args), 50)
+    k1d_plain_ms = time_ms(lambda: pallas_knn.knn_dual_reference(k1_table, k1_spill, **k1_args), 3)
     occ = (k1_table[3] < N).sum(1)  # per cell
     coords = torch.arange(g**3, device=dev)
     ci, cj, cl = coords // (g * g), (coords // g) % g, coords % g
@@ -293,9 +323,14 @@ def main() -> None:
     report["knn_codes"] = kernel_entry(
         "knn_select.cu", "pallas_knn.py:167", k1c_err, k1c_ms, k1c_plain_ms, k1_bytes, k1_ops,
         F32_FLOP_PER_S, None)
+    # K1'' writes a second [G^3 * cap, k] int32 output (the codes).
+    k1d_bytes = k1_bytes + g**3 * cap * K * 4
+    report["knn_dual"] = kernel_entry(
+        "knn_select.cu", "pallas_knn.py:257", k1d_err, k1d_ms, k1d_plain_ms, k1d_bytes, k1_ops,
+        F32_FLOP_PER_S, None)
     print(f"K1 time {k1_ms:.4f} ms, plain {k1_plain_ms:.3f} ms; K1' time {k1c_ms:.4f} ms, "
-          f"plain {k1c_plain_ms:.3f} ms; {pairs} occupied pairs, {k1_ops} operations, "
-          f"{k1_bytes} bytes")
+          f"plain {k1c_plain_ms:.3f} ms; K1'' time {k1d_ms:.4f} ms, plain {k1d_plain_ms:.3f} ms; "
+          f"{pairs} occupied pairs, {k1_ops} operations, {k1_bytes} bytes ({k1d_bytes} K1'')")
     # k above the old register cap of 32: the KT = 64 list, both modes.
     grid48 = choose_cell_grid(N, K1_WIDE_K)
     cap48, _, spill48 = pallas_knn.spill_layout(N, K1_WIDE_K, grid48)
@@ -306,16 +341,17 @@ def main() -> None:
     planes48 = (t48.x, t48.y, t48.z, t48.ids)
     for label, select, plain in (
             ("K1", pallas_knn.knn_select, pallas_knn.knn_select_reference),
-            ("K1'", pallas_knn.knn_codes, pallas_knn.knn_codes_reference)):
-        picks, kth = select(planes48, sp48, **args48)
-        ref_picks, ref_kth = plain(planes48, sp48, **args48)
-        if not (torch.equal(picks, ref_picks)
+            ("K1'", pallas_knn.knn_codes, pallas_knn.knn_codes_reference),
+            ("K1''", pallas_knn.knn_dual, pallas_knn.knn_dual_reference)):
+        *picks, kth = select(planes48, sp48, **args48)
+        *ref_picks, ref_kth = plain(planes48, sp48, **args48)
+        if not (all(torch.equal(a, b) for a, b in zip(picks, ref_picks))
                 and torch.equal(kth.view(torch.int32), ref_kth.view(torch.int32))):
             fail(f"{label} k={K1_WIDE_K}: differs from the plain version in "
-                 f"{int((picks != ref_picks).any(1).sum())} rows")
-    print(f"K1 and K1' k={K1_WIDE_K} (grid {grid48.grid_size}, cap {cap48}): picks equal, "
-          f"kth bit-equal to the plain versions")
-    print(f"phase 2 K1, K1': {time.perf_counter() - t0:.1f} s")
+                 f"{int((picks[0] != ref_picks[0]).any(1).sum())} rows")
+    print(f"K1, K1' and K1'' k={K1_WIDE_K} (grid {grid48.grid_size}, cap {cap48}): picks "
+          f"equal, kth bit-equal to the plain versions")
+    print(f"phase 2 K1, K1', K1'': {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. K5 against its plain version -------------------------------
     t0 = time.perf_counter()
@@ -534,9 +570,68 @@ def main() -> None:
           f"plain {k4t_plain_ms:.4f} ms, bmm {k4t_lib_ms:.4f} ms, {k4t_nnz} nonzero S_rev "
           f"entries")
     del out, ref, g_pad, k7_s, k7_packed
-    print(f"phase 4 K2, K3, K7, K4, K4^T: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 5, 6. the rollout slices ----------------------------------------
+    # K8 on the dense plan's inputs: the uniform frame, and a frame whose
+    # search windows truncate (300 particles in one cell: the windows of its
+    # tiles outgrow w_eff), where the certificate must fail alike on the
+    # card and on the CPU plain path.
+    dspec = cellblock.choose_dense_search_spec(N, spec)
+    truncating = pos0.clone()
+    truncating[:300] = torch.tensor([0.41, 0.41, 0.41], device=dev) + 0.05 * truncating[:300]
+    for label, pos in (("uniform", pos0), ("truncating", truncating)):
+        layout = cellblock.cellblock_layout(pos, 1.0, spec)
+        ds = cellblock.dense_search_inputs(layout, pos[layout.order], 1.0, spec, dspec)
+        k8_args = dict(k=K, query_block=dspec.query_block, w_eff=ds.w_eff)
+        lanes, kth = cellblock.dense_select(ds.table, ds.queries, ds.windows, 1.0, **k8_args)
+        ref_lanes, ref_kth = cellblock.dense_select_reference(
+            ds.table, ds.queries, ds.windows, 1.0, **k8_args)
+        if not torch.equal(lanes, ref_lanes):
+            fail(f"K8 {label}: lanes differ from the plain version in "
+                 f"{int((lanes != ref_lanes).any(1).sum())} rows")
+        if not torch.equal(kth.view(torch.int32), ref_kth.view(torch.int32)):
+            fail(f"K8 {label}: kth not bit-equal to the plain version")
+        plan = cellblock.build_cellblock(pos, None, 1.0, spec, dense_search=dspec,
+                                         num_neighbors=K)
+        cpu_plan = cellblock.build_cellblock(pos.cpu(), None, 1.0, spec, dense_search=dspec,
+                                             num_neighbors=K)
+        for field in ("s_table", "overflow", "dropped_edges", "search_window_overflow",
+                      "search_excess"):
+            if not torch.equal(getattr(plan, field).cpu(), getattr(cpu_plan, field)):
+                fail(f"K8 {label}: the dense plan's {field} differs from the CPU plain path")
+        swo, excess = int(plan.search_window_overflow), float(plan.search_excess)
+        if label == "uniform" and not (swo == 0 and excess <= 0 and int(plan.overflow) == 0
+                                       and int(plan.dropped_edges) == 0):
+            fail(f"K8 uniform: certificate false (search_window_overflow {swo}, "
+                 f"search_excess {excess})")
+        if label == "truncating" and swo == 0:
+            fail("K8 truncating: the search windows truncated nothing")
+        print(f"K8 {label}: {ds.windows.shape[0]} tiles, lanes equal and kth bit-equal to the "
+              f"plain version; the dense plan equal to the CPU plain path (S, overflow "
+              f"{int(plan.overflow)}, dropped {int(plan.dropped_edges)}, "
+              f"search_window_overflow {swo}, search_excess {excess:.6g})")
+        if label == "uniform":
+            k8_ds, k8_args_u, k8_lanes, k8_kth = ds, k8_args, lanes, kth
+            k8_err = float((kth - ref_kth).abs().max())
+        del plan, cpu_plan
+    k8 = lambda: cellblock.dense_select(  # noqa: E731
+        k8_ds.table, k8_ds.queries, k8_ds.windows, 1.0, **k8_args_u)
+    k8_ms = time_ms(k8, 50)
+    k8_plain_ms = time_ms(lambda: cellblock.dense_select_reference(
+        k8_ds.table, k8_ds.queries, k8_ds.windows, 1.0, **k8_args_u), 3)
+    # The work this data needs: every live query row against its 9 * w_eff
+    # candidate lanes (3 sub, 3 mul, 2 add, 1 compare with the k-th each).
+    live_rows = int(k8_ds.rows.sum())
+    k8_pairs = live_rows * 9 * k8_ds.w_eff
+    k8_bytes = nbytes(k8_ds.table, k8_ds.queries, k8_ds.windows, k8_lanes, k8_kth)
+    report["dense_select"] = kernel_entry(
+        "dense_select.cu", "cellblock.py:765", k8_err, k8_ms, k8_plain_ms, k8_bytes,
+        9 * k8_pairs, F32_FLOP_PER_S, None)
+    print(f"K8 time {k8_ms:.4f} ms, plain {k8_plain_ms:.3f} ms; {live_rows} live query rows of "
+          f"{k8_ds.queries.shape[0]}, {k8_pairs} pairs, {k8_bytes} bytes")
+    del k8_ds, k8_lanes, k8_kth
+    print(f"phase 4 K2, K3, K7, K4, K4^T, K8: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 5-8. the rollout slices -----------------------------------------
     stats = NormalizationStats.from_metadata(METADATA, device=dev)
     stats_cpu = NormalizationStats.from_metadata(METADATA, device="cpu")
     params_cpu = init_encode_process_decode(cfg, torch.Generator().manual_seed(args.seed),
@@ -546,15 +641,25 @@ def main() -> None:
     mp = cfg.num_message_passing_steps
     zero = dict.fromkeys(kernels.KERNELS, 0)
     path_launches, path_ms, small_runs = {}, {}, {}
+    hybrid = {"aggregation": "cellblock_hybrid"}
+    # The aux route: the chooser's spec without k (grid 14 at N, 7 at
+    # SMALL_N) is not on the k-NN grid (19, 9), so plans come from ids.
+    aux_spec = cellblock.choose_cellblock_spec(N)
+    aux_small_spec = cellblock.choose_cellblock_spec(SMALL_N)
+    plan_launches = {"s_onehot": STEPS, "window_matmul": STEPS * mp, "fused_tail": STEPS * mp}
     paths = (
-        ("gather", 5, {"knn_select": STEPS, "fused_tail": STEPS * mp}),
-        ("cellblock_hybrid", 6, {"knn_codes": STEPS, "s_decode": STEPS, "s_onehot": STEPS,
-                                 "window_matmul": STEPS * mp, "fused_tail": STEPS * mp}),
+        ("gather", 5, {"aggregation": "gather"}, {}, {"knn_select": STEPS, "fused_tail": STEPS * mp}),
+        ("cellblock_hybrid", 6, hybrid, {},
+         {"knn_codes": STEPS, "s_decode": STEPS, **plan_launches}),
+        ("cellblock_hybrid dense", 7, {**hybrid, "cellblock_search": "dense"}, {},
+         {"dense_select": STEPS, **plan_launches}),
+        ("cellblock_hybrid aux", 8, {**hybrid, "cellblock_spec": aux_spec},
+         {"cellblock_spec": aux_small_spec}, {"knn_dual": STEPS, **plan_launches}),
     )
-    for aggregation, phase, expected in paths:
+    for label, phase, path_kw, small_kw, expected in paths:
         t0 = time.perf_counter()
-        kw = dict(num_neighbors=K, dtype=torch.bfloat16, aggregation=aggregation,
-                  exactness_guard="flag", reneighbor_every=1, device=dev)
+        kw = dict(num_neighbors=K, dtype=torch.bfloat16, exactness_guard="flag",
+                  reneighbor_every=1, device=dev, **path_kw)
         rollout(params, cfg, pos, temp, stats, 1, **kw)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -569,48 +674,66 @@ def main() -> None:
         step_ms = start.elapsed_time(end) / STEPS
         coords_out, energy = result["Coordinates"], result["InternalEnergy"]
         if coords_out.shape != (WINDOW + STEPS, N, 3) or energy.shape != (WINDOW + STEPS, N, 1):
-            fail(f"{aggregation}: trajectory shapes {tuple(coords_out.shape)}, "
+            fail(f"{label}: trajectory shapes {tuple(coords_out.shape)}, "
                  f"{tuple(energy.shape)}")
         if not (bool(torch.isfinite(coords_out).all()) and bool(torch.isfinite(energy).all())):
-            fail(f"{aggregation}: trajectory not finite")
+            fail(f"{label}: trajectory not finite")
         if not bool(result["neighbor_exactness"].all()):
-            fail(f"{aggregation}: certificate false on steps "
+            fail(f"{label}: certificate false on steps "
                  f"{result['neighbor_exactness'].tolist()}")
         if launches != {**zero, **expected}:
-            fail(f"{aggregation}: launches {launches}, expected {expected}")
+            fail(f"{label}: launches {launches}, expected {expected}")
         step = coords_out[-1] - coords_out[WINDOW - 1]
         moved = float((step - torch.round(step)).abs().max())  # min-image, box 1
-        print(f"slice {aggregation}: N={N} k={K} default model bf16, {STEPS} steps, "
+        print(f"slice {label}: N={N} k={K} default model bf16, {STEPS} steps, "
               f"{step_ms:.3f} ms/step ({N / step_ms * 1e3:.0f} particle-steps/s), launches "
               f"{ {k: v for k, v in launches.items() if v} }, certificate true every step, "
               f"max displacement {moved:.3g}, peak memory {peak_gib:.3f} GiB")
-        path_launches[aggregation], path_ms[aggregation] = launches, step_ms
+        path_launches[label], path_ms[label] = launches, step_ms
 
-        small_gpu = rollout(params, cfg, spos, stemp, stats, SMALL_STEPS, **kw)
+        small_kw = {**kw, **small_kw}
+        small_gpu = rollout(params, cfg, spos, stemp, stats, SMALL_STEPS, **small_kw)
         small_cpu = rollout(params_cpu, cfg, spos, stemp, stats_cpu, SMALL_STEPS,
-                            **{**kw, "device": "cpu"}, fused_tail=True)
+                            **{**small_kw, "device": "cpu"}, fused_tail=True)
         small_err = float((small_gpu["Coordinates"].cpu() - small_cpu["Coordinates"]).abs().max())
         if not small_err <= SMALL_COORD_TOL:
-            fail(f"{aggregation}: N={SMALL_N} rollout differs from the CPU plain path "
+            fail(f"{label}: N={SMALL_N} rollout differs from the CPU plain path "
                  f"by {small_err}")
         if not bool(small_gpu["neighbor_exactness"].all()):
-            fail(f"{aggregation}: N={SMALL_N} certificate false")
-        small_runs[aggregation] = small_gpu["Coordinates"]
-        print(f"slice {aggregation} check: N={SMALL_N}, {SMALL_STEPS} steps, card vs CPU plain "
+            fail(f"{label}: N={SMALL_N} certificate false")
+        small_runs[label] = small_gpu["Coordinates"]
+        print(f"slice {label} check: N={SMALL_N}, {SMALL_STEPS} steps, card vs CPU plain "
               f"path max coordinate diff {small_err:.3g} (tol {SMALL_COORD_TOL})")
-        if aggregation == "cellblock_hybrid":
-            cross = float((small_runs["cellblock_hybrid"] - small_runs["gather"]).abs().max())
+        if label != "gather":
+            cross = float((small_runs[label] - small_runs["gather"]).abs().max())
             if not cross <= SMALL_COORD_TOL:
-                fail(f"N={SMALL_N} hybrid and gather rollouts on the card differ by {cross}")
-            print(f"slice check: N={SMALL_N}, hybrid vs gather on the card max coordinate "
+                fail(f"N={SMALL_N} {label} and gather rollouts on the card differ by {cross}")
+            print(f"slice check: N={SMALL_N}, {label} vs gather on the card max coordinate "
                   f"diff {cross:.3g} (tol {SMALL_COORD_TOL})")
-        print(f"phase {phase} slice {aggregation}: {time.perf_counter() - t0:.1f} s")
+        print(f"phase {phase} slice {label}: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 7, 8. the train slices ------------------------------------------
+    # ---- 9. one-step prediction ------------------------------------------
+    t0 = time.perf_counter()
+    for label, path_kw in (("gather", {"aggregation": "gather"}), ("cellblock_hybrid", hybrid),
+                           ("cellblock_hybrid aux", {**hybrid, "cellblock_spec": aux_spec})):
+        kw = dict(num_neighbors=K, dtype=torch.bfloat16, device=dev, **path_kw)
+        new_pos, new_temp = one_step_prediction(params, cfg, pos, temp, stats, **kw)
+        ref = rollout(params, cfg, pos, temp, stats, 1, **kw)
+        if new_pos.shape != (N, 3) or new_temp.shape != (N, 1):
+            fail(f"one-step {label}: shapes {tuple(new_pos.shape)}, {tuple(new_temp.shape)}")
+        err = max(float((new_pos - ref["Coordinates"][-1]).abs().max()),
+                  float((new_temp - ref["InternalEnergy"][-1]).abs().max()))
+        if not err <= ONE_STEP_TOL:
+            fail(f"one-step {label}: differs from a 1-step rollout by {err}")
+        print(f"one-step {label}: N={N}, equal to the first frame of a 1-step rollout "
+              f"(max diff {err:.3g}, tol {ONE_STEP_TOL})")
+    print(f"phase 9 one-step: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10, 11. the train slices ----------------------------------------
     tbatch = train_batch(N, args.seed)
     train_paths = (
-        ("gather", 7, {"knn_select": 1, "fused_tail": mp, "fused_tail_bwd": mp}),
-        ("cellblock_hybrid", 8, {"knn_codes": 1, "s_decode": 1, "s_onehot": 1,
+        ("gather", 10, {"knn_select": 1, "fused_tail": mp, "fused_tail_bwd": mp}),
+        ("cellblock_hybrid", 11, {"knn_codes": 1, "s_decode": 1, "s_onehot": 1,
                                  "reverse_table": 1, "window_matmul": mp,
                                  "window_matmul_t": mp, "fused_tail": mp,
                                  "fused_tail_bwd": mp}),
@@ -698,15 +821,15 @@ def main() -> None:
         fail(f"N={SMALL_N} hybrid and gather gradients on the card differ by {cross}")
     print(f"train slice check: N={SMALL_N}, hybrid vs gather gradients on the card: worst "
           f"leaf rel err {cross:.3g} (tol {TRAIN_GRAD_TOL})")
-    print(f"phase 8 train check: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 11 train check: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 9. kernels line -------------------------------------------------
+    # ---- 12. kernels line ------------------------------------------------
     kernels_line = []
     for name, entry in report.items():
         launches = next((counts[name] for counts in path_launches.values() if counts[name]), 0)
         kernels_line.append({"name": name, **entry, "launches": launches})
-    print(f"total: {time.perf_counter() - t_all:.1f} s, ms per rollout step gather "
-          f"{path_ms['gather']:.4f}, cellblock_hybrid {path_ms['cellblock_hybrid']:.4f}; ms "
+    rollout_ms = ", ".join(f"{label} {ms:.4f}" for label, ms in path_ms.items())
+    print(f"total: {time.perf_counter() - t_all:.1f} s, ms per rollout step {rollout_ms}; ms "
           f"per train step gather {train_ms['gather']:.4f}, cellblock_hybrid "
           f"{train_ms['cellblock_hybrid']:.4f}")
     print(smi)

@@ -1,9 +1,10 @@
-// K1: exact cell-list k-NN selection, ids mode and codes mode (K1').
+// K1: exact cell-list k-NN selection, ids mode, codes mode (K1') and the
+// dual mode (K1'', ids and codes together).
 //
 // Replaces the JAX package's TPU kernel ops/pallas_knn.py::
-// _select_kernel (ids body `kernel`, codes body `codes_kernel`; pallas_call
-// in pallas_cell_list_knn). Computes what it computes, per table row
-// (cell, rank):
+// _select_kernel (ids body `kernel`, also with `with_codes`; codes body
+// `codes_kernel`; pallas_call in pallas_cell_list_knn). Computes what it
+// computes, per table row (cell, rank):
 //   * candidates: the 27 neighbor cells' rows of the [G^3, cap] tables in lane
 //     order j27 * cap + rank (dx slowest), a coordinate pre-shifted by +-box
 //     where its neighbor index wraps, then the spill_cap global spill lanes;
@@ -14,8 +15,14 @@
 //     exact ties, picks past the row's valid candidates are the sentinel id
 //     n. Codes mode: the k smallest (d2, lane) pairs, the candidate LANE as
 //     the only payload: smallest lane wins exact ties, exhausted picks are
-//     the sentinel lane 27 * cap + spill_cap. kth is the k-th d2 (1e30 when
-//     exhausted). Empty table rows get sentinel rows.
+//     the sentinel lane 27 * cap + spill_cap. Dual mode: the ids mode's
+//     selection, with each pick's lane as a second output (the sentinel lane
+//     for exhausted picks). The TPU kernel emits the smallest lane holding
+//     the picked id; a row holds each particle id in at most one lane (the
+//     27 ring cells are distinct for G >= 3, and the table keeps ranks
+//     < cap while the spill block keeps ranks >= cap), so that lane is the
+//     lane the pick came from, which the list carries. kth is the k-th d2
+//     (1e30 when exhausted). Empty table rows get sentinel rows.
 // The arithmetic uses __fsub_rn/__fmul_rn/__fadd_rn, which nvcc never
 // contracts into FMAs, so every d2 is bit-equal to the plain PyTorch version.
 //
@@ -32,13 +39,15 @@
 // beat the current k-th. Rows past the cell's occupancy exit at once, which
 // the TPU kernel could not do (row gating serialized its pipeline). The
 // codes mode differs only in the payload (the lane index c instead of the
-// candidate's id), so both modes share the body as a template flag.
+// candidate's id) and the dual mode only in a third list that carries the
+// lane beside the id, so all modes share the body as a template parameter.
 // The list length KT is a template parameter, instantiated at 8, 16, 32, 64
 // and 128 (k <= 128, the TPU kernel's limit). At KT = 64 the list still
 // fits the registers (168, no spills); at KT = 128 it outgrows them and
 // the compiler spills about 200 bytes of it to local memory (L1-cached;
 // nvcc -Xptxas -v reports it): the same exact selection, slower per
-// candidate. A list in shared memory is the route if k > 64 ever matters.
+// candidate. The dual mode's third list adds KT registers a thread. A list
+// in shared memory is the route if k > 64 ever matters.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,14 +65,19 @@ __device__ __forceinline__ float min_image(float d, float box, float half) {
   return d;
 }
 
-template <int KT, bool CODES>
+enum Mode { kIds = 0, kCodes = 1, kDual = 2 };
+
+template <int KT, int MODE>
 __global__ void knn_select_kernel(
     const float* __restrict__ tx, const float* __restrict__ ty,
     const float* __restrict__ tz, const int* __restrict__ tids,
     const float* __restrict__ sx, const float* __restrict__ sy,
     const float* __restrict__ sz, const int* __restrict__ sids,
     int num_cells, int g, int cap, int spill_cap, int k, int n, float box,
-    int mi_start, int* __restrict__ out_ids, float* __restrict__ out_kth) {
+    int mi_start, int* __restrict__ out_ids, int* __restrict__ out_codes,
+    float* __restrict__ out_kth) {
+  constexpr bool CODES = MODE == kCodes;
+  constexpr bool DUAL = MODE == kDual;
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -105,16 +119,25 @@ __global__ void knn_select_kernel(
   for (int r = lane; r < cap; r += 32) {
     const int row = cell * cap + r;
     int* oi = out_ids + (size_t)row * k;
+    int* oc = DUAL ? out_codes + (size_t)row * k : nullptr;
     if (tids[row] >= n) {
-      for (int j = 0; j < k; ++j) oi[j] = sentinel;
+      for (int j = 0; j < k; ++j) {
+        oi[j] = sentinel;
+        if constexpr (DUAL) oc[j] = ncand;
+      }
       out_kth[row] = kBig;
       continue;
     }
     const float qx = tx[row], qy = ty[row], qz = tz[row];
     float bd[KT];
     int bi[KT];
+    int bl[DUAL ? KT : 1];
 #pragma unroll
-    for (int j = 0; j < KT; ++j) { bd[j] = kBig; bi[j] = sentinel; }
+    for (int j = 0; j < KT; ++j) {
+      bd[j] = kBig;
+      bi[j] = sentinel;
+      if constexpr (DUAL) bl[j] = ncand;
+    }
     for (int c = 0; c < ncand; ++c) {
       const int id = cid[c];
       if (id >= n) continue;
@@ -133,11 +156,17 @@ __global__ void knn_select_kernel(
       if (lex_less(d2, payload, bd[KT - 1], bi[KT - 1])) {
         bd[KT - 1] = d2;
         bi[KT - 1] = payload;
+        if constexpr (DUAL) bl[KT - 1] = c;
 #pragma unroll
         for (int j = KT - 1; j > 0; --j) {
           if (lex_less(bd[j], bi[j], bd[j - 1], bi[j - 1])) {
             const float td = bd[j]; bd[j] = bd[j - 1]; bd[j - 1] = td;
             const int ti = bi[j]; bi[j] = bi[j - 1]; bi[j - 1] = ti;
+            if constexpr (DUAL) {
+              const int tl = bl[j];
+              bl[j] = bl[j - 1];
+              bl[j - 1] = tl;
+            }
           }
         }
       }
@@ -145,19 +174,23 @@ __global__ void knn_select_kernel(
     float kth = kBig;
 #pragma unroll
     for (int j = 0; j < KT; ++j) {
-      if (j < k) oi[j] = bd[j] < 0.5f * kBig ? bi[j] : sentinel;
+      const bool picked = bd[j] < 0.5f * kBig;
+      if (j < k) {
+        oi[j] = picked ? bi[j] : sentinel;
+        if constexpr (DUAL) oc[j] = picked ? bl[j] : ncand;
+      }
       if (j == k - 1) kth = bd[j];
     }
     out_kth[row] = kth;
   }
 }
 
-template <int KT, bool CODES>
+template <int KT, int MODE>
 cudaError_t launch(const float* tx, const float* ty, const float* tz,
                    const int* tids, const float* sx, const float* sy,
                    const float* sz, const int* sids, int num_cells, int g,
                    int cap, int spill_cap, int k, int n, float box,
-                   int mi_start, int* out_ids, float* out_kth,
+                   int mi_start, int* out_ids, int* out_codes, float* out_kth,
                    cudaStream_t stream) {
   const size_t per_warp = (size_t)(27 * cap + spill_cap) * 16;
   if (per_warp > 227 * 1024) return cudaErrorInvalidValue;
@@ -166,60 +199,52 @@ cudaError_t launch(const float* tx, const float* ty, const float* tz,
   const size_t smem = per_warp * warps;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        knn_select_kernel<KT, CODES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        knn_select_kernel<KT, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int blocks = (num_cells + warps - 1) / warps;
-  knn_select_kernel<KT, CODES><<<blocks, 32 * warps, smem, stream>>>(
+  knn_select_kernel<KT, MODE><<<blocks, 32 * warps, smem, stream>>>(
       tx, ty, tz, tids, sx, sy, sz, sids, num_cells, g, cap, spill_cap, k, n,
-      box, mi_start, out_ids, out_kth);
+      box, mi_start, out_ids, out_codes, out_kth);
   return cudaGetLastError();
 }
 
-template <bool CODES>
+template <int MODE>
 int dispatch(const float* tx, const float* ty, const float* tz, const int* tids,
              const float* sx, const float* sy, const float* sz, const int* sids,
              int num_cells, int g, int cap, int spill_cap, int k, int n,
-             float box, int mi_start, int* out, float* out_kth, void* stream) {
+             float box, int mi_start, int* out, int* out_codes, float* out_kth,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k < 1 || k > 128) return (int)cudaErrorInvalidValue;
-  if (k <= 8)
-    return (int)launch<8, CODES>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells,
-                                 g, cap, spill_cap, k, n, box, mi_start, out,
-                                 out_kth, s);
-  if (k <= 16)
-    return (int)launch<16, CODES>(tx, ty, tz, tids, sx, sy, sz, sids,
-                                  num_cells, g, cap, spill_cap, k, n, box,
-                                  mi_start, out, out_kth, s);
-  if (k <= 32)
-    return (int)launch<32, CODES>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells,
-                                  g, cap, spill_cap, k, n, box, mi_start, out,
-                                  out_kth, s);
-  if (k <= 64)
-    return (int)launch<64, CODES>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells,
-                                  g, cap, spill_cap, k, n, box, mi_start, out,
-                                  out_kth, s);
-  return (int)launch<128, CODES>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells,
-                                 g, cap, spill_cap, k, n, box, mi_start, out,
-                                 out_kth, s);
+#define KNN_LAUNCH(KT)                                                        \
+  return (int)launch<KT, MODE>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells, \
+                               g, cap, spill_cap, k, n, box, mi_start, out,   \
+                               out_codes, out_kth, s)
+  if (k <= 8) KNN_LAUNCH(8);
+  if (k <= 16) KNN_LAUNCH(16);
+  if (k <= 32) KNN_LAUNCH(32);
+  if (k <= 64) KNN_LAUNCH(64);
+  KNN_LAUNCH(128);
+#undef KNN_LAUNCH
 }
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Table planes are [num_cells, cap]
 // row-major, spill planes [spill_cap]; out [num_cells * cap, k] int32 (ids,
-// or candidate lanes for knn_codes_launch), out_kth [num_cells * cap]
-// float32. Launch on `stream`, do not synchronize, return the launch's
-// cudaError_t.
+// or candidate lanes for knn_codes_launch; knn_dual_launch writes ids to out
+// and lanes to out_codes), out_kth [num_cells * cap] float32. Launch on
+// `stream`, do not synchronize, return the launch's cudaError_t.
 extern "C" int knn_select_launch(
     const float* tx, const float* ty, const float* tz, const int* tids,
     const float* sx, const float* sy, const float* sz, const int* sids,
     int num_cells, int g, int cap, int spill_cap, int k, int n, float box,
     int mi_start, int* out_ids, float* out_kth, void* stream) {
-  return dispatch<false>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells, g, cap,
-                         spill_cap, k, n, box, mi_start, out_ids, out_kth,
-                         stream);
+  return dispatch<kIds>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells, g, cap,
+                        spill_cap, k, n, box, mi_start, out_ids, nullptr,
+                        out_kth, stream);
 }
 
 extern "C" int knn_codes_launch(
@@ -227,7 +252,17 @@ extern "C" int knn_codes_launch(
     const float* sx, const float* sy, const float* sz, const int* sids,
     int num_cells, int g, int cap, int spill_cap, int k, int n, float box,
     int mi_start, int* out_codes, float* out_kth, void* stream) {
-  return dispatch<true>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells, g, cap,
-                        spill_cap, k, n, box, mi_start, out_codes, out_kth,
-                        stream);
+  return dispatch<kCodes>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells, g,
+                          cap, spill_cap, k, n, box, mi_start, out_codes,
+                          nullptr, out_kth, stream);
+}
+
+extern "C" int knn_dual_launch(
+    const float* tx, const float* ty, const float* tz, const int* tids,
+    const float* sx, const float* sy, const float* sz, const int* sids,
+    int num_cells, int g, int cap, int spill_cap, int k, int n, float box,
+    int mi_start, int* out_ids, int* out_codes, float* out_kth, void* stream) {
+  return dispatch<kDual>(tx, ty, tz, tids, sx, sy, sz, sids, num_cells, g, cap,
+                         spill_cap, k, n, box, mi_start, out_ids, out_codes,
+                         out_kth, stream);
 }

@@ -11,7 +11,7 @@ from typing import Optional
 import torch
 
 from cosmology_gnn_simulation_tpu_torch.ops.aggregation import build_sorted_edges
-from cosmology_gnn_simulation_tpu_torch.ops.cell_list import choose_cell_grid
+from cosmology_gnn_simulation_tpu_torch.ops.cell_list import cell_list_knn, choose_cell_grid
 from cosmology_gnn_simulation_tpu_torch.ops.neighbors import knn_periodic
 from cosmology_gnn_simulation_tpu_torch.ops.noise import (
     random_walk_position_noise,
@@ -52,21 +52,25 @@ def neighbor_search_certified(
 
     Returns ``(neighbors [N, k] int64, exact)`` with ``exact`` a 0-d bool
     tensor on the device: True iff the result is provably the exact k-NN
-    set (brute force always; the cell-list kernel when no spill-block
-    exhaustion and every k-th neighbor within its window margin).
+    set (brute force always; the cell-list searches when no cell or spill
+    block overflowed and every k-th neighbor is within its window margin).
 
     ``method``: ``"pallas"`` is the cell-list kernel K1 (the JAX package's
-    name for its fused cell-list kernel); ``"bruteforce"`` the exact tiled
-    search; ``"auto"`` picks brute force below 8192 particles, else K1.
-    Brute force also serves when no grid of >= 3 cells per edge exists.
+    name for its fused cell-list kernel); ``"celllist"`` the plain PyTorch
+    cell list (``ops.cell_list.cell_list_knn``, the JAX package's XLA
+    search); ``"bruteforce"`` the exact tiled search; ``"auto"`` picks brute
+    force below 8192 particles, else K1 (the JAX package picks its XLA cell
+    list off the TPU). Brute force also serves when no grid of >= 3 cells
+    per edge exists.
 
     ``with_codes=True`` returns ``(neighbors, codes, codes_cap, spill,
     exact)``: the cell-list kernel's candidate codes, their packing
     capacity and spill tables for the cell-block plan build, or ``None``
-    for all three when brute force served. With ``codes_only`` the kernel
-    runs in its codes mode K1' and ``neighbors`` is ``None``.
+    for all three when another search served. The kernel then runs in its
+    dual mode K1'' (ids and codes); with ``codes_only`` in its codes mode
+    K1', and ``neighbors`` is ``None``.
     """
-    if method not in ("auto", "pallas", "bruteforce"):
+    if method not in ("auto", "pallas", "celllist", "bruteforce"):
         raise ValueError(f"unknown neighbor method: {method}")
     n = positions.shape[0]
     if method == "auto":
@@ -75,6 +79,13 @@ def neighbor_search_certified(
     if method == "bruteforce" or grid.grid_size < 3:
         idx = knn_periodic(positions, k, box_size, query_tile=query_tile)
         exact = torch.ones((), dtype=torch.bool, device=positions.device)
+        return (idx, None, None, None, exact) if with_codes else (idx, exact)
+    if method == "celllist":
+        idx, (overflow, _, max_excess) = cell_list_knn(
+            positions, k, box_size, grid, query_tile=max(query_tile, 4096),
+            return_diagnostics=True,
+        )
+        exact = (overflow == 0) & (max_excess <= 0.0)
         return (idx, None, None, None, exact) if with_codes else (idx, exact)
     if with_codes:
         idx, codes, spill, (overflow, _, max_excess) = pallas_cell_list_knn(
@@ -116,7 +127,8 @@ def featurize(
     noised, wrapped last frame (the training path, whose noise the caller
     cannot see). ``with_codes`` then returns ``(graph, codes, codes_cap,
     spill)``, the cell-list kernel's codes for the cell-block plan (all None
-    when brute force served); with ``codes_only`` the ids are not made.
+    when another search served); with ``codes_only`` the kernel makes no
+    ids (another search still does).
     ``build_edges=False`` skips the ``[N, k, 4]`` edge features the pruned
     model never reads (``neighbors`` may then be None: the cell-block path).
 

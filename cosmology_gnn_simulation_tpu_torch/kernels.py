@@ -8,8 +8,8 @@ a hash of their source and flags, so an edited source is rebuilt and a
 stale library is never loaded.
 
 ``launches[name]`` counts the launches of kernel ``name`` (one source may
-host several: ``knn_select.cu`` has ``knn_select`` and ``knn_codes``,
-``window_matmul.cu`` has ``window_matmul`` and its S^T mode
+host several: ``knn_select.cu`` has ``knn_select``, ``knn_codes`` and
+``knn_dual``, ``window_matmul.cu`` has ``window_matmul`` and its S^T mode
 ``window_matmul_t``): each
 wrapper adds one where it launches its kernel and nowhere else, so a caller
 can zero the counts, drive a path, and see which kernels it went through.
@@ -32,9 +32,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 SOURCES = ("knn_select", "fused_tail", "fused_tail_bwd", "s_decode", "s_onehot",
-           "window_matmul", "reverse_table")
-KERNELS = ("knn_select", "knn_codes", "s_decode", "s_onehot", "reverse_table",
-           "window_matmul", "window_matmul_t", "fused_tail", "fused_tail_bwd")
+           "window_matmul", "reverse_table", "dense_select")
+KERNELS = ("knn_select", "knn_codes", "knn_dual", "s_decode", "dense_select", "s_onehot",
+           "reverse_table", "window_matmul", "window_matmul_t", "fused_tail",
+           "fused_tail_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -4,6 +4,8 @@ Particles are binned into a G^3 periodic grid whose cell edge is at least
 the k-th-neighbor radius with margin; a query's candidates are its 27
 surrounding cells. The per-query certificate ``window_margin_sq`` says when
 that candidate window provably holds the exact k nearest neighbors.
+``cell_list_knn`` is the search on that grid in plain PyTorch (the JAX
+package's XLA cell list, no kernel).
 """
 
 from __future__ import annotations
@@ -12,6 +14,15 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+
+from cosmology_gnn_simulation_tpu_torch.ops.binning import bin_by_key, scatter_to_table
+from cosmology_gnn_simulation_tpu_torch.ops.periodic import min_image_displacement
+
+
+# The 27 neighbor-cell offsets of a cell's 3x3x3 window, dx slowest (the
+# candidate lane order of the cell-list searches and of the k-NN codes).
+NEIGHBOR_OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                    for dz in (-1, 0, 1)]
 
 
 class CellGrid(NamedTuple):
@@ -86,3 +97,63 @@ def window_margin_sq(queries: torch.Tensor, box: torch.Tensor, grid: CellGrid) -
     frac = queries - c.float() * edge
     m = edge + torch.minimum(frac, edge - frac).min(dim=-1).values
     return m * m
+
+
+
+def cell_list_knn(
+    positions: torch.Tensor,
+    k: int,
+    box_size,
+    grid: CellGrid,
+    *,
+    query_tile: int = 8192,
+    return_diagnostics: bool = False,
+):
+    """Periodic self-query k-NN through the cell list (the JAX package's
+    XLA ``cell_list_knn``): per query, the ``[27 * C]`` candidate ids of its
+    3x3x3 cells (``C = grid.cell_capacity``; particles past it are dropped
+    and counted), min-image ``d^2 = (dx^2 + dy^2) + dz^2``, and the k
+    smallest by a stable sort (the smallest lane wins exact ties, as
+    ``lax.top_k``). Missing picks repeat the row's first pick.
+
+    Returns ``[N, k]`` int64 neighbor indices (ascending distance), plus
+    ``(overflow, max_d2, max_excess)`` if requested: exact iff
+    ``overflow == 0`` and ``max_excess <= 0`` (``window_margin_sq``).
+    ``query_tile`` queries are searched at a time.
+    """
+    g, cap = grid.grid_size, grid.cell_capacity
+    if g < 3:
+        raise ValueError("grid_size must be >= 3 (use brute force below that)")
+    n = positions.shape[0]
+    dev = positions.device
+    box = f32(box_size, dev)
+    positions = positions.float()
+    coords = cell_coords(positions, g, box)
+    cell_id = (coords[:, 0] * g + coords[:, 1]) * g + coords[:, 2]
+    b = bin_by_key(cell_id, g**3, cap)
+    table = scatter_to_table(b, b.order, g**3, cap, n, torch.int64)
+    planes = [torch.cat([positions[:, d], positions.new_zeros(1)]) for d in range(3)]
+    offsets = torch.tensor(NEIGHBOR_OFFSETS, device=dev)
+    idx_tiles, d2_tiles = [], []
+    for start in range(0, n, query_tile):
+        q = positions[start:start + query_tile]
+        ncells = torch.remainder(cell_coords(q, g, box)[:, None, :] + offsets, g)
+        ncell_id = (ncells[..., 0] * g + ncells[..., 1]) * g + ncells[..., 2]
+        cand = table[ncell_id].reshape(q.shape[0], -1)
+        d2 = None
+        for d in range(3):
+            delta = min_image_displacement(q[:, d:d + 1] - planes[d][cand], box)
+            d2 = delta * delta if d2 is None else d2 + delta * delta
+        d2 = torch.where(cand == n, torch.inf, d2)
+        d2_sorted, pick = torch.sort(d2, dim=1, stable=True)
+        picked = torch.gather(cand, 1, pick[:, :k])
+        picked = torch.where(picked == n, picked[:, :1], picked)
+        picked = torch.where(picked == n, 0, picked)
+        idx_tiles.append(picked)
+        d2_tiles.append(d2_sorted[:, :k])
+    idx = torch.cat(idx_tiles)
+    if not return_diagnostics:
+        return idx
+    d2 = torch.cat(d2_tiles)
+    excess = d2.max(dim=1).values - window_margin_sq(positions, box, grid)
+    return idx, (b.overflow, d2.max(), excess.max())

@@ -1,9 +1,12 @@
 """Cell-block neighbor aggregation (counterpart of ``ops/cellblock.py``):
 the aggregation ``agg[i] = sum_j z[neighbors[i, j]]`` as selection-matrix
-products over a periodic cell decomposition, around five CUDA kernels:
+products over a periodic cell decomposition, around six CUDA kernels:
 
 * K2 ``s_decode`` (``csrc/s_decode.cu``, the Pallas ``_s_from_codes_fused``):
   the k-NN kernel's candidate codes -> per-edge S-lane offsets;
+* K8 ``dense_select`` (``csrc/dense_select.cu``, the Pallas
+  ``_dense_select_kernel``): the fused dense-query search, whose window
+  lanes rebase into S-lane offsets without a separate k-NN round;
 * K3 ``s_onehot`` (``csrc/s_onehot.cu``, the Pallas ``_s_from_offsets``):
   offsets -> int8 S rows of multiplicity counts;
 * K7 ``reverse_table`` (``csrc/reverse_table.cu``, the Pallas
@@ -28,14 +31,15 @@ of its slots sends to each row of its 9 windows.
 
 Exact (gather-sum up to summation order) whenever ``overflow == 0`` and
 ``dropped_edges == 0``; both are counted, never silent. The backward is
-exact when ``reverse_mismatch == 0`` too.
+exact when ``reverse_mismatch == 0`` too. The dense search adds
+``search_window_overflow == 0`` and ``search_excess <= 0``.
 
-Ported: the uniform cubic layout, the codes path of the plan build in the
-particle codes layout (with the reverse table), and the hybrid aggregation
-with its backward (expand and compact as monotone gathers both ways). Not
-ported (each raises ``NotImplementedError``): plans from neighbor ids (the
-aux path), variable capacities, the table codes layout, the dense search,
-non-cubic grids and validity masks.
+Ported: the uniform cubic layout; the plan build from the k-NN codes in the
+particle codes layout, from neighbor ids (the aux path) and by the dense
+search, each with the reverse table; the hybrid aggregation with its
+backward (expand and compact as monotone gathers both ways). Variable
+capacities, the table codes layout, non-cubic grids and validity masks
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,9 +54,12 @@ import torch
 from cosmology_gnn_simulation_tpu_torch import kernels
 from cosmology_gnn_simulation_tpu_torch.ops.binning import bucket_boundaries
 from cosmology_gnn_simulation_tpu_torch.ops.cell_list import (
+    NEIGHBOR_OFFSETS,
+    CellGrid,
     cell_coords,
     choose_cell_grid,
     f32,
+    window_margin_sq,
 )
 
 _LANE = 128
@@ -241,6 +248,14 @@ class CellBlockGraph(NamedTuple):
                        read by the aggregation's backward.
       reverse_mismatch: scalar or None — (edges in S) - (edges in S_rev);
                        0 certifies S_rev as the exact transpose of S.
+      search_excess:   scalar or None (the dense search only) — the largest
+                       k-th squared distance less the query's window margin
+                       (``window_margin_sq``); <= 0 certifies every query's
+                       k-th neighbor inside its provable window.
+      search_window_overflow: scalar or None (the dense search only) — rows
+                       the search windows truncated plus z-wrap copies past
+                       ``wrap_cap``; either can hide a true neighbor, so 0
+                       is part of the certificate.
     """
 
     order: torch.Tensor
@@ -254,10 +269,8 @@ class CellBlockGraph(NamedTuple):
     window_overflow: torch.Tensor
     s_rev_table: Optional[torch.Tensor] = None
     reverse_mismatch: Optional[torch.Tensor] = None
-
-
-# The 27 neighbor-cell offsets of the k-NN codes, dx slowest.
-_OFFSETS27 = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
+    search_excess: Optional[torch.Tensor] = None
+    search_window_overflow: Optional[torch.Tensor] = None
 
 
 class CellBlockLayout(NamedTuple):
@@ -267,8 +280,11 @@ class CellBlockLayout(NamedTuple):
     compact start of every cell within its column ``cstart_rel [C, G]``,
     and the per-(tile, ring column) window constants ``tile_const
     [T, 45]`` int32 (``[w_loc, cP, m, cA, cstart_g1]`` at ``j * 5 + i``) —
-    and each column's count of wrap rows before its main rows ``c_pre
-    [C]`` (the reverse table's main-image positions)."""
+    each column's count of wrap rows before its main rows ``c_pre [C]``
+    (the reverse table's main-image positions) and after them ``c_app
+    [C]``, its used rows ``used [C]``, and the sorted stream's cells
+    ``sorted_cell [N]`` with their boundaries ``gstart [G^3 + 1]`` (what
+    the dense search reads)."""
 
     order: torch.Tensor
     slot_of_sorted: torch.Tensor
@@ -281,6 +297,10 @@ class CellBlockLayout(NamedTuple):
     cstart_rel: torch.Tensor
     tile_const: torch.Tensor
     c_pre: torch.Tensor
+    c_app: torch.Tensor
+    used: torch.Tensor
+    sorted_cell: torch.Tensor
+    gstart: torch.Tensor
 
 
 def cellblock_layout(positions: torch.Tensor, box_size, spec: CellBlockSpec) -> CellBlockLayout:
@@ -371,7 +391,8 @@ def cellblock_layout(positions: torch.Tensor, box_size, spec: CellBlockSpec) -> 
         order=order, slot_of_sorted=slot_of_sorted, particle_of_slot=particle_of_slot,
         pad_src=pad_src, window_starts=window_starts, overflow=overflow,
         window_overflow=window_overflow, sorted_cz=sorted_cz, cstart_rel=cstart_rel,
-        tile_const=tile_const, c_pre=c_pre,
+        tile_const=tile_const, c_pre=c_pre, c_app=c_app, used=m, sorted_cell=sorted_cell,
+        gstart=gstart,
     )
 
 
@@ -415,7 +436,7 @@ def slot_codes(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes_cap:
     # Compact starts of each cell's 27 neighbor cells, in code order.
     cstart3 = layout.cstart_rel.reshape(g, g, g)
     cstart27 = torch.stack(
-        [torch.roll(cstart3, (-dx, -dy, -dz), dims=(0, 1, 2)) for dx, dy, dz in _OFFSETS27],
+        [torch.roll(cstart3, (-dx, -dy, -dz), dims=(0, 1, 2)) for dx, dy, dz in NEIGHBOR_OFFSETS],
         dim=-1,
     ).reshape(g**3, 27).to(torch.int32).contiguous()
     sp_aux = None
@@ -517,6 +538,299 @@ def reverse_candidates(packs: torch.Tensor, layout: CellBlockLayout,
     return packed.index_select(0, layout.pad_src).contiguous()
 
 
+def aux_slot_senders(layout: CellBlockLayout, neighbors: torch.Tensor,
+                     spec: CellBlockSpec) -> torch.Tensor:
+    """The aux path's senders per slot (JAX ``build_cellblock`` from
+    neighbor ids): ``[num_slots, k]`` int64, each the packed ``pack * G +
+    cz`` of the sender's slot (``col * CC + rank``) and z-cell, and the
+    sentinel ``num_slots * G`` where there is no sender (ids >= N, a sender
+    past its column's capacity, an empty slot). The packed aux of every
+    particle in original order, one gather through the ``[N, k]`` table,
+    the rows permuted by ``order`` and expanded to slots."""
+    g = spec.grid_size
+    num_slots = spec.num_slots
+    n, k = neighbors.shape
+    pack = torch.empty_like(layout.slot_of_sorted)
+    pack[layout.order] = layout.slot_of_sorted
+    cz = torch.empty_like(layout.sorted_cz)
+    cz[layout.order] = layout.sorted_cz
+    aux = pack * g + torch.where(pack < num_slots, cz, 0)
+    aux_ext = torch.cat([aux, aux.new_full((1,), num_slots * g)])
+    nbr = aux_ext[torch.clamp(neighbors.long(), 0, n)][layout.order]
+    nbr_ext = torch.cat([nbr, nbr.new_full((1, k), num_slots * g)])
+    return nbr_ext[layout.particle_of_slot]
+
+
+def aux_offsets(senders: torch.Tensor, layout: CellBlockLayout, spec: CellBlockSpec):
+    """S-lane offsets of the aux path's senders (``aux_slot_senders``; the
+    JAX ``s_tile``): ``(offsets [num_slots, k] int16, dropped_edges)``. A
+    sender in the query column's 3x3 ring lands at the window lane of its
+    main image, else of its pre z-wrap image, else of its appended one, in
+    that order of priority; a real sender no image places is a dropped
+    edge; no edge, or an empty query slot, is the inert lane ``9W``."""
+    g, cc, qb, w_cap = spec.grid_size, spec.col_capacity, spec.query_block, spec.window
+    num_slots = spec.num_slots
+    dev = senders.device
+    slots = torch.arange(num_slots, device=dev)
+    col_q = (slots // cc)[:, None]
+    s_slot = senders // g
+    s_cz = senders % g
+    real = s_slot < num_slots
+    col_s, r_s = s_slot // cc, s_slot % cc
+    dx = (col_s // g - col_q // g + 1 + g) % g
+    dy = (col_s % g - col_q % g + 1 + g) % g
+    in3 = (dx < 3) & (dy < 3) & real
+    j = torch.where(in3, dx * 3 + dy, 9)
+    const = layout.tile_const.long()[slots // qb]  # [S, 45]
+    jc = torch.clamp(j, max=8)
+    w_s, cp_s, m_s, ca_s, cg1_s = (
+        torch.where(in3, torch.gather(const, 1, jc * 5 + i), 0) for i in range(5)
+    )
+    in3 = in3 & (r_s < m_s)
+    rel_main = cp_s + r_s - w_s
+    ok_main = in3 & (rel_main >= 0) & (rel_main < w_cap)
+    rank_pre = r_s - cg1_s
+    rel_pre = rank_pre - w_s
+    ok_pre = in3 & (s_cz == g - 1) & (rank_pre < cp_s) & (rel_pre >= 0) & (rel_pre < w_cap)
+    rel_app = cp_s + m_s + r_s - w_s
+    ok_app = in3 & (s_cz == 0) & (r_s < ca_s) & (rel_app >= 0) & (rel_app < w_cap)
+    off = torch.where(ok_main, rel_main, torch.where(ok_pre, rel_pre, rel_app))
+    placed = ok_main | ok_pre | ok_app
+    occupied = (layout.particle_of_slot < layout.order.shape[0])[:, None]
+    offsets = torch.where(occupied & placed, j * w_cap + off, spec.s_width)
+    return offsets.to(torch.int16), (occupied & real & ~placed).sum()
+
+
+class DenseSearchSpec(NamedTuple):
+    """The dense-query search's tiling (the JAX ``DenseSearchSpec``):
+    ``query_block`` (QB_s) dense cell-sorted query rows per search tile, a
+    positive multiple of 8; ``window`` (W_s) candidate rows per ring column
+    per tile, a multiple of 128, which must cover a tile's z-extent plus one
+    cell each side (truncation is counted and fails the certificate)."""
+
+    query_block: int = 16
+    window: int = 128
+
+    def validate(self) -> None:
+        if self.query_block % 8 or self.query_block <= 0:
+            raise ValueError(f"dense query_block {self.query_block} must be a positive "
+                             "multiple of 8")
+        if self.window % _LANE:
+            raise ValueError(f"dense window {self.window} must be a multiple of {_LANE}")
+
+
+def choose_dense_search_spec(num_particles: int, spec: CellBlockSpec,
+                             query_block: int = 16) -> DenseSearchSpec:
+    """The JAX chooser: a QB_s-row tile's window holds about QB_s plus two
+    mean cells of rows; 5 sigma on that plus QB_s more for a tile that
+    straddles cell boundaries, rounded up to 128."""
+    mean_cell = num_particles / spec.grid_size**3
+    expect = query_block + 2.0 * mean_cell
+    w = expect + 5.0 * math.sqrt(max(expect, 1.0)) + query_block
+    return DenseSearchSpec(query_block=query_block,
+                           window=max(_round_up(math.ceil(w), _LANE), _LANE))
+
+
+class DenseSearch(NamedTuple):
+    """K8's inputs and what the rebase of its lanes reads (the JAX
+    ``_dense_search_offsets`` up to its kernel call).
+
+    Attributes:
+      table:    ``[C, 3, ccp]`` float32 — per column its padded image of
+                x, y, z (``[cP | main | cA]``, the z-wrap copies' z shifted
+                by -+box; unused rows at ``4 * box``), ``ccp`` = the padded
+                column rounded up to 128.
+      queries:  ``[T * QB_s, 3]`` float32 — the sorted rows in dense tile
+                order (column ``col`` packs ``ceil(used / QB_s)`` tiles);
+                rows no tile owns are zero.
+      windows:  ``[T, 9, 4]`` int32 — per tile and ring column: the column,
+                the window's first row (the start floored to 128, clamped so
+                ``w_eff`` rows fit), and the x and y periodic shifts (-1, 0,
+                1) of its coordinates. ``T = C + ceil(N / QB_s)``.
+      tile_col, tile_row0, rows, abs0: ``[T]`` — each tile's column, first
+                row in it, live rows (0 for tiles past the used ones) and
+                first sorted row.
+      window_overflow: scalar — rows the windows truncated plus z-wrap
+                copies past ``wrap_cap`` (``search_window_overflow``).
+      w_eff:    rows a window reads, ``min(W_s + 128, ccp)``.
+      ccp:      the table's row stride.
+    """
+
+    table: torch.Tensor
+    queries: torch.Tensor
+    windows: torch.Tensor
+    tile_col: torch.Tensor
+    tile_row0: torch.Tensor
+    rows: torch.Tensor
+    abs0: torch.Tensor
+    window_overflow: torch.Tensor
+    w_eff: int
+    ccp: int
+
+
+def dense_search_inputs(layout: CellBlockLayout, sorted_pos: torch.Tensor, box_size,
+                        spec: CellBlockSpec, dspec: DenseSearchSpec) -> DenseSearch:
+    """Build K8's coordinate table, query tiles and windows from the plan's
+    layout and the cell-sorted ``[N, 3]`` positions (the JAX
+    ``_dense_search_offsets`` up to its kernel call; ``w_eff``, the
+    128-floored starts and the lane numbering are JAX's)."""
+    g, cc, wrap = spec.grid_size, spec.col_capacity, spec.wrap_cap
+    num_cols = spec.num_columns
+    qb_s = dspec.query_block
+    ccp_s = _round_up(2 * wrap + cc, _LANE)
+    w_eff = min(dspec.window + _LANE, ccp_s)
+    n = sorted_pos.shape[0]
+    t_bound = num_cols + -(-n // qb_s)
+    dev = sorted_pos.device
+    box = f32(box_size, dev)
+    iota = torch.arange(n, device=dev)
+    gstart, used, c_pre, c_app = layout.gstart, layout.used, layout.c_pre, layout.c_app
+    col_start = gstart[::g]
+    sorted_col, sorted_cz = layout.sorted_cell // g, layout.sorted_cz
+    r_col = iota - col_start[sorted_col]
+    r_cell = iota - gstart[layout.sorted_cell]
+    cstart_ext = torch.cat([layout.cstart_rel, used[:, None]], dim=1)  # [C, G + 1]
+
+    # The padded coordinate table; the z-wrap copies carry pre-shifted z.
+    flat = num_cols * ccp_s
+    c_pre_i, m_i = c_pre[sorted_col], used[sorted_col]
+    dst_main = torch.where(r_col < torch.clamp(m_i, max=cc),
+                           sorted_col * ccp_s + c_pre_i + r_col, flat)
+    dst_pre = torch.where((sorted_cz == g - 1) & (r_cell < wrap),
+                          sorted_col * ccp_s + r_cell, flat)
+    dst_app = torch.where((sorted_cz == 0) & (r_cell < wrap) & (r_col < cc),
+                          sorted_col * ccp_s + c_pre_i + m_i + r_cell, flat)
+    planes = []
+    for d in range(3):
+        vals = sorted_pos[:, d]
+        plane = torch.full((flat + 1,), 4.0, device=dev) * box
+        plane[dst_main] = vals
+        plane[dst_pre] = vals - box if d == 2 else vals
+        plane[dst_app] = vals + box if d == 2 else vals
+        planes.append(plane[:flat].reshape(num_cols, ccp_s))
+    table = torch.stack(planes, dim=1).contiguous()
+
+    # Dense query tiles: column col packs ceil(used / QB_s) tiles at its
+    # prefix offset; tiles past the used ones are dead.
+    tiles_per_col = -(-used // qb_s)
+    tile_ofs = torch.cat([tiles_per_col.new_zeros(1), torch.cumsum(tiles_per_col, 0)])
+    t = torch.arange(t_bound, device=dev)
+    live = t < tile_ofs[-1]
+    tile_col = torch.where(live, torch.searchsorted(tile_ofs[1:], t, right=True), 0)
+    tile_row0 = torch.where(live, (t - tile_ofs[tile_col]) * qb_s, 0)
+    abs0 = col_start[tile_col] + tile_row0
+    rows_t = torch.where(live, torch.clamp(used[tile_col] - tile_row0, 0, qb_s), 0)
+    cz_ext = torch.cat([sorted_cz, sorted_cz.new_zeros(1)])
+    has_rows = rows_t > 0
+    z_lo = torch.where(has_rows, cz_ext[torch.clamp(abs0, 0, n)], 0)
+    z_hi = torch.where(has_rows, cz_ext[torch.clamp(abs0 + torch.clamp(rows_t, min=1) - 1,
+                                                    0, n)], 0)
+    q_dst = torch.where(r_col < cc,
+                        (tile_ofs[sorted_col] + r_col // qb_s) * qb_s + r_col % qb_s,
+                        t_bound * qb_s)
+    queries = sorted_pos.new_zeros((t_bound * qb_s + 1, 3))
+    queries[q_dst] = sorted_pos
+    queries = queries[:-1].contiguous()
+
+    # Per (tile, ring column) windows into the padded columns.
+    dxy = torch.arange(9, device=dev)
+    ax = (tile_col // g)[:, None] + dxy // 3 - 1
+    ay = (tile_col % g)[:, None] + dxy % 3 - 1
+    cj = (ax % g) * g + ay % g
+    sx = torch.where(ax < 0, -1, torch.where(ax >= g, 1, 0))
+    sy = torch.where(ay < 0, -1, torch.where(ay >= g, 1, 0))
+    cp_j, m_j, ca_j = c_pre[cj], used[cj], c_app[cj]
+    ce = cstart_ext[cj]  # [T, 9, G + 1]
+
+    def at(z):
+        return torch.gather(ce, 2, z[:, None, None].expand(-1, 9, 1))[..., 0]
+
+    start = torch.where(z_lo[:, None] >= 1, cp_j + at(torch.clamp(z_lo - 1, 0, g)), 0)
+    end = torch.where(z_hi[:, None] <= g - 2, cp_j + at(torch.clamp(z_hi + 2, 0, g)),
+                      cp_j + m_j + ca_j)
+    fl = torch.clamp(start // _LANE * _LANE, 0, ccp_s - w_eff)
+    truncated = torch.where(live[:, None], torch.clamp(end - fl - w_eff, min=0), 0).sum()
+    cols = torch.arange(num_cols, device=dev)
+    wrap_hidden = (torch.clamp(gstart[(cols + 1) * g] - gstart[cols * g + g - 1] - wrap, min=0).sum()
+                   + torch.clamp(gstart[cols * g + 1] - gstart[cols * g] - wrap, min=0).sum())
+    windows = torch.stack([cj, fl, sx, sy], dim=-1).to(torch.int32).contiguous()
+    return DenseSearch(table=table, queries=queries, windows=windows, tile_col=tile_col,
+                       tile_row0=tile_row0, rows=rows_t, abs0=abs0,
+                       window_overflow=truncated + wrap_hidden, w_eff=w_eff, ccp=ccp_s)
+
+
+_NO_PICK = 2**30
+
+
+def dense_offsets(lanes: torch.Tensor, kth: torch.Tensor, ds: DenseSearch,
+                  layout: CellBlockLayout, spec: CellBlockSpec):
+    """Rebase K8's window lanes (the JAX ``_dense_search_offsets`` after its
+    kernel call). Returns ``(offsets [num_slots, k] int16, picks
+    [num_slots, k] int64, kth_sorted [N] float32)``: each pick's S lane in
+    its slot's aggregation tile (``9W + 1`` where that window misses it, a
+    dropped edge; ``9W`` for no pick), its absolute padded row
+    ``j * ccp + row`` (``2**30`` for none), and each sorted row's k-th
+    squared distance (``-1e30`` for rows no search tile holds)."""
+    cc, qb, w_cap = spec.col_capacity, spec.query_block, spec.window
+    num_slots, width = spec.num_slots, spec.s_width
+    t_bound = ds.windows.shape[0]
+    k = lanes.shape[1]
+    qb_s = lanes.shape[0] // t_bound
+    n = layout.order.shape[0]
+    dev = lanes.device
+    codes = lanes.long().view(t_bound, qb_s * k)
+    j_t = codes // ds.w_eff  # 9 for the no-pick sentinel
+    fl = torch.gather(ds.windows[..., 1].long(), 1, torch.clamp(j_t, max=8))
+    code_abs = torch.where(j_t < 9, j_t * ds.ccp + fl + codes - j_t * ds.w_eff, _NO_PICK)
+    row_i = torch.arange(qb_s, device=dev)
+    row_ok = row_i < ds.rows[:, None]  # [T, QB_s]
+    slot_dst = torch.where(row_ok, ds.tile_col[:, None] * cc + ds.tile_row0[:, None] + row_i,
+                           num_slots).reshape(-1)
+    picks = torch.full((num_slots + 1, k), _NO_PICK, dtype=torch.int64, device=dev)
+    picks[slot_dst] = code_abs.view(-1, k)
+    picks = picks[:num_slots]
+    sort_dst = torch.where(row_ok, ds.abs0[:, None] + row_i, n).reshape(-1)
+    kth_sorted = torch.full((n + 1,), -1e30, dtype=torch.float32, device=dev)
+    kth_sorted[sort_dst] = kth
+    # Both systems are column-relative padded rows: the S lane is the plain
+    # difference against the slot's aggregation-tile window start.
+    w_a = layout.tile_const.long().view(-1, 9, 5)[..., 0]
+    j2 = torch.clamp(picks // ds.ccp, max=9)
+    tile_a = torch.arange(num_slots, device=dev) // qb
+    rel = picks - j2 * ds.ccp - torch.gather(w_a[tile_a], 1, torch.clamp(j2, max=8))
+    picked = picks < _NO_PICK
+    ok = picked & (rel >= 0) & (rel < w_cap)
+    offsets = torch.where(ok, j2 * w_cap + rel, torch.where(picked, width + 1, width))
+    return offsets.to(torch.int16), picks, kth_sorted[:n]
+
+
+def dense_sender_packs(offsets: torch.Tensor, picks: torch.Tensor, ccp: int,
+                       layout: CellBlockLayout, spec: CellBlockSpec) -> torch.Tensor:
+    """Each slot's sender packs ``col * CC + rank`` ``[num_slots, k]`` int32
+    on the dense path (``num_slots`` where S holds no edge), by decoding each
+    pick's padded row against its sender column's ``[cP | main | cA]``
+    segments (JAX ``build_cellblock``'s dense ``with_reverse`` branch)."""
+    cc, qb = spec.col_capacity, spec.query_block
+    num_slots = spec.num_slots
+    tile_a = torch.arange(num_slots, device=picks.device) // qb
+    j2 = torch.clamp(picks // ccp, max=9)
+    p2 = picks - j2 * ccp
+    jc = torch.clamp(j2, max=8)
+    const = layout.tile_const.long()[tile_a]  # [S, 45]
+    col_j = (layout.window_starts.long() // spec.padded_col)[tile_a]
+
+    def sel(table):
+        return torch.where(j2 < 9, torch.gather(table, 1, jc), 0)
+
+    col_s = sel(col_j)
+    cp_s, m_s, cg1_s = (sel(const[:, i::5]) for i in (1, 2, 4))
+    is_pre = p2 < cp_s
+    is_main = ~is_pre & (p2 < cp_s + m_s)
+    rank = torch.where(is_pre, cg1_s + p2, torch.where(is_main, p2 - cp_s, p2 - cp_s - m_s))
+    ok = (offsets.long() < spec.s_width) & (rank >= 0) & (rank < cc)
+    return torch.where(ok, col_s * cc + rank, num_slots).to(torch.int32)
+
+
 def build_cellblock(
     positions: torch.Tensor,
     neighbors,
@@ -529,26 +843,31 @@ def build_cellblock(
     codes_spill: Optional[tuple] = None,
     valid=None,
     codes_layout: str = "particle",
-    dense_search=None,
+    dense_search: Optional[DenseSearchSpec] = None,
+    num_neighbors: Optional[int] = None,
 ) -> CellBlockGraph:
-    """Build the per-graph plan from the k-NN kernel's candidate codes.
+    """Build the per-graph plan: layout, S table and, with
+    ``with_reverse=True`` (training), the reverse table K7 and
+    ``reverse_mismatch``. ``positions`` ``[N, 3]`` are wrapped, in original
+    particle order. Three routes to S's offsets, then K3 (the JAX package's
+    ``s_build="kernel"``):
 
-    ``positions`` ``[N, 3]`` are wrapped, in original particle order;
-    ``neighbor_codes`` ``[N, k]`` and ``codes_spill`` are what
-    ``pallas_cell_list_knn(..., codes_only=True)`` returned on the SAME grid
-    size as ``spec.grid_size``, ``codes_cap`` its ``codes_packing_cap``.
-    The S table is built by K2 then K3 (``s_build="kernel"``, the JAX
-    package's kernel route). ``with_reverse=True`` (training) also builds
-    the reverse table with K7 from each slot's decoded sender packs, and
-    ``reverse_mismatch``. Every other input form raises
-    ``NotImplementedError``.
+    * codes (``neighbor_codes``, ``codes_cap``, ``codes_spill``): what
+      ``pallas_cell_list_knn(..., with_codes=True)`` returned on the SAME
+      grid size as ``spec.grid_size``, decoded by K2. Wins when ``neighbors``
+      is passed too, as in JAX.
+    * aux (``neighbors [N, k]`` alone, from any search on any grid): each
+      sender's packed slot and z-cell through the neighbor table, placed by
+      ``aux_offsets``.
+    * dense (``dense_search=DenseSearchSpec``, ``num_neighbors=k``, no
+      neighbors or codes): the fused dense-query search K8 over the plan's
+      own padded columns; the plan then also carries ``search_excess`` and
+      ``search_window_overflow``.
+
+    The uniform cubic layout only: variable capacities, validity masks and
+    the table codes layout raise ``NotImplementedError``.
     """
-    if neighbors is not None or neighbor_codes is None:
-        raise NotImplementedError(
-            "build_cellblock from neighbor ids (the aux path) is not ported; "
-            "pass neighbors=None with neighbor_codes"
-        )
-    if codes_cap is None:
+    if (neighbor_codes is None) != (codes_cap is None):
         raise ValueError("neighbor_codes and codes_cap go together")
     if s_build != "kernel":
         raise NotImplementedError(f"s_build={s_build!r} is not ported (only 'kernel')")
@@ -557,19 +876,57 @@ def build_cellblock(
     if codes_layout != "particle":
         raise NotImplementedError(f"codes_layout={codes_layout!r} is not ported")
     if dense_search is not None:
-        raise NotImplementedError("the dense search is not ported")
-    if neighbor_codes.shape[1] > 127:
-        raise ValueError(f"k={neighbor_codes.shape[1]} exceeds 127 — S-table "
-                         "entries are int8 counts")
+        dense_search.validate()
+        if num_neighbors is None:
+            raise ValueError("dense_search requires num_neighbors")
+        if neighbors is not None or neighbor_codes is not None:
+            raise ValueError("dense_search replaces the neighbor search: pass "
+                             "neighbors=None without codes")
+        if spec.variable or spec.grid_x or not spec.periodic_x:
+            raise ValueError("dense_search requires the uniform cubic periodic layout")
+        if dense_search.window > _round_up(spec.padded_col, _LANE):
+            raise ValueError(f"dense window {dense_search.window} exceeds the padded "
+                             f"column {_round_up(spec.padded_col, _LANE)}")
+        k = num_neighbors
+    elif neighbors is None and neighbor_codes is None:
+        raise ValueError("neighbors=None requires neighbor_codes")
+    else:
+        k = (neighbor_codes if neighbor_codes is not None else neighbors).shape[1]
+    if k > 127:
+        raise ValueError(f"k={k} exceeds 127 — S-table entries are int8 counts")
     layout = cellblock_layout(positions, box_size, spec)
-    sc = slot_codes(layout, neighbor_codes, codes_cap, codes_spill, spec)
-    offsets = s_decode(_normalized_codes(sc, codes_cap, spec), sc.qz_slot.contiguous(),
-                       sc.cstart27, layout.tile_const, spec=spec, codes_cap=codes_cap)
-    s_table = s_onehot(offsets, width=spec.s_width)
+    g, width = spec.grid_size, spec.s_width
+    search_excess = search_window_overflow = packs = None
+    if dense_search is not None:
+        sorted_pos = positions.float()[layout.order]
+        ds = dense_search_inputs(layout, sorted_pos, box_size, spec, dense_search)
+        lanes, kth = dense_select(ds.table, ds.queries, ds.windows, box_size, k=k,
+                                  query_block=dense_search.query_block, w_eff=ds.w_eff)
+        offsets, picks, kth_sorted = dense_offsets(lanes, kth, ds, layout, spec)
+        margin = window_margin_sq(sorted_pos, f32(box_size, positions.device),
+                                  CellGrid(grid_size=g, cell_capacity=0))
+        search_excess = (kth_sorted - margin).max()
+        search_window_overflow = ds.window_overflow
+        dropped = (offsets == width + 1).sum()
+        if with_reverse:
+            packs = dense_sender_packs(offsets, picks, ds.ccp, layout, spec)
+    elif neighbor_codes is not None:
+        sc = slot_codes(layout, neighbor_codes, codes_cap, codes_spill, spec)
+        offsets = s_decode(_normalized_codes(sc, codes_cap, spec), sc.qz_slot.contiguous(),
+                           sc.cstart27, layout.tile_const, spec=spec, codes_cap=codes_cap)
+        dropped = (offsets == width + 1).sum()
+        if with_reverse:
+            packs = sender_packs(sc, codes_cap, spec)
+    else:
+        senders = aux_slot_senders(layout, neighbors, spec)
+        offsets, dropped = aux_offsets(senders, layout, spec)
+        if with_reverse:
+            packs = (senders // g).to(torch.int32)
+    s_table = s_onehot(offsets, width=width)
     s_rev_table = reverse_mismatch = None
     if with_reverse:
-        packed = reverse_candidates(sender_packs(sc, codes_cap, spec), layout, spec)
-        s_rev_table = reverse_table(packed, layout.window_starts, spec=spec)
+        s_rev_table = reverse_table(reverse_candidates(packs, layout, spec),
+                                    layout.window_starts, spec=spec)
         reverse_mismatch = (s_table.sum(dtype=torch.int64)
                             - s_rev_table.sum(dtype=torch.int64))
     return CellBlockGraph(
@@ -580,10 +937,12 @@ def build_cellblock(
         window_starts=layout.window_starts,
         s_table=s_table,
         overflow=layout.overflow,
-        dropped_edges=(offsets == spec.s_width + 1).sum(),
+        dropped_edges=dropped,
         window_overflow=layout.window_overflow,
         s_rev_table=s_rev_table,
         reverse_mismatch=reverse_mismatch,
+        search_excess=search_excess,
+        search_window_overflow=search_window_overflow,
     )
 
 
@@ -664,6 +1023,8 @@ def _lib(name: str):
         entries = {"s_onehot_launch": [p, p, i, i, i, p]}
     elif name == "reverse_table":
         entries = {"reverse_table_launch": [p] * 3 + [i] * 5 + [p]}
+    elif name == "dense_select":
+        entries = {"dense_select_launch": [p] * 3 + [i] * 5 + [ctypes.c_float] + [p] * 3}
     else:
         entries = {"window_matmul_launch": [p] * 4 + [i] * 6 + [p],
                    "window_matmul_t_launch": [p] * 4 + [i] * 6 + [p]}
@@ -823,6 +1184,81 @@ def reverse_table(packed: torch.Tensor, window_starts: torch.Tensor, *,
     kernels.check("reverse_table", err)
     kernels.launches["reverse_table"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K8: the dense-query selection
+# ---------------------------------------------------------------------------
+
+# Search tiles per chunk of K8's plain version (bounds its [tiles, QB_s,
+# 9 * w_eff] distance table).
+_DENSE_PLAIN_TILES = 128
+
+
+def dense_select_reference(table, queries, windows, box_size, *, k: int, query_block: int,
+                           w_eff: int):
+    """Plain PyTorch version of K8 (the Pallas ``_dense_select_kernel``).
+    Per tile ``t`` of ``query_block`` rows of ``queries [T * QB_s, 3]``: the
+    candidates are the 9 windows of ``w_eff`` rows of ``table [C, 3, ccp]``
+    at column ``windows[t, j, 0]`` from row ``windows[t, j, 1]``, x and y
+    shifted by ``windows[t, j, 2:4] * box`` (one exact product, one f32
+    add), lane ``j * w_eff + row``; ``d^2 = ((dx^2 + dy^2) + dz^2)`` of the
+    plain differences. Returns ``(lanes [T * QB_s, k] int32, kth [T * QB_s]
+    float32)``: the k smallest ``(d^2, lane)`` pairs in ascending order (the
+    smallest lane wins ties) and the k-th ``d^2``."""
+    num_tiles = windows.shape[0]
+    qb, num_cand = query_block, 9 * w_eff
+    dev = table.device
+    box = f32(box_size, dev)
+    rows = torch.arange(w_eff, device=dev)
+    lanes = torch.empty((num_tiles * qb, k), dtype=torch.int32, device=dev)
+    kth = torch.empty((num_tiles * qb,), dtype=torch.float32, device=dev)
+    for t0 in range(0, num_tiles, _DENSE_PLAIN_TILES):
+        t1 = min(t0 + _DENSE_PLAIN_TILES, num_tiles)
+        win = windows[t0:t1].long()
+        idx = win[..., 1:2] + rows  # [Tc, 9, w_eff]
+        col = win[..., 0:1].expand_as(idx)
+        cand = [table[col, d, idx] for d in range(3)]
+        cand[0] = cand[0] + win[..., 2:3].float() * box
+        cand[1] = cand[1] + win[..., 3:4].float() * box
+        q = queries[t0 * qb:t1 * qb].view(t1 - t0, qb, 3)
+        d2 = None
+        for d in range(3):
+            delta = q[..., d:d + 1] - cand[d].reshape(t1 - t0, 1, num_cand)
+            d2 = delta * delta if d2 is None else d2 + delta * delta
+        d2_sorted, order = torch.sort(d2, dim=-1, stable=True)
+        lanes[t0 * qb:t1 * qb] = order[..., :k].reshape(-1, k).to(torch.int32)
+        kth[t0 * qb:t1 * qb] = d2_sorted[..., k - 1].reshape(-1)
+    return lanes, kth
+
+
+def dense_select(table, queries, windows, box_size, *, k: int, query_block: int,
+                 w_eff: int):
+    """K8: the dense-query k-selection over 9 column windows (see
+    ``dense_select_reference``; ``k <= 9 * w_eff``). CPU tensors take the
+    plain version; CUDA tensors launch ``csrc/dense_select.cu`` or raise."""
+    num_tiles = windows.shape[0]
+    if not 1 <= k <= min(9 * w_eff, 128):
+        raise ValueError(f"dense_select takes 1 <= k <= min(9 * w_eff, 128), got {k}")
+    if table.device.type == "cpu":
+        return dense_select_reference(table, queries, windows, box_size, k=k,
+                                      query_block=query_block, w_eff=w_eff)
+    ccp = table.shape[2]
+    _check("dense_select", table.device, [
+        ("table", table, (table.shape[0], 3, ccp), torch.float32),
+        ("queries", queries, (num_tiles * query_block, 3), torch.float32),
+        ("windows", windows, (num_tiles, 9, 4), torch.int32),
+    ])
+    lanes = torch.empty((num_tiles * query_block, k), dtype=torch.int32, device=table.device)
+    kth = torch.empty((num_tiles * query_block,), dtype=torch.float32, device=table.device)
+    err = _lib("dense_select").dense_select_launch(
+        kernels.ptr(table), kernels.ptr(queries), kernels.ptr(windows), num_tiles,
+        query_block, w_eff, ccp, k, ctypes.c_float(float(box_size)), kernels.ptr(lanes),
+        kernels.ptr(kth), kernels.stream_handle(table.device),
+    )
+    kernels.check("dense_select", err)
+    kernels.launches["dense_select"] += 1
+    return lanes, kth
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,22 @@
 """Exact cell-list periodic k-NN around the CUDA kernel K1 (counterpart of
 ``ops/pallas_knn.py``; the Pallas kernel ``_select_kernel`` becomes
-``csrc/knn_select.cu``: ids mode, and the codes mode K1' that the cell-block
-plan build decodes).
+``csrc/knn_select.cu``: ids mode, the codes mode K1' that the cell-block
+plan build decodes, and the dual mode K1'' that emits ids and codes
+together).
 
 Pipeline of ``pallas_cell_list_knn``:
   1. [torch] bin particles into a G^3 grid (stable sort by cell id) and
      scatter dense ``[G^3, cap]`` tables of x, y, z and particle id. ``cap``
      holds the common case (lam + 4.5 sigma); particles past it go to a
      static global SPILL block that every query also scans.
-  2. [kernel ``knn_select`` / ``knn_codes``] per cell: candidates = the 27
-     neighbor cells' table rows, pre-shifted by +-box where the neighbor
-     index wraps, then the spill lanes; plain-difference d^2 (min-imaged in
-     the trailing lanes that hold the spill block); the exact k smallest in
-     (d^2, id) order — smallest particle id wins exact ties — or, in codes
-     mode, in (d^2, lane) order with the candidate lane as the payload; and
-     the k-th d^2.
+  2. [kernel ``knn_select`` / ``knn_codes`` / ``knn_dual``] per cell:
+     candidates = the 27 neighbor cells' table rows, pre-shifted by +-box
+     where the neighbor index wraps, then the spill lanes; plain-difference
+     d^2 (min-imaged in the trailing lanes that hold the spill block); the
+     exact k smallest in (d^2, id) order — smallest particle id wins exact
+     ties — or, in codes mode, in (d^2, lane) order with the candidate lane
+     as the payload, or, in dual mode, the ids mode's picks with each one's
+     candidate lane beside it; and the k-th d^2.
   3. [torch] reorder to particle order via each particle's (cell, rank);
      solve the spilled particles exactly against their own cell's
      candidate row; reduce the exactness certificate.
@@ -37,6 +39,7 @@ import torch
 from cosmology_gnn_simulation_tpu_torch import kernels
 from cosmology_gnn_simulation_tpu_torch.ops.binning import bin_by_key, scatter_to_table
 from cosmology_gnn_simulation_tpu_torch.ops.cell_list import (
+    NEIGHBOR_OFFSETS,
     CellGrid,
     cell_coords,
     f32,
@@ -49,12 +52,6 @@ _BIG = 1e30
 _LANE = 128
 # Largest k the kernel's top-k list is built for (the JAX kernel's limit).
 MAX_K = 128
-
-# The 27 neighbor-cell offsets in lane order: dx slowest, dz fastest.
-_OFFSETS = np.array(
-    [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)],
-    dtype=np.int64,
-)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -169,7 +166,7 @@ def candidate_rows(table, spill, cells: torch.Tensor, g: int, box: torch.Tensor)
     difference ``q - c`` is a valid periodic displacement."""
     tx, ty, tz, tids = table
     dev = cells.device
-    offsets = torch.as_tensor(_OFFSETS, device=dev)
+    offsets = torch.tensor(NEIGHBOR_OFFSETS, device=dev)
     coords = torch.stack([cells // (g * g), (cells // g) % g, cells % g], dim=-1)
     raw = coords[:, None, :] + offsets[None, :, :]  # [M, 27, 3]
     wrapped = torch.remainder(raw, g)
@@ -191,15 +188,30 @@ def candidate_rows(table, spill, cells: torch.Tensor, g: int, box: torch.Tensor)
 def _lex_smallest(d2: torch.Tensor, ids: torch.Tensor, k: int):
     """The k smallest (d2, id) pairs per row in lexicographic order — the
     pick order of the TPU kernel's masked re-min loop (ids are unique per
-    row). Returns ``(d2_sorted[..., :k], ids_sorted[..., :k])``."""
+    row). Returns ``(d2_sorted[..., :k], ids_sorted[..., :k], lanes[..., :k])``
+    with each pick's lane in the row."""
     by_id = torch.argsort(ids, dim=-1, stable=True)
     d2 = torch.gather(d2, -1, by_id)
     ids = torch.gather(ids, -1, by_id)
     d2_sorted, order = torch.sort(d2, dim=-1, stable=True)
-    return d2_sorted[..., :k], torch.gather(ids, -1, order[..., :k])
+    lanes = torch.gather(by_id, -1, order[..., :k])
+    return d2_sorted[..., :k], torch.gather(ids, -1, order[..., :k]), lanes
 
 
-def _select_reference(table, spill, *, k, n, g, box, mi_start, codes):
+def _first_lane_of(cid: torch.Tensor, picks: torch.Tensor, num_cand: int) -> torch.Tensor:
+    """Per pick, the smallest lane of its row of ``cid [M, num_cand]`` that
+    holds the picked id (the TPU kernel's ``with_codes`` rule), or
+    ``num_cand`` where no lane does (the exhausted-pick sentinel).
+    ``picks`` is ``[M, ...]``."""
+    sorted_ids, perm = torch.sort(cid, dim=-1, stable=True)
+    flat = picks.reshape(picks.shape[0], -1).to(sorted_ids.dtype).contiguous()
+    pos = torch.searchsorted(sorted_ids, flat).clamp(max=num_cand - 1)
+    found = torch.gather(sorted_ids, 1, pos) == flat
+    lanes = torch.where(found, torch.gather(perm, 1, pos), num_cand)
+    return lanes.reshape(picks.shape)
+
+
+def _select_reference(table, spill, *, k, n, g, box, mi_start, mode):
     tx, ty, tz, tids = table
     num_cells, cap = tx.shape
     dev = tx.device
@@ -209,8 +221,8 @@ def _select_reference(table, spill, *, k, n, g, box, mi_start, codes):
     chunk = max(1, (1 << 24) // (cap * num_cand))
     lanes = torch.arange(num_cand, device=dev)
     lane_mi = lanes >= mi_start
-    sentinel = num_cand if codes else n
-    out_ids, out_kth = [], []
+    sentinel = num_cand if mode == "codes" else n
+    out_ids, out_codes, out_kth = [], [], []
     for start in range(0, num_cells, chunk):
         cells = torch.arange(start, min(start + chunk, num_cells), device=dev)
         cx, cy, cz, cid = candidate_rows(table, spill, cells, g, box)
@@ -223,13 +235,13 @@ def _select_reference(table, spill, *, k, n, g, box, mi_start, codes):
             d2 = delta * delta if d2 is None else d2 + delta * delta
         ids = cid[:, None, :].expand_as(d2)
         d2 = torch.where(ids >= n, big, d2)
-        if codes:
+        if mode == "codes":
             # Lanes ascend along each row: a stable sort by d^2 is the
             # (d^2, lane) order.
             d2_sorted, order = torch.sort(d2, dim=-1, stable=True)
             d2_k, payload_k = d2_sorted[..., :k], order[..., :k]
         else:
-            d2_k, payload_k = _lex_smallest(d2, ids, k)
+            d2_k, payload_k, _ = _lex_smallest(d2, ids, k)
         picks = torch.where(d2_k < 0.5 * big, payload_k, sentinel)
         kth = d2_k[..., k - 1]
         empty = tids[cells] >= n  # [M, cap]
@@ -237,6 +249,11 @@ def _select_reference(table, spill, *, k, n, g, box, mi_start, codes):
         kth = torch.where(empty, big, kth)
         out_ids.append(picks.reshape(-1, k).to(torch.int32))
         out_kth.append(kth.reshape(-1))
+        if mode == "dual":
+            codes = torch.where(picks == n, num_cand, _first_lane_of(cid, picks, num_cand))
+            out_codes.append(codes.reshape(-1, k).to(torch.int32))
+    if mode == "dual":
+        return torch.cat(out_ids), torch.cat(out_codes), torch.cat(out_kth)
     return torch.cat(out_ids), torch.cat(out_kth)
 
 
@@ -252,7 +269,7 @@ def knn_select_reference(table, spill, *, k: int, n: int, g: int, box: torch.Ten
     1e30; empty table rows are all-sentinel rows.
     """
     return _select_reference(table, spill, k=k, n=n, g=g, box=box,
-                             mi_start=mi_start, codes=False)
+                             mi_start=mi_start, mode="ids")
 
 
 def knn_codes_reference(table, spill, *, k: int, n: int, g: int, box: torch.Tensor,
@@ -265,7 +282,20 @@ def knn_codes_reference(table, spill, *, k: int, n: int, g: int, box: torch.Tens
     exact ties. Exhausted picks and empty table rows carry the sentinel lane
     ``27 * cap + spill_cap``."""
     return _select_reference(table, spill, k=k, n=n, g=g, box=box,
-                             mi_start=mi_start, codes=True)
+                             mi_start=mi_start, mode="codes")
+
+
+def knn_dual_reference(table, spill, *, k: int, n: int, g: int, box: torch.Tensor,
+                       mi_start: int):
+    """Plain PyTorch version of the ``knn_dual`` kernel (K1'', ids and codes).
+
+    The ids mode's selection (``knn_select_reference``), and per pick the
+    smallest candidate lane whose id equals the picked id, as the TPU
+    kernel's ``with_codes`` output. Returns ``(ids, codes, kth)``: ids and
+    codes ``[G^3 * cap, k]`` int32, exhausted picks and empty table rows id
+    ``n`` and lane ``27 * cap + spill_cap``."""
+    return _select_reference(table, spill, k=k, n=n, g=g, box=box,
+                             mi_start=mi_start, mode="dual")
 
 
 @functools.cache
@@ -275,6 +305,8 @@ def _lib():
     for entry in (lib.knn_select_launch, lib.knn_codes_launch):
         entry.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, i, p, p, p]
         entry.restype = i
+    lib.knn_dual_launch.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, i, p, p, p, p]
+    lib.knn_dual_launch.restype = i
     return lib
 
 
@@ -296,17 +328,19 @@ def _launch(name: str, table, spill, *, k, n, g, box, mi_start):
                 f"{name}: {label} plane must be a contiguous {dtype} {shape} "
                 f"tensor on {tx.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
-    out = torch.empty((num_cells * cap, k), dtype=torch.int32, device=tx.device)
+    outs = [torch.empty((num_cells * cap, k), dtype=torch.int32, device=tx.device)
+            for _ in range(2 if name == "knn_dual" else 1)]
     out_kth = torch.empty((num_cells * cap,), dtype=torch.float32, device=tx.device)
     entry = getattr(_lib(), f"{name}_launch")
     err = entry(
         *[kernels.ptr(t) for t in table], *[kernels.ptr(t) for t in spill],
         num_cells, g, cap, spill_cap, k, n, ctypes.c_float(float(box)), mi_start,
-        kernels.ptr(out), kernels.ptr(out_kth), kernels.stream_handle(tx.device),
+        *[kernels.ptr(t) for t in outs], kernels.ptr(out_kth),
+        kernels.stream_handle(tx.device),
     )
     kernels.check(name, err)
     kernels.launches[name] += 1
-    return out, out_kth
+    return (*outs, out_kth)
 
 
 def knn_select(table, spill, *, k: int, n: int, g: int, box: torch.Tensor,
@@ -331,6 +365,18 @@ def knn_codes(table, spill, *, k: int, n: int, g: int, box: torch.Tensor,
         return knn_codes_reference(table, spill, k=k, n=n, g=g, box=box,
                                    mi_start=mi_start)
     return _launch("knn_codes", table, spill, k=k, n=n, g=g, box=box,
+                   mi_start=mi_start)
+
+
+def knn_dual(table, spill, *, k: int, n: int, g: int, box: torch.Tensor,
+             mi_start: int):
+    """K1'': per-cell exact k-NN selection emitting ids and candidate lanes
+    (see ``knn_dual_reference``). CPU tensors take the plain version; CUDA
+    tensors launch the dual mode of ``csrc/knn_select.cu`` or raise."""
+    if table[0].device.type == "cpu":
+        return knn_dual_reference(table, spill, k=k, n=n, g=g, box=box,
+                                  mi_start=mi_start)
+    return _launch("knn_dual", table, spill, k=k, n=n, g=g, box=box,
                    mi_start=mi_start)
 
 
@@ -359,14 +405,15 @@ def pallas_cell_list_knn(
     or ``27 * cap + s`` for spill slot ``s``, in (d^2, lane) order — the
     smallest lane wins exact ties. Exhausted picks repeat the row's first
     code. ``spill`` is ``None`` without a spill block, else the resolution
-    tables ``(spill_cells, spill_ranks)`` of ``build_spill``. Asking for
-    ids and codes together (``with_codes`` alone) is not ported.
+    tables ``(spill_cells, spill_ranks)`` of ``build_spill``.
+
+    ``with_codes=True`` without ``codes_only`` runs the dual mode K1'' and
+    returns ``(neighbors, codes, spill)``: the ids mode's neighbors, and per
+    neighbor the smallest candidate lane holding its id. Exhausted picks
+    repeat the row's first id and first code.
     """
-    if with_codes and not codes_only:
-        raise NotImplementedError(
-            "pallas_cell_list_knn(with_codes=True) without codes_only (ids and "
-            "codes together) is not ported; pass codes_only=True"
-        )
+    if codes_only:
+        with_codes = True
     g = grid.grid_size
     if g < 3:
         raise ValueError("grid_size must be >= 3")
@@ -382,22 +429,27 @@ def pallas_cell_list_knn(
     if spill_cap:
         overflow = torch.clamp(overflow - spill_cap, min=0)
     planes = (table.x, table.y, table.z, table.ids)
-    select = knn_codes if codes_only else knn_select
-    picked, kth = select(planes, spill, k=k, n=n, g=g, box=box,
-                         mi_start=min_image_start(cap, spill_cap))
+    select = knn_codes if codes_only else knn_dual if with_codes else knn_select
+    *picked, kth = select(planes, spill, k=k, n=n, g=g, box=box,
+                          mi_start=min_image_start(cap, spill_cap))
 
     # Back to particle order. A particle past `cap` has no table row: it
     # reads its cell's last row, then the spill solve overwrites it.
     table_row = table.cell_id * cap + torch.clamp(table.particle_rank, max=cap - 1)
-    out = picked[table_row]
+    out = picked[0][table_row]
+    codes = picked[1][table_row] if with_codes and not codes_only else None
     if codes_only:
         # Exhausted picks (uncertified regime only) repeat the row's first
         # code; the kth keeps 1e30, so the certificate fails on such rows.
         out = torch.where(out >= 27 * cap + spill_cap, out[:, :1], out)
     else:
         out = out.long()
-        # Exhausted picks (uncertified regime only) repeat the row's first pick.
-        out = torch.where(out == n, out[:, :1], out)
+        # Exhausted picks (uncertified regime only) repeat the row's first
+        # pick, and the row's first code beside it.
+        missing = out == n
+        out = torch.where(missing, out[:, :1], out)
+        if codes is not None:
+            codes = torch.where(missing, codes[:, :1], codes)
 
     if spill_cap:
         # Spilled queries: exact solve against their own cell's candidate
@@ -422,17 +474,28 @@ def pallas_cell_list_knn(
             picks = torch.where(d2_k >= 0.5 * _BIG, lane_sorted[:, :1],
                                 lane_sorted[:, :k])
         else:
-            d2_k, picks = _lex_smallest(d2s, sp_ids, k)
-            picks = torch.where(picks == n, picks[:, :1], picks)
+            # (d2, id) order with each pick's lane riding along.
+            d2_k, picks, code_picks = _lex_smallest(d2s, sp_ids, k)
+            sp_miss = d2_k >= 0.5 * _BIG
+            picks = torch.where(sp_miss, picks[:, :1], picks)
             picks = torch.where(picks == n, 0, picks)
+            code_picks = torch.where(sp_miss, code_picks[:, :1], code_picks)
         spill_kth = d2_k[:, k - 1]
         scatter = torch.where(spill_valid, spill[3].long(), n)
-        out_ext = torch.cat([out, out.new_zeros((1, k))])
-        out_ext[scatter] = picks.to(out.dtype)
-        out = out_ext[:n]
+
+        def put(rows, values):
+            ext = torch.cat([rows, rows.new_zeros((1, k))])
+            ext[scatter] = values.to(rows.dtype)
+            return ext[:n]
+
+        out = put(out, picks)
+        if codes is not None:
+            codes = put(codes, code_picks)
 
     if codes_only:
         out = (None, out, spill_info if spill_cap else None)
+    elif with_codes:
+        out = (out, codes, spill_info if spill_cap else None)
     if not return_diagnostics:
         return out
     # Certificate: per occupied table slot, its k-th d^2 against the window
@@ -455,4 +518,4 @@ def pallas_cell_list_knn(
         max_d2 = torch.maximum(max_d2, torch.where(spill_valid, spill_kth, 0.0).max())
         max_excess = torch.maximum(max_excess, sp_excess.max())
     diagnostics = (overflow, max_d2, max_excess)
-    return (*out, diagnostics) if codes_only else (out, diagnostics)
+    return (*out, diagnostics) if with_codes else (out, diagnostics)

@@ -1,10 +1,14 @@
 """Where a rollout step's (or a train step's) time goes on the card.
 
     python -m cosmology_gnn_simulation_tpu_torch.profile_rollout [--n N] [--steps S]
-        [--aggregation gather|cellblock_hybrid] [--train]
+        [--aggregation gather|cellblock_hybrid] [--cellblock-search codes|dense]
+        [--aux-spec] [--train]
 
 Runs the rollout of the default model (bf16, k = 16, certificate on) with
-the given aggregation once to warm up, times ``--steps`` steps with CUDA
+the given aggregation (on the hybrid path: the re-neighboring route of
+``--cellblock-search``, and with ``--aux-spec`` the spec of the chooser
+without k, on another grid than the k-NN's: plans from neighbor ids) once
+to warm up, times ``--steps`` steps with CUDA
 events, then traces the same steps with ``torch.profiler`` and prints the
 device time by kernel (largest first), the device's busy share of the
 traced window, the device operations (kernels, copies, fills) launched per
@@ -27,6 +31,7 @@ from cosmology_gnn_simulation_tpu_torch.models.encode_process_decode import (
     default_model_config,
     init_encode_process_decode,
 )
+from cosmology_gnn_simulation_tpu_torch.ops.cellblock import choose_cellblock_spec
 from cosmology_gnn_simulation_tpu_torch.rollout import rollout
 from cosmology_gnn_simulation_tpu_torch.training import (
     TrainConfig,
@@ -49,6 +54,8 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--aggregation", default="gather",
                         choices=("gather", "cellblock_hybrid"))
+    parser.add_argument("--cellblock-search", default="codes", choices=("codes", "dense"))
+    parser.add_argument("--aux-spec", action="store_true")
     parser.add_argument("--train", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -62,9 +69,12 @@ def main() -> None:
     params = init_encode_process_decode(cfg, torch.Generator().manual_seed(args.seed), device=dev)
     stats = NormalizationStats.from_metadata(METADATA, device=dev)
 
+    spec = choose_cellblock_spec(args.n) if args.aux_spec else None
+
     def run():
         return rollout(params, cfg, pos, temp, stats, args.steps, num_neighbors=16,
-                       dtype=torch.bfloat16, aggregation=args.aggregation, device=dev)
+                       dtype=torch.bfloat16, aggregation=args.aggregation,
+                       cellblock_search=args.cellblock_search, cellblock_spec=spec, device=dev)
 
     if args.train:
         # Six frames: a window of five and its target; temperatures drift.
@@ -107,6 +117,8 @@ def main() -> None:
         busy[e.name] = busy.get(e.name, 0.0) + e.device_time / 1e3  # ms
     total = sum(busy.values())
     what = "train" if args.train else "rollout"
+    if args.aggregation != "gather" and not args.train:
+        what += f" ({args.cellblock_search}{', aux spec' if args.aux_spec else ''})"
     print(f"{what} {args.aggregation}, N={args.n}, {args.steps} steps: {step_ms:.3f} ms/step (CUDA "
           f"events), peak memory {peak_gib:.3f} GiB; traced window {wall_ms:.1f} ms wall, "
           f"device busy {total:.1f} ms ({100 * total / wall_ms:.1f} %, idle "

@@ -1,5 +1,6 @@
 """Rollout engine (counterpart of ``rollout.py``): gather aggregation, or
-the hybrid cell-block aggregation of the JAX package's main path.
+the hybrid cell-block aggregation of the JAX package's main path, and the
+one-step prediction of both.
 
 Each simulated step: (re-)neighbor with the exactness certificate, featurize,
 run the model, un-normalize, then the reference's semi-implicit Euler update
@@ -30,6 +31,7 @@ from cosmology_gnn_simulation_tpu_torch.ops.cell_list import choose_cell_grid
 from cosmology_gnn_simulation_tpu_torch.ops.cellblock import (
     build_cellblock,
     choose_cellblock_spec,
+    choose_dense_search_spec,
 )
 from cosmology_gnn_simulation_tpu_torch.ops.fused_step import resolve_fused_tail
 from cosmology_gnn_simulation_tpu_torch.ops.periodic import (
@@ -96,6 +98,8 @@ def rollout(
     cellblock_spec=None,
     cellblock_variable: bool = False,
     fused_tail: Optional[bool] = None,
+    cellblock_search: str = "auto",
+    dense_search_spec=None,
     device="cuda",
 ) -> Dict[str, torch.Tensor]:
     """Roll the learned simulator forward ``num_steps`` steps.
@@ -111,16 +115,25 @@ def rollout(
         ``"fallback"`` (brute-force rerun of failing steps) is not ported
         yet and raises ``NotImplementedError``.
       aggregation: ``"gather"``, or ``"cellblock_hybrid"``: the selection-
-        matrix aggregation (K1' codes search, the K2/K3 plan build and K4
-        each message-passing step) with the carry on the N particle rows,
-        the JAX package's main path. The state then rides in cell-sorted
-        order, re-sorted at each re-neighboring; outputs stay in original
-        particle order, and the certificate also requires no column
-        overflow and no dropped edge. ``"auto"`` resolves to ``"gather"``,
-        as the JAX dispatch does off-TPU, until the crossover is measured
-        on the card. The slot-space ``"cellblock"`` is not ported.
+        matrix aggregation (a plan each re-neighboring, K4 each
+        message-passing step) with the carry on the N particle rows, the
+        JAX package's main path. The state then rides in cell-sorted order,
+        re-sorted at each re-neighboring; outputs stay in original particle
+        order, and the certificate also requires no column overflow and no
+        dropped edge. ``"auto"`` resolves to ``"gather"``, as the JAX
+        dispatch does off-TPU, until the crossover is measured on the card.
+        The slot-space ``"cellblock"`` is not ported.
       cellblock_spec: the cell-block spec (default ``choose_cellblock_spec``
-        on the k-NN grid); ``cellblock_variable`` is not ported.
+        on the k-NN grid). On the k-NN grid the plan decodes the cell-list
+        kernel's codes (K1', K2); on another grid, or when another search
+        served (brute force below 8192 particles with ``"auto"``), it is
+        built from neighbor ids (the aux path; K1'' when the kernel
+        searches). ``cellblock_variable`` is not ported.
+      cellblock_search: ``"auto"`` and ``"codes"``: the search round above;
+        ``"dense"``: the fused dense-query search K8 inside the plan build
+        (uniform cubic specs only), whose certificate also requires no
+        search-window truncation and every k-th neighbor within its margin.
+        ``dense_search_spec`` overrides ``choose_dense_search_spec``.
       fused_tail: run each message-passing step's tail as the kernel K5;
         ``None`` = on for the pruned model on CUDA where K5 takes the shape
         (``ops.fused_step.kernel_takes``: bf16, latent = hidden = 128, one
@@ -156,6 +169,8 @@ def rollout(
             )
     if exactness_guard == "fallback":
         raise NotImplementedError("exactness_guard='fallback' is not ported yet")
+    if cellblock_search not in ("auto", "dense", "codes"):
+        raise ValueError(f"unknown cellblock_search: {cellblock_search}")
     pruned = (
         model_config.aggregate == "sender_latents"
         and model_config.prune_dead_edge_stream
@@ -168,9 +183,15 @@ def rollout(
     temp_window = torch.as_tensor(initial_temperatures, device=device).float()
     seed_pos, seed_temp = pos_window, temp_window
     box = stats.box_size
-    spec = None
+    spec = dspec = None
     if aggregation == "cellblock_hybrid":
-        spec = _cellblock_spec(pos_window.shape[1], num_neighbors, cellblock_spec)
+        n = pos_window.shape[1]
+        spec = cellblock_spec or choose_cellblock_spec(n, num_neighbors)
+        if cellblock_search == "dense":
+            if spec.variable or spec.grid_x or not spec.periodic_x:
+                raise ValueError("cellblock_search='dense' requires the uniform cubic "
+                                 "periodic layout")
+            dspec = dense_search_spec or choose_dense_search_spec(n, spec)
     positions, temperatures, exactness = [], [], []
     neighbors = plan = exact = None
     # On the cell-block path the window rides in cell-sorted order, re-sorted
@@ -189,12 +210,11 @@ def rollout(
                     method=neighbor_method, query_tile=neighbor_query_tile,
                 )
             else:
-                plan, exact = _cellblock_plan(wrapped, num_neighbors, box, spec,
+                plan, exact = _cellblock_plan(wrapped, num_neighbors, box, spec, dspec,
                                               neighbor_method, neighbor_query_tile)
                 pos_window = _permute_window(pos_window, plan.order)
                 temp_window = _permute_window(temp_window, plan.order)
-                inv_order = torch.empty_like(plan.order)
-                inv_order[plan.order] = torch.arange(plan.order.shape[0], device=device)
+                inv_order = _inverse(plan.order)
                 inv_ids = inv_order if inv_ids is None else inv_order[inv_ids]
         graph = featurize(pos_window, temp_window, stats, neighbors,
                           build_edges=not pruned)._replace(cellblock=plan)
@@ -225,35 +245,72 @@ def rollout(
     return result
 
 
-def _cellblock_spec(n: int, k: int, spec):
-    """The hybrid path's spec: by default the JAX chooser's on the k-NN
-    exactness grid (both certificates demand every neighbor within one cell
-    edge). A spec on another grid needs the plan built from neighbor ids."""
-    if spec is None:
-        spec = choose_cellblock_spec(n, k)
-    if choose_cell_grid(n, k).grid_size != spec.grid_size:
-        raise NotImplementedError(
-            f"cellblock_spec grid {spec.grid_size} differs from the k-NN grid "
-            f"{choose_cell_grid(n, k).grid_size}: its plan needs neighbor ids "
-            "(the aux path), which is not ported"
-        )
-    return spec
+def _cellblock_plan(wrapped, k, box, spec, dspec, method, tile):
+    """One re-neighboring round of the hybrid path. Returns the plan and the
+    step's certificate: exact k-NN (or, on the dense search, no window
+    truncation and every k-th neighbor within its margin), no column
+    overflow, no dropped edge.
 
-
-def _cellblock_plan(wrapped, k, box, spec, method, tile):
-    """K1' codes search, then the plan (K2, K3). Returns the plan and the
-    step's certificate: exact k-NN, no column overflow, no dropped edge."""
-    _, codes, codes_cap, spill, exact = neighbor_search_certified(
+    The dense search (``dspec``) runs inside the plan build. Otherwise the
+    k-NN search runs first: on the spec's grid the kernel's codes (K1')
+    decode into the plan (K2); on another grid the kernel searches in its
+    dual mode (K1'') and its codes are dropped, and the plan is built from
+    the ids, as it is whenever another search served."""
+    if dspec is not None:
+        plan = build_cellblock(wrapped, None, box, spec, dense_search=dspec, num_neighbors=k)
+        exact = ((plan.search_window_overflow == 0) & (plan.search_excess <= 0.0)
+                 & (plan.overflow == 0) & (plan.dropped_edges == 0))
+        return plan, exact
+    codes_ok = choose_cell_grid(wrapped.shape[0], k).grid_size == spec.grid_size
+    neighbors, codes, codes_cap, spill, exact = neighbor_search_certified(
         wrapped, k, box, method=method, query_tile=tile,
-        with_codes=True, codes_only=True,
+        with_codes=True, codes_only=codes_ok,
     )
-    if codes is None:
-        raise NotImplementedError(
-            "the cell-block plan needs the cell-list kernel's codes; brute "
-            "force served this search (fewer than 8192 particles with "
-            "neighbor_method='auto', or a grid under 3 cells) and plans "
-            "from neighbor ids (the aux path) are not ported"
-        )
-    plan = build_cellblock(wrapped, None, box, spec, neighbor_codes=codes,
+    if not codes_ok:
+        codes = codes_cap = spill = None
+    plan = build_cellblock(wrapped, neighbors, box, spec, neighbor_codes=codes,
                            codes_cap=codes_cap, codes_spill=spill)
     return plan, exact & (plan.overflow == 0) & (plan.dropped_edges == 0)
+
+
+def _inverse(order: torch.Tensor) -> torch.Tensor:
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    return inv
+
+
+def one_step_prediction(
+    params,
+    model_config: EncodeProcessDecodeConfig,
+    position_seq,
+    temperature_seq,
+    stats: NormalizationStats,
+    *,
+    num_neighbors: int = 16,
+    min_image_velocity: bool = False,
+    dtype: Optional[torch.dtype] = None,
+    neighbor_query_tile: int = 512,
+    neighbor_method: str = "auto",
+    aggregation: str = "gather",
+    cellblock_spec=None,
+    cellblock_variable: bool = False,
+    fused_tail: Optional[bool] = None,
+    device="cuda",
+):
+    """Predict the next frame from a ``[W, N, 3]`` / ``[W, N, 1]`` window:
+    ``(new_position [N, 3], new_temperature [N, 1])`` in the input particle
+    order. It is the first frame of a 1-step ``rollout`` of the same window
+    with the certificate off, and takes ``rollout``'s options and refusals:
+    ``aggregation`` ``"gather"`` (default) or ``"cellblock_hybrid"`` (codes
+    on the k-NN grid, the aux plan from neighbor ids on another spec or when
+    another search served).
+    """
+    out = rollout(
+        params, model_config, position_seq, temperature_seq, stats, 1,
+        num_neighbors=num_neighbors, min_image_velocity=min_image_velocity,
+        dtype=dtype, neighbor_query_tile=neighbor_query_tile,
+        neighbor_method=neighbor_method, exactness_guard="off",
+        aggregation=aggregation, cellblock_spec=cellblock_spec,
+        cellblock_variable=cellblock_variable, fused_tail=fused_tail, device=device,
+    )
+    return out["Coordinates"][-1], out["InternalEnergy"][-1]

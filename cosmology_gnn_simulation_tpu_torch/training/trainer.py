@@ -10,7 +10,9 @@ three-term loss over the batch, autograd, and one optimizer update.
 
 Aggregation: ``"gather"`` (K1, then the sorted-edge segment-sum backward
 with ``build_reverse``), or ``"cellblock_hybrid"``: the K1' codes search,
-the plan with its reverse table (K2, K3, K7), nodes and targets permuted
+the plan with its reverse table (K2, K3, K7; from neighbor ids, the aux
+path, when another search served, as brute force does below 8192
+particles with ``neighbor_method="auto"``), nodes and targets permuted
 into the plan's cell-sorted order (the losses do not depend on row order),
 and K4 forward / K4^T backward each message-passing step. ``"auto"``
 resolves to ``"gather"``, as the port's rollout and the JAX dispatch off
@@ -185,15 +187,11 @@ def _sample(params, model_config, stats, tc, aggregation, pruned, dtype, pos, te
         return preds, graph.target_acceleration, graph.target_temp_rate, None
     graph, codes, codes_cap, spill = featurize(pos, temp, stats, build_edges=False,
                                                with_codes=True, codes_only=True, **kw)
-    if codes is None:
-        raise NotImplementedError(
-            "the cell-block plan needs the cell-list kernel's codes; brute force "
-            "served this search (fewer than 8192 particles with neighbor_method="
-            "'auto', or a grid under 3 cells) and plans from ids are not ported"
-        )
+    # No codes when another search served: the plan is built from the ids.
     spec = choose_cellblock_spec(pos.shape[1], tc.num_neighbors)
-    plan = build_cellblock(graph.positions, None, stats.box_size, spec, with_reverse=train,
-                           neighbor_codes=codes, codes_cap=codes_cap, codes_spill=spill)
+    plan = build_cellblock(graph.positions, graph.neighbors, stats.box_size, spec,
+                           with_reverse=train, neighbor_codes=codes, codes_cap=codes_cap,
+                           codes_spill=spill)
     graph = graph._replace(nodes=graph.nodes[plan.order], cellblock=plan)
     preds = apply_encode_process_decode(params, graph, model_config, dtype,
                                         cellblock_spec=spec, cellblock_mode="hybrid")

@@ -231,13 +231,18 @@ def test_unported_plan_options_raise():
     tspec = cellblock.CellBlockSpec(**spec)
     tpos, tcodes = torch.from_numpy(pos), torch.from_numpy(codes)
     ok = dict(neighbor_codes=tcodes, codes_cap=cap, codes_spill=_torch_spill(spill))
-    with pytest.raises(NotImplementedError, match="aux path"):
-        cellblock.build_cellblock(tpos, knn_periodic(tpos, K, 1.0), 1.0, tspec)
+    # Plans from neighbor ids (the aux path) are ported: the same S here.
+    from_ids = cellblock.build_cellblock(tpos, knn_periodic(tpos, K, 1.0), 1.0, tspec)
+    assert torch.equal(from_ids.s_table, cellblock.build_cellblock(tpos, None, 1.0, tspec,
+                                                                   **ok).s_table)
     for kw in (dict(s_build="contract"),
-               dict(codes_layout="table"), dict(valid=torch.ones(len(pos), dtype=bool)),
-               dict(dense_search=object())):
+               dict(codes_layout="table"), dict(valid=torch.ones(len(pos), dtype=bool))):
         with pytest.raises(NotImplementedError):
             cellblock.build_cellblock(tpos, None, 1.0, tspec, **ok, **kw)
+    # The dense search replaces the k-NN search: codes with it are refused.
+    with pytest.raises(ValueError, match="replaces the neighbor search"):
+        cellblock.build_cellblock(tpos, None, 1.0, tspec, **ok,
+                                  dense_search=cellblock.DenseSearchSpec(), num_neighbors=K)
     for bad in (tspec._replace(slot_budget=1024), tspec._replace(grid_x=5)):
         with pytest.raises(NotImplementedError):
             cellblock.build_cellblock(tpos, None, 1.0, bad, **ok)

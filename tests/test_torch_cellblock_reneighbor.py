@@ -48,15 +48,15 @@ def test_cellblock_options_that_are_refused():
     # The brute-force fallback can exceed the one-cell windows (as in JAX).
     with pytest.raises(ValueError, match="exactness_guard"):
         rollout(tparams, tcfg, pos, temp, stats, 1, exactness_guard="fallback", **kw)
-    # Below 8192 particles "auto" searches by brute force: no codes, and
-    # plans from neighbor ids are not ported.
-    with pytest.raises(NotImplementedError, match="aux path"):
-        rollout(tparams, tcfg, pos, temp, stats, 1, **kw)
-    # A spec on another grid than the k-NN's needs the aux path too.
+    # Plans from neighbor ids (brute force below 8192 particles with "auto",
+    # or a spec on another grid than the k-NN's) are ported; the dense
+    # search takes only the uniform cubic layout, as in JAX.
     other = choose_cellblock_spec(pos.shape[1] * 8, 16)
-    with pytest.raises(NotImplementedError, match="aux path"):
-        rollout(tparams, tcfg, pos, temp, stats, 1, neighbor_method="pallas",
-                cellblock_spec=other, **kw)
+    with pytest.raises(ValueError, match="uniform cubic"):
+        rollout(tparams, tcfg, pos, temp, stats, 1, cellblock_search="dense",
+                cellblock_spec=other._replace(grid_x=5), **kw)
+    with pytest.raises(ValueError, match="cellblock_search"):
+        rollout(tparams, tcfg, pos, temp, stats, 1, cellblock_search="nope", **kw)
     # The slot-space carry of the model is not ported.
     graph = ParticleGraph(nodes=torch.zeros(8, 17), neighbors=None, edges=None,
                           positions=torch.zeros(8, 3), cellblock=object())

@@ -14,6 +14,9 @@ N(0, 1) values. K5 sums on tensor cores in another order than the plain
 version's f32 matmul, and a last-bit difference can flip the bf16 rounding
 of an intermediate before the next product: 5e-2 absolute, 2e-3 mean.
 K7 is exact (integer counts: equal tables, reverse_mismatch 0); K4^T as K4.
+K1'' (ids and codes together) and K8 (the dense-query search) are exact:
+equal ids, codes and lanes, bit-equal k-th distances, equal plans and
+certificates.
 K6 rounds its operands to bf16 where its plain version does, and sums in
 another order (its weight gradients over 65,536 rows). A last-bit
 difference can also flip a ReLU mask where a pre-activation is within
@@ -52,7 +55,7 @@ from cosmology_gnn_simulation_tpu_torch.ops.pallas_knn import (
     codes_packing_cap,
     pallas_cell_list_knn,
 )
-from cosmology_gnn_simulation_tpu_torch.rollout import rollout
+from cosmology_gnn_simulation_tpu_torch.rollout import one_step_prediction, rollout
 from cosmology_gnn_simulation_tpu_torch.training import TrainConfig, make_train_step
 from cosmology_gnn_simulation_tpu_torch.training.trainer import Optimizer
 from cosmology_gnn_simulation_tpu_torch.types import NormalizationStats, tree_leaves, tree_map
@@ -490,3 +493,141 @@ def test_train_step_on_the_card_goes_through_its_kernels(cuda_device, aggregatio
         scale = float(theirs.abs().max())
         if scale:
             _close(mine, theirs, 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "spill"])
+def test_knn_dual_kernel_matches_plain_version(cuda_device, case):
+    """K1'': ids equal to K1's ids mode, codes and kth to its plain version."""
+    pos, k, grid = _codes_case(case)
+    n = pos.shape[0]
+    dpos = pos.to(cuda_device)
+    cap, _, spill_cap = pallas_knn.spill_layout(n, k, grid)
+    box = torch.tensor(1.0, device=cuda_device)
+    t = pallas_knn.build_table(dpos, grid.grid_size, cap, box)
+    spill = pallas_knn.build_spill(dpos, t.particle_rank, cap, spill_cap)
+    args = dict(k=k, n=n, g=grid.grid_size, box=box,
+                mi_start=pallas_knn.min_image_start(cap, spill_cap))
+    planes = (t.x, t.y, t.z, t.ids)
+    kernels.reset_launches()
+    ids, codes, kth = pallas_knn.knn_dual(planes, spill, **args)
+    k1_ids, k1_kth = pallas_knn.knn_select(planes, spill, **args)
+    ref_ids, ref_codes, ref_kth = pallas_knn.knn_dual_reference(planes, spill, **args)
+    torch.cuda.synchronize()
+    assert kernels.launches["knn_dual"] == 1
+    assert torch.equal(ids, k1_ids) and torch.equal(ids, ref_ids)
+    assert torch.equal(codes, ref_codes)
+    assert torch.equal(kth.view(torch.int32), ref_kth.view(torch.int32))
+    assert torch.equal(kth.view(torch.int32), k1_kth.view(torch.int32))
+    out = pallas_cell_list_knn(dpos, k, 1.0, grid, return_diagnostics=True, with_codes=True)
+    cpu = pallas_cell_list_knn(pos, k, 1.0, grid, return_diagnostics=True, with_codes=True)
+    for a, b in zip(out[:2], cpu[:2]):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(out[-1], cpu[-1]):
+        assert torch.equal(a.cpu(), b)
+
+
+def _dense_frame(case, n=65536):
+    rng = np.random.default_rng(5)
+    pos = rng.uniform(0, 1, (n, 3))
+    if case == "truncating":
+        # 300 particles in one cell: its tiles' windows outgrow w_eff.
+        pos[:300] = 0.41 + 0.05 * rng.uniform(0, 1, (300, 3))
+    return torch.tensor(pos, dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "truncating"])
+def test_dense_select_kernel_matches_plain_version(cuda_device, case):
+    """K8 against its plain version at the flagship spec, and the dense plan
+    on the card against the CPU plain path (S, certificate, S_rev)."""
+    pos = _dense_frame(case)
+    n, k = pos.shape[0], 16
+    spec = cellblock.choose_cellblock_spec(n, k)
+    dspec = cellblock.choose_dense_search_spec(n, spec)
+    dpos = pos.to(cuda_device)
+    layout = cellblock.cellblock_layout(dpos, 1.0, spec)
+    ds = cellblock.dense_search_inputs(layout, dpos[layout.order], 1.0, spec, dspec)
+    kernels.reset_launches()
+    lanes, kth = cellblock.dense_select(ds.table, ds.queries, ds.windows, 1.0, k=k,
+                                        query_block=dspec.query_block, w_eff=ds.w_eff)
+    ref_lanes, ref_kth = cellblock.dense_select_reference(
+        ds.table, ds.queries, ds.windows, 1.0, k=k, query_block=dspec.query_block,
+        w_eff=ds.w_eff)
+    torch.cuda.synchronize()
+    assert kernels.launches["dense_select"] == 1
+    assert torch.equal(lanes, ref_lanes)
+    assert torch.equal(kth.view(torch.int32), ref_kth.view(torch.int32))
+    plan = cellblock.build_cellblock(dpos, None, 1.0, spec, with_reverse=True,
+                                     dense_search=dspec, num_neighbors=k)
+    cpu = cellblock.build_cellblock(pos, None, 1.0, spec, with_reverse=True,
+                                    dense_search=dspec, num_neighbors=k)
+    for field in ("s_table", "s_rev_table", "overflow", "dropped_edges",
+                  "reverse_mismatch", "search_window_overflow", "search_excess"):
+        assert torch.equal(getattr(plan, field).cpu(), getattr(cpu, field)), field
+    if case == "truncating":
+        assert int(plan.search_window_overflow) > 0
+    else:
+        assert int(plan.search_window_overflow) == 0 and float(plan.search_excess) <= 0
+        assert int(plan.reverse_mismatch) == 0
+
+
+def _route_inputs(seed, n=8192):
+    rng = np.random.default_rng(seed)
+    pos = np.remainder(rng.uniform(0, 1, (1, n, 3))
+                       + rng.normal(0, 5e-4, (5, n, 3)).cumsum(0), 1.0).astype(np.float32)
+    temp = np.abs(rng.normal(1.0, 0.3, (5, n, 1))).astype(np.float32)
+    return pos, temp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["dense", "aux"])
+def test_dense_and_aux_rollouts_on_the_card_go_through_their_kernels(cuda_device, route):
+    cfg = default_model_config(num_message_passing_steps=2)
+    pos, temp = _route_inputs(4)
+    n = pos.shape[1]
+    kw = dict(num_neighbors=16, dtype=torch.bfloat16, aggregation="cellblock_hybrid")
+    if route == "dense":
+        kw["cellblock_search"] = "dense"
+        expected = {"dense_select": 2}
+    else:
+        # The spec's own grid (7) is not the k-NN grid (9): plans from ids.
+        kw["cellblock_spec"] = cellblock.choose_cellblock_spec(n)
+        expected = {"knn_dual": 2}
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        params = init_encode_process_decode(cfg, torch.Generator().manual_seed(0), device=dev)
+        kernels.reset_launches()
+        runs[str(dev)] = rollout(params, cfg, pos, temp,
+                                 NormalizationStats.from_metadata(METADATA, device=dev), 2,
+                                 device=dev, fused_tail=True if dev == "cpu" else None, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**dict.fromkeys(kernels.KERNELS, 0), **expected,
+                                "s_onehot": 2, "window_matmul": 4, "fused_tail": 4}
+    gpu, cpu = runs[str(cuda_device)], runs["cpu"]
+    assert bool(gpu["neighbor_exactness"].all())
+    np.testing.assert_array_equal(gpu["neighbor_exactness"].cpu().numpy(),
+                                  cpu["neighbor_exactness"].numpy())
+    np.testing.assert_allclose(gpu["Coordinates"].cpu().numpy(),
+                               cpu["Coordinates"].numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["gather", "codes", "aux"])
+def test_one_step_prediction_on_the_card_is_the_first_rollout_frame(cuda_device, route):
+    cfg = default_model_config(num_message_passing_steps=2)
+    pos, temp = _route_inputs(5)
+    params = init_encode_process_decode(cfg, torch.Generator().manual_seed(0),
+                                        device=cuda_device)
+    stats = NormalizationStats.from_metadata(METADATA, device=cuda_device)
+    kw = dict(num_neighbors=16, dtype=torch.bfloat16, device=cuda_device,
+              aggregation="gather" if route == "gather" else "cellblock_hybrid")
+    if route == "aux":
+        kw["cellblock_spec"] = cellblock.choose_cellblock_spec(pos.shape[1])
+    new_pos, new_temp = one_step_prediction(params, cfg, pos, temp, stats, **kw)
+    ref = rollout(params, cfg, pos, temp, stats, 1, **kw)
+    assert new_pos.shape == (pos.shape[1], 3) and new_temp.shape == (pos.shape[1], 1)
+    np.testing.assert_allclose(new_pos.cpu().numpy(), ref["Coordinates"][-1].cpu().numpy(),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(new_temp.cpu().numpy(),
+                               ref["InternalEnergy"][-1].cpu().numpy(), atol=1e-6, rtol=0)

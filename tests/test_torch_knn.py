@@ -275,6 +275,19 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "for m in ('training.trainer', 'training.losses', 'ops.aggregation', 'ops.noise'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
+        # Run this slice's routes on the CPU too: the dense search, the plain
+        # cell list, the dual-mode k-NN and the plans from neighbor ids.
+        "import torch\n"
+        "from cosmology_gnn_simulation_tpu_torch.ops import cell_list, cellblock, pallas_knn\n"
+        "pos = torch.rand(600, 3, generator=torch.Generator().manual_seed(0))\n"
+        "grid = cell_list.choose_cell_grid(600, 8)\n"
+        "spec = cellblock.choose_cellblock_spec(600, 8)\n"
+        "cellblock.build_cellblock(pos, None, 1.0, spec, with_reverse=True, num_neighbors=8,\n"
+        "    dense_search=cellblock.choose_dense_search_spec(600, spec))\n"
+        "ids = cell_list.cell_list_knn(pos, 8, 1.0, grid)\n"
+        "pallas_knn.pallas_cell_list_knn(pos, 8, 1.0, grid, with_codes=True)\n"
+        "cellblock.build_cellblock(pos, ids, 1.0, cellblock.choose_cellblock_spec(600),\n"
+        "    with_reverse=True)\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
