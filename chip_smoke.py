@@ -28,7 +28,10 @@ each timed on its own line:
   4. K2 (codes -> S offsets), K3 (int8 S rows), K7 (the reverse table), K4
      (window matmul) and K4^T (its S^T mode) against their plain versions at
      the flagship cell-block spec (K2, K3, K7 on both frames, with the
-     transpose certificate reverse_mismatch == 0); K8 (the dense-query
+     transpose certificate reverse_mismatch == 0); K4 and K4^T also on the
+     aux spec's plan (grid 14, with its reverse table), each mode's rate
+     (its bound's bytes over its time), its registers and spills, and S's
+     share of live (32-row, 64-deep) blocks; K8 (the dense-query
      search) against its plain version on the dense plan's inputs of the
      uniform frame and of a frame whose search windows truncate, and the
      dense plan on the card against the CPU plain path on both;
@@ -521,13 +524,17 @@ def main() -> None:
     # multiply-add per nonzero S entry and latent column.
     k4_nnz = int((k4_s != 0).sum())
     k4_ops = 2 * k4_nnz * 128
+    k4_live = float((k4_s.view(spec.num_tiles, spec.query_block // 32, 32, width // 64, 64) != 0)
+                    .any(4).any(2).float().mean())
     report["window_matmul"] = kernel_entry(
         "window_matmul.cu", "cellblock.py:2607", k4_err, k4_ms, k4_plain_ms,
         nbytes(k4_s, z_pad, k4_starts, out), k4_ops, BF16_TENSOR_FLOP_PER_S, k4_lib_ms)
     print(f"K2 time {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, {k2_bytes} bytes; "
           f"K3 time {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, scatter_add_ {k3_lib_ms:.4f} ms; "
           f"K4 time {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, bmm {k4_lib_ms:.4f} ms, "
-          f"{k4_nnz} nonzero S entries, dense bf16 work {2 * spec.num_slots * width * 128} FLOP")
+          f"{k4_nnz} nonzero S entries of {k4_s.numel()} ({100 * (1 - k4_nnz / k4_s.numel()):.3f} % "
+          f"zeros), {100 * k4_live:.2f} % of (32-row, 64-deep) S blocks live, dense bf16 work "
+          f"{2 * spec.num_slots * width * 128} FLOP")
     del out, ref, k4_s, z_pad
 
     # K7's time; K4^T against its plain version on the uniform frame's S_rev.
@@ -570,6 +577,58 @@ def main() -> None:
           f"plain {k4t_plain_ms:.4f} ms, bmm {k4t_lib_ms:.4f} ms, {k4t_nnz} nonzero S_rev "
           f"entries")
     del out, ref, g_pad, k7_s, k7_packed
+
+    # K4 and K4^T on the aux spec (grid 14: QB 224, W 384, S width 3,456),
+    # from the plan of K1's neighbor ids with its reverse table; and each
+    # mode's rate, registers and spills.
+    aux_spec = cellblock.choose_cellblock_spec(N)
+    aux_plan = cellblock.build_cellblock(
+        pos0, pallas_knn.pallas_cell_list_knn(pos0, K, 1.0, grid), 1.0, aux_spec,
+        with_reverse=True)
+    if int(aux_plan.reverse_mismatch) != 0 or int(aux_plan.dropped_edges) != 0:
+        fail(f"aux plan: reverse_mismatch {int(aux_plan.reverse_mismatch)}, dropped "
+             f"{int(aux_plan.dropped_edges)}")
+    a_pad = torch.randn(aux_spec.num_padded, 128, generator=gen).bfloat16().to(dev)
+    aux_rows = (aux_plan.window_starts.long()[:, :, None]
+                + torch.arange(aux_spec.window, device=dev)).reshape(aux_spec.num_tiles, -1)
+    for label, fn, plain, table, s_b in (
+            ("K4", cellblock.window_matmul, cellblock.window_matmul_reference, aux_plan.s_table,
+             aux_plan.s_table.view(aux_spec.num_tiles, aux_spec.query_block, -1)),
+            ("K4^T", cellblock.window_matmul_t, cellblock.window_matmul_t_reference,
+             aux_plan.s_rev_table,
+             aux_plan.s_rev_table[:, :, :aux_spec.query_block].transpose(1, 2))):
+        out = fn(table, a_pad, aux_plan.window_starts, spec=aux_spec)
+        ref = plain(table, a_pad, aux_plan.window_starts, spec=aux_spec)
+        err = (out - ref).abs()
+        e_max, e_mean = float(err.max()), float(err.mean())
+        if not (e_max <= K4_MAX_ABS_TOL and e_mean <= K4_MEAN_ABS_TOL):
+            fail(f"{label} aux: max abs err {e_max} (tol {K4_MAX_ABS_TOL}), mean {e_mean} "
+                 f"(tol {K4_MEAN_ABS_TOL})")
+        ms = time_ms(lambda: fn(table, a_pad, aux_plan.window_starts, spec=aux_spec), 100)
+        plain_ms = time_ms(lambda: plain(table, a_pad, aux_plan.window_starts, spec=aux_spec), 3)
+        s_bf16 = s_b.to(torch.bfloat16).contiguous()
+        windows = a_pad[aux_rows]
+        bmm_ms = time_ms(lambda: torch.bmm(s_bf16, windows), 50)
+        del s_bf16, windows
+        a_bytes = nbytes(table, a_pad, aux_plan.window_starts, out)
+        print(f"{label} aux spec (G {aux_spec.grid_size}, QB {aux_spec.query_block}, W "
+              f"{aux_spec.window}, table {tuple(table.shape)}): max abs err {e_max:.3g}, mean "
+              f"{e_mean:.3g} (tol {K4_MAX_ABS_TOL}, {K4_MEAN_ABS_TOL}); time {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bmm {bmm_ms:.4f} ms; {a_bytes} bytes, bound "
+              f"{a_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms, {a_bytes / ms / 1e6:.1f} GB/s")
+        del out, ref
+    for name in ("window_matmul", "window_matmul_t"):
+        entry = report[name]
+        rate = entry["bound_ms"] / 1e3 * HBM_BYTES_PER_S / (entry["ms"] / 1e3) / 1e9
+        print(f"{name} flagship: {entry['ms']:.4f} ms, {rate:.1f} GB/s "
+              f"({100 * entry['bound_ms'] / entry['ms']:.1f} % of its bytes bound); "
+              f"bmm {entry['library_ms']:.4f} ms")
+    wm_log = logs.get("window_matmul", "")
+    wm_regs = [line.split("ptxas info    : ")[-1].strip() for line in wm_log.splitlines()
+               if "registers" in line or "spill" in line]
+    print(f"window_matmul -Xptxas -v (K4^T kernel first, then K4): "
+          f"{wm_regs if wm_regs else 'library already built, no log'}")
+    del a_pad, aux_plan, aux_rows, table, s_b
 
     # K8 on the dense plan's inputs: the uniform frame, and a frame whose
     # search windows truncate (300 particles in one cell: the windows of its
@@ -629,7 +688,8 @@ def main() -> None:
     print(f"K8 time {k8_ms:.4f} ms, plain {k8_plain_ms:.3f} ms; {live_rows} live query rows of "
           f"{k8_ds.queries.shape[0]}, {k8_pairs} pairs, {k8_bytes} bytes")
     del k8_ds, k8_lanes, k8_kth
-    print(f"phase 4 K2, K3, K7, K4, K4^T, K8: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 4 K2, K3, K7, K4, K4^T (flagship and aux), K8: "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 5-8. the rollout slices -----------------------------------------
     stats = NormalizationStats.from_metadata(METADATA, device=dev)
@@ -644,7 +704,6 @@ def main() -> None:
     hybrid = {"aggregation": "cellblock_hybrid"}
     # The aux route: the chooser's spec without k (grid 14 at N, 7 at
     # SMALL_N) is not on the k-NN grid (19, 9), so plans come from ids.
-    aux_spec = cellblock.choose_cellblock_spec(N)
     aux_small_spec = cellblock.choose_cellblock_spec(SMALL_N)
     plan_launches = {"s_onehot": STEPS, "window_matmul": STEPS * mp, "fused_tail": STEPS * mp}
     paths = (

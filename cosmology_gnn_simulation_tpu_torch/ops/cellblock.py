@@ -1367,6 +1367,9 @@ def _window_output(name, s, s_shape, z_pad, window_starts, spec):
     if z_pad.dtype != torch.bfloat16 or h % 8:
         raise ValueError(f"{name} kernel takes a bf16 candidate table with H % 8 == 0, "
                          f"got {z_pad.dtype} with H = {h}")
+    if spec.query_block % 32 or spec.window % 8:
+        raise ValueError(f"{name} kernel takes query_block % 32 == 0 and window % 8 == 0, "
+                         f"got {spec.query_block} and {spec.window}")
     _check(name, s.device, [
         ("selection table", s, s_shape, torch.int8),
         ("candidates", z_pad, (spec.num_padded, h), torch.bfloat16),

@@ -168,35 +168,120 @@ def test_s_decode_and_onehot_kernels_match_plain_versions(cuda_device, cram):
     assert int(s_table.sum(dtype=torch.int64)) == int((offsets < spec.s_width).sum())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["flagship", "small"])
-def test_window_matmul_kernel_matches_plain_version(cuda_device, shape):
+# Synthetic window-matmul specs on the edges of the kernel's contract, with
+# the latent width H: the JAX tests' SPEC (QB 32, W 96: a partial 64-row
+# stage; H 16), the aux spec's QB 224 and W 384 with a ragged second
+# 128-column block (H 136), and W 8 (72-byte S rows, 8-byte copies; H 8).
+_WINDOW_SPECS = {
+    "small": (dict(grid_size=4, col_capacity=32, query_block=32, window=96, wrap_cap=32), 16),
+    "h136": (dict(grid_size=3, col_capacity=224, query_block=224, window=384, wrap_cap=80), 136),
+    "w8": (dict(grid_size=3, col_capacity=32, query_block=32, window=8, wrap_cap=16), 8),
+}
+_WINDOW_SHAPES = ["flagship", "aux", *_WINDOW_SPECS]
+
+
+def _aux_plan(device):
+    """The aux route's plan with its reverse table at N = 65,536: the
+    chooser's spec without k (grid 14) from K1's neighbor ids (grid 19)."""
+    n, k = 65536, 16
+    pos = torch.rand(n, 3, generator=torch.Generator().manual_seed(4)).to(device)
+    spec = cellblock.choose_cellblock_spec(n)
+    ids = pallas_cell_list_knn(pos, k, 1.0, choose_cell_grid(n, k))
+    return spec, cellblock.build_cellblock(pos, ids, 1.0, spec, with_reverse=True)
+
+
+def _window_inputs(shape, device, transpose):
+    """(spec, S or with ``transpose`` S_rev, window starts, bf16 candidates)
+    of one window-matmul case on ``device``."""
     gen = torch.Generator().manual_seed(5)
     if shape == "flagship":
-        spec, _, layout, inputs = _decode_inputs(cuda_device)
-        cap = codes_packing_cap(65536, 16, choose_cell_grid(65536, 16))
-        s_table = cellblock.s_onehot(cellblock.s_decode(*inputs, spec=spec, codes_cap=cap),
-                                     width=spec.s_width)
+        if transpose:
+            spec, _, layout, packed, _, _, _ = _reverse_inputs(device, 0)
+            table = cellblock.reverse_table(packed, layout.window_starts, spec=spec)
+            gen = torch.Generator().manual_seed(8)
+        else:
+            spec, _, layout, inputs = _decode_inputs(device)
+            cap = codes_packing_cap(65536, 16, choose_cell_grid(65536, 16))
+            table = cellblock.s_onehot(cellblock.s_decode(*inputs, spec=spec, codes_cap=cap),
+                                       width=spec.s_width)
         starts, h = layout.window_starts, 128
+        z_pad = torch.randn(spec.num_padded, h, generator=gen)
+    elif shape == "aux":
+        spec, plan = _aux_plan(device)
+        table = plan.s_rev_table if transpose else plan.s_table
+        starts, h = plan.window_starts, 128
+        z_pad = torch.randn(spec.num_padded, h, generator=gen)
     else:
-        # The JAX tests' SPEC: QB 32, W 96 (a partial 64-row stage), H 16.
-        spec = cellblock.CellBlockSpec(grid_size=4, col_capacity=32, query_block=32,
-                                       window=96, wrap_cap=32, h_block=128)
-        s_table = torch.randint(0, 3, (spec.num_slots, spec.s_width), generator=gen,
-                                dtype=torch.int8).to(cuda_device)
-        starts = (torch.randint(0, spec.padded_col - spec.window + 1,
-                                (spec.num_tiles, 9), generator=gen)
-                  + torch.arange(9) * spec.padded_col).to(torch.int32).to(cuda_device)
-        h = 16
-    z_pad = torch.randn(spec.num_padded, h, generator=gen).bfloat16().to(cuda_device)
+        spec_kw, h = _WINDOW_SPECS[shape]
+        spec = cellblock.CellBlockSpec(h_block=128, **spec_kw)
+        t, w = spec.num_tiles, spec.window
+        shape_s = (t, spec.s_width, spec.rev_lanes) if transpose else (spec.num_slots,
+                                                                       spec.s_width)
+        table = torch.randint(0, 3, shape_s, generator=gen, dtype=torch.int8)
+        starts = (torch.randint(0, spec.padded_col - w + 1, (t, 9), generator=gen)
+                  + torch.arange(9) * spec.padded_col).to(torch.int32)
+        if shape == "small":
+            z_pad = torch.randn(spec.num_padded, h, generator=gen)
+        else:
+            # Sparse counts up to 127 (and, in S_rev, lanes past QB set,
+            # which the kernel must ignore); a window at the last legal
+            # row; candidates on a 1/16 lattice, so every sum is exact.
+            live = torch.rand(shape_s, generator=gen) < 0.02
+            table = torch.where(live, torch.randint(1, 128, shape_s, generator=gen,
+                                                    dtype=torch.int8), 0).to(torch.int8)
+            table.view(-1)[:4] = 127
+            starts[-1, -1] = spec.num_padded - w
+            z_pad = torch.randint(-64, 65, (spec.num_padded, h), generator=gen) / 16.0
+        table, starts = table.to(device), starts.to(device)
+    return spec, table, starts, z_pad.bfloat16().to(device)
+
+
+def _assert_window_close(out, ref):
+    err = (out - ref).abs()
+    assert float(err.max()) <= 1e-3 and float(err.mean()) <= 1e-5, (
+        float(err.max()), float(err.mean()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _WINDOW_SHAPES)
+def test_window_matmul_kernel_matches_plain_version(cuda_device, shape):
+    spec, s_table, starts, z_pad = _window_inputs(shape, cuda_device, transpose=False)
     kernels.reset_launches()
     out = cellblock.window_matmul(s_table, z_pad, starts, spec=spec)
     ref = cellblock.window_matmul_reference(s_table, z_pad, starts, spec=spec)
     torch.cuda.synchronize()
     assert kernels.launches["window_matmul"] == 1
-    err = (out - ref).abs()
-    assert float(err.max()) <= 1e-3 and float(err.mean()) <= 1e-5, (
-        float(err.max()), float(err.mean()))
+    _assert_window_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True])
+def test_window_matmul_launches_are_bit_equal(cuda_device, transpose):
+    spec, table, starts, z_pad = _window_inputs("flagship", cuda_device, transpose)
+    fn = cellblock.window_matmul_t if transpose else cellblock.window_matmul
+    first = fn(table, z_pad, starts, spec=spec)
+    second = fn(table, z_pad, starts, spec=spec)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True])
+def test_window_matmul_rejects_shapes_outside_its_contract(cuda_device, transpose):
+    spec = cellblock.CellBlockSpec(grid_size=3, col_capacity=48, query_block=48, window=96,
+                                   wrap_cap=32, h_block=128)
+    table = torch.zeros((spec.num_tiles, spec.s_width, spec.rev_lanes) if transpose
+                        else (spec.num_slots, spec.s_width), dtype=torch.int8,
+                        device=cuda_device)
+    starts = torch.zeros((spec.num_tiles, 9), dtype=torch.int32, device=cuda_device)
+    z_pad = torch.zeros((spec.num_padded, 16), dtype=torch.bfloat16, device=cuda_device)
+    fn = cellblock.window_matmul_t if transpose else cellblock.window_matmul
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="query_block % 32"):
+        fn(table, z_pad, starts, spec=spec)
+    with pytest.raises(ValueError, match="H % 8"):
+        fn(table, z_pad[:, :12], starts, spec=spec._replace(query_block=32, col_capacity=32))
+    assert kernels.launches["window_matmul_t" if transpose else "window_matmul"] == 0
 
 
 def _tail_inputs(n, latent, device, seed=0):
@@ -403,19 +488,15 @@ def test_reverse_table_kernel_matches_plain_version(cuda_device, cram):
 
 
 @pytest.mark.cuda
-def test_window_matmul_t_kernel_matches_plain_version(cuda_device):
-    spec, _, layout, packed, _, _, _ = _reverse_inputs(cuda_device, 0)
-    s_rev = cellblock.reverse_table(packed, layout.window_starts, spec=spec)
-    g_pad = torch.randn(spec.num_padded, 128,
-                        generator=torch.Generator().manual_seed(8)).bfloat16().to(cuda_device)
+@pytest.mark.parametrize("shape", _WINDOW_SHAPES)
+def test_window_matmul_t_kernel_matches_plain_version(cuda_device, shape):
+    spec, s_rev, starts, g_pad = _window_inputs(shape, cuda_device, transpose=True)
     kernels.reset_launches()
-    out = cellblock.window_matmul_t(s_rev, g_pad, layout.window_starts, spec=spec)
-    ref = cellblock.window_matmul_t_reference(s_rev, g_pad, layout.window_starts, spec=spec)
+    out = cellblock.window_matmul_t(s_rev, g_pad, starts, spec=spec)
+    ref = cellblock.window_matmul_t_reference(s_rev, g_pad, starts, spec=spec)
     torch.cuda.synchronize()
     assert kernels.launches["window_matmul_t"] == 1
-    err = (out - ref).abs()
-    assert float(err.max()) <= 1e-3 and float(err.mean()) <= 1e-5, (
-        float(err.max()), float(err.mean()))
+    _assert_window_close(out, ref)
 
 
 @pytest.mark.cuda
