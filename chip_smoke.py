@@ -24,7 +24,11 @@ each timed on its own line:
      modes again at k = 48;
   3. K5 (fused step tail) and K6 (its recompute-backward) against their
      plain versions at [65536, 128], with bf16 and with float32 aggregates;
-     K6 also against autograd through the plain forward;
+     K6 also against autograd through the plain forward; both timed, as
+     every kernel is, by events around back-to-back wrapper calls, and also
+     from a CUDA graph of those calls (the device time alone, reported as
+     "graph_ms"), with each agg dtype's bound, and the three (K5) and nine
+     (K6) bf16 products alone by torch.matmul;
   4. K2 (codes -> S offsets), K3 (int8 S rows), K7 (the reverse table), K4
      (window matmul) and K4^T (its S^T mode) against their plain versions at
      the flagship cell-block spec (K2, K3, K7 on both frames, with the
@@ -129,6 +133,29 @@ def time_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device ms per call of ``fn``'s launches, replayed from a CUDA
+    graph of ``reps`` calls (after a warm-up on a side stream): the kernel's
+    time without the host's cost of each Python call, which exceeds the
+    kernel's where the kernel is short."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -375,16 +402,26 @@ def main() -> None:
               f"mean {e_mean:.3g} (tol {K5_MEAN_ABS_TOL})")
         if label == "bf16 agg":
             k5_err = e_max
+    # Timed as every kernel is (events around back-to-back calls), and from
+    # a CUDA graph of the calls: where the host's cost of a call exceeds the
+    # kernel's time, the first reads the host and the second the device.
     k5_ms = time_ms(lambda: fused_step_tail(x, agg, node), 200)
     k5_f32_ms = time_ms(lambda: fused_step_tail(x, agg32, node), 200)
+    k5_graph_ms = graph_ms(lambda: fused_step_tail(x, agg, node), 50)
+    k5_f32_graph_ms = graph_ms(lambda: fused_step_tail(x, agg32, node), 50)
     k5_plain_ms = time_ms(lambda: fused_step_tail_reference(x, agg, node), 50)
     k5_bytes = N * 128 * (4 + 2 + 4) + (3 * 128 * 128 + 5 * 128) * 4
+    k5_f32_bytes = k5_bytes + N * 128 * 2
     k5_ops = 3 * 2 * N * 128 * 128
     report["fused_tail"] = kernel_entry(
         "fused_tail.cu", "fused_step.py:66", k5_err, k5_ms, k5_plain_ms, k5_bytes, k5_ops,
         BF16_TENSOR_FLOP_PER_S, None)
-    print(f"K5 time {k5_ms:.4f} ms (f32 agg {k5_f32_ms:.4f} ms), plain {k5_plain_ms:.4f} ms; "
-          f"{k5_ops} operations, {k5_bytes} bytes")
+    report["fused_tail"]["graph_ms"] = k5_graph_ms
+    k5_f32_bound = max(k5_f32_bytes / HBM_BYTES_PER_S, k5_ops / BF16_TENSOR_FLOP_PER_S) * 1e3
+    print(f"K5 time {k5_ms:.4f} ms (graph {k5_graph_ms:.4f}; bound "
+          f"{report['fused_tail']['bound_ms']:.4f}), f32 agg {k5_f32_ms:.4f} ms (graph "
+          f"{k5_f32_graph_ms:.4f}; bound {k5_f32_bound:.4f}); plain {k5_plain_ms:.4f} ms; "
+          f"{k5_ops} operations, {k5_bytes} bytes ({k5_f32_bytes} with f32 agg)")
     g_out = torch.randn(N, 128, generator=gen).to(dev)
     layers = node["layers"]
     for label, a in (("bf16 agg", agg), ("f32 agg", agg32)):
@@ -419,16 +456,31 @@ def main() -> None:
     del leaves, tnode, out, auto
     k6_ms = time_ms(lambda: fused_step_tail_bwd(x, agg, g_out, node), 100)
     k6_f32_ms = time_ms(lambda: fused_step_tail_bwd(x, agg32, g_out, node), 100)
+    k6_graph_ms = graph_ms(lambda: fused_step_tail_bwd(x, agg, g_out, node), 20)
+    k6_f32_graph_ms = graph_ms(lambda: fused_step_tail_bwd(x, agg32, g_out, node), 20)
     k6_plain_ms = time_ms(lambda: fused_step_tail_bwd_reference(x, agg, g_out, node), 20)
     # In: x, agg (bf16), g and the weights; out: dx, dagg and the gradients.
     # Nine 128 x 128 products a row (three recomputed, six backward).
     k6_bytes = N * 128 * (4 + 2 + 4 + 4 + 2) + 2 * (3 * 128 * 128 + 5 * 128) * 4
+    k6_f32_bytes = k6_bytes + 2 * N * 128 * 2
     k6_ops = 9 * 2 * N * 128 * 128
     report["fused_tail_bwd"] = kernel_entry(
         "fused_tail_bwd.cu", "fused_step.py:113", k6_err, k6_ms, k6_plain_ms, k6_bytes,
         k6_ops, BF16_TENSOR_FLOP_PER_S, None)
-    print(f"K6 time {k6_ms:.4f} ms (f32 agg {k6_f32_ms:.4f} ms), plain {k6_plain_ms:.4f} ms; "
-          f"{k6_ops} operations, {k6_bytes} bytes")
+    report["fused_tail_bwd"]["graph_ms"] = k6_graph_ms
+    k6_f32_bound = max(k6_f32_bytes / HBM_BYTES_PER_S, k6_ops / BF16_TENSOR_FLOP_PER_S) * 1e3
+    print(f"K6 time {k6_ms:.4f} ms (graph {k6_graph_ms:.4f}; bound "
+          f"{report['fused_tail_bwd']['bound_ms']:.4f}), f32 agg {k6_f32_ms:.4f} ms (graph "
+          f"{k6_f32_graph_ms:.4f}; bound {k6_f32_bound:.4f}); plain {k6_plain_ms:.4f} ms; "
+          f"{k6_ops} operations, {k6_bytes} bytes ({k6_f32_bytes} with f32 agg)")
+    # A floor for the tails' tensor work, not a yardstick (no single PyTorch
+    # call computes a tail): their [N, 128] x [128, 128] bf16 products alone.
+    mm_a = torch.randn(N, 128, generator=gen).to(dev).bfloat16()
+    mm_w = torch.randn(128, 128, generator=gen).to(dev).bfloat16()
+    mm_ms = graph_ms(lambda: torch.matmul(mm_a, mm_w), 50)
+    print(f"torch.matmul [{N}, 128] x [128, 128] bf16 (from a CUDA graph): {mm_ms:.4f} ms "
+          f"each; the three of K5 {3 * mm_ms:.4f} ms, the nine of K6 {9 * mm_ms:.4f} ms")
+    del mm_a, mm_w
     print(f"phase 3 K5, K6: {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. K2, K3, K4 against their plain versions ----------------------

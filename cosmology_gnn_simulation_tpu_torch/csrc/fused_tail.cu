@@ -15,211 +15,209 @@
 // bf16) and writes out (512 B) against 3 * 2 * 128 * 128 = 98 kFLOP of bf16
 // tensor-core work, 77 FLOP/B, far under the card's ~295 FLOP/B ridge, so
 // at N = 65,536 it is 84 MB / 3.35 TB/s = 25 us of traffic vs 6.5 us of math.
-// Design: keep every intermediate out of device memory. A persistent block
-// (256 threads, 8 warps) converts the three f32 [in, out] weights once into
-// bf16 [out][in] shared-memory tiles (row stride 136: conflict-free fragment
-// loads), then walks 128-row tiles; each warp owns 16 rows. The products run
-// on mma.sync m16n8k16 (bf16 -> f32); a layer's f32 accumulator fragments are
-// re-packed in registers as the next layer's bf16 A fragments (the m16n8 C
-// layout of n-tiles 2j, 2j+1 is the m16k16 A layout of k-tile j), so h never
-// touches shared or global memory. LayerNorm reduces each row across the four
-// lanes of a quad with two shuffles. wgmma and TMA wait for a later PR.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+//
+// Design: keep every intermediate out of device memory and the stream of x
+// and agg always in flight. A persistent block of two warpgroups converts
+// the three weights once into bf16 shared-memory copies (tail_common.cuh's
+// swizzled layout, B of wgmma by descriptor), then each warpgroup walks
+// 64-row tiles of its own. Each warpgroup has one stage (x f32 and agg) that
+// one of its threads fills by TMA; x is read from the stage into registers
+// once (the residual's f32 values and the first product's bf16 A
+// fragments), after which the stage's x half is refilled with the next
+// tile, and agg's half is refilled as soon as the first layer has read it,
+// so the next tile's copies run under this tile's three products. The
+// products are wgmma m64n128k16 with A in registers: a layer's f32
+// accumulators are re-packed as the next layer's bf16 A fragments (the
+// accumulator layout of columns 16 kt .. 16 kt + 15 is the A-fragment layout
+// of k-step kt), so h never touches shared or device memory. LayerNorm
+// reduces each row across the four lanes of a quad with two shuffles.
+#include "tail_common.cuh"
 
 namespace {
 
-constexpr int D = 128;             // latent = hidden width
-constexpr int LDW = D + 8;         // bf16 row stride of the weight tiles
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int TILE_ROWS = WARPS * 16;
-constexpr int NT = D / 8;          // n-tiles of 8 columns
-constexpr int KT = D / 16;         // k-tiles of 16
-constexpr size_t kSmemBytes = 3 * D * LDW * sizeof(__nv_bfloat16) + 5 * D * sizeof(float);
+using namespace tail;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
+constexpr int WGS = 2;
+constexpr int THREADS = WGS * 128;
+constexpr int X_BYTES = F32_TILE_BYTES;
+
+template <typename AggT>
+struct Smem {
+  static constexpr int AGG_BYTES = ROWS * D * (int)sizeof(AggT);
+  static constexpr int STAGE = X_BYTES + AGG_BYTES;
+  static constexpr int STAGES0 = 3 * W_BYTES;
+  static constexpr int BYTES = STAGES0 + WGS * STAGE + 1024;  // + alignment
+};
+static_assert(Smem<float>::BYTES <= 227 * 1024, "shared memory");
+
+__device__ __forceinline__ float2 agg_pair(const unsigned char* tile, int row, int col,
+                                           const __nv_bfloat16*) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(tile + bf16_off(row, col)));
+}
+__device__ __forceinline__ float2 agg_pair(const unsigned char* tile, int row, int col,
+                                           const float*) {
+  return *reinterpret_cast<const float2*>(tile + f32_off(row, col));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[nt] (16 x 8 tile nt) = A (16 x 128, fragments a[kt]) @ W (smem [n][k]).
-__device__ __forceinline__ void gemm(float (&acc)[NT][4], const uint32_t (&a)[KT][4],
-                                     const __nv_bfloat16* __restrict__ w, int gid,
-                                     int tig) {
+// Re-pack accumulators (64 f32) as the bf16 A fragments of the next product.
+__device__ __forceinline__ void to_a(uint32_t (&a)[8][4], const float (&h)[64]) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-  }
-#pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const __nv_bfloat16* p = w + (nt * 8 + gid) * LDW + kt * 16 + 2 * tig;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(p);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-      mma_bf16(acc[nt], a[kt], b0, b1);
-    }
+  for (int kt = 0; kt < 8; ++kt) {
+    a[kt][0] = pack_bf16(h[8 * kt + 0], h[8 * kt + 1]);
+    a[kt][1] = pack_bf16(h[8 * kt + 2], h[8 * kt + 3]);
+    a[kt][2] = pack_bf16(h[8 * kt + 4], h[8 * kt + 5]);
+    a[kt][3] = pack_bf16(h[8 * kt + 6], h[8 * kt + 7]);
   }
 }
 
-// Re-pack f32 C fragments as bf16 A fragments of the next product.
-__device__ __forceinline__ void to_a(uint32_t (&a)[KT][4], const float (&h)[NT][4]) {
+// acc = A (registers) x weight l (N-major, in the weights at wbase).
+__device__ __forceinline__ void product(float (&acc)[64], const uint32_t (&a)[8][4],
+                                        uint32_t wbase, int l) {
+  wgmma_fence();
 #pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-    a[kt][0] = pack_bf16(h[2 * kt][0], h[2 * kt][1]);
-    a[kt][1] = pack_bf16(h[2 * kt][2], h[2 * kt][3]);
-    a[kt][2] = pack_bf16(h[2 * kt + 1][0], h[2 * kt + 1][1]);
-    a[kt][3] = pack_bf16(h[2 * kt + 1][2], h[2 * kt + 1][3]);
-  }
-}
-
-__device__ __forceinline__ float2 load_agg2(const __nv_bfloat16* p, bool ok) {
-  return ok ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p))
-            : make_float2(0.f, 0.f);
-}
-
-__device__ __forceinline__ float2 load_agg2(const float* p, bool ok) {
-  return ok ? *reinterpret_cast<const float2*>(p) : make_float2(0.f, 0.f);
+  for (int kt = 0; kt < 8; ++kt) wgmma_rs(acc, a[kt], wbase, weight_n(l, kt), kt > 0);
+  wgmma_commit();
+  wgmma_wait_all();
 }
 
 template <typename AggT>
 __global__ void __launch_bounds__(THREADS, 1) fused_tail_kernel(
-    const float* __restrict__ x, const AggT* __restrict__ agg,
+    const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap agg_map,
     const float* __restrict__ w0, const float* __restrict__ b0,
     const float* __restrict__ w1, const float* __restrict__ b1,
     const float* __restrict__ wf, const float* __restrict__ bf,
     const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
     float* __restrict__ out, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* wt = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float* vec = reinterpret_cast<float*>(wt + 3 * D * LDW);  // b0 b1 bf scale bias
+  using S = Smem<AggT>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * WGS];  // x_full[wg], agg_full[wg]
 
-  const float* ws[3] = {w0, w1, wf};
-  for (int l = 0; l < 3; ++l) {
-    for (int i = threadIdx.x; i < D * D; i += THREADS) {
-      const int kk = i / D, nn = i % D;  // W is [in = k][out = n], f32
-      wt[l * D * LDW + nn * LDW + kk] = __float2bfloat16_rn(ws[l][i]);
-    }
+  const uint32_t raw0 = smem_addr(smem_raw);
+  const uint32_t smem0 = (raw0 + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (smem0 - raw0);
+
+  const int wg = threadIdx.x >> 7, wtid = threadIdx.x & 127;
+  const int warp = wtid >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int num_tiles = (n + ROWS - 1) / ROWS;
+  const uint32_t x_full = smem_addr(&bars[wg]), agg_full = smem_addr(&bars[WGS + wg]);
+  const int agg_box = 128 / (int)sizeof(AggT);
+  const unsigned char* x_tile = smem + S::STAGES0 + wg * S::STAGE;
+  const unsigned char* agg_tile = x_tile + X_BYTES;
+  const uint32_t x_dst = smem0 + S::STAGES0 + wg * S::STAGE, agg_dst = x_dst + X_BYTES;
+
+  // Warpgroup wg walks tiles 2 p + wg, p = blockIdx.x, + gridDim.x, ...
+  int tile = 2 * blockIdx.x + wg;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * WGS; ++i) mbar_init(smem_addr(&bars[i]), 1);
+    mbar_init_fence();
   }
-  const float* vs[5] = {b0, b1, bf, ln_scale, ln_bias};
-  for (int i = threadIdx.x; i < 5 * D; i += THREADS) vec[i] = vs[i / D][i % D];
+  __syncthreads();
+  if (wtid == 0 && tile < num_tiles) {
+    tma_tile(x_dst, &x_map, 32, tile * ROWS, x_full, X_BYTES);
+    tma_tile(agg_dst, &agg_map, agg_box, tile * ROWS, agg_full, S::AGG_BYTES);
+  }
+  load_weights(smem, w0, w1, wf, threadIdx.x, THREADS);
+  fence_async_smem();
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int num_tiles = (n + TILE_ROWS - 1) / TILE_ROWS;
-  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const int r0 = tile * TILE_ROWS + warp * 16 + gid;  // and r0 + 8
-    const bool ok0 = r0 < n, ok1 = r0 + 8 < n;
-    const float* x0 = x + (size_t)r0 * D;
-    const float* x1 = x0 + 8 * D;
+  const uint32_t wt = smem0;
+  const int r0 = 16 * warp + gid, r1 = r0 + 8;  // the thread's two rows of a tile
+  for (uint32_t it = 0; tile < num_tiles; ++it) {
+    const uint32_t par = it & 1;
+    const int next = tile + 2 * gridDim.x;
 
-    uint32_t a[KT][4];
+    // x: the residual in f32 and the first product's A fragments.
+    mbar_wait(x_full, par);
+    float xr[64];
 #pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      const int c = kt * 16 + 2 * tig;
-      const float2 z = make_float2(0.f, 0.f);
-      const float2 v0 = ok0 ? *reinterpret_cast<const float2*>(x0 + c) : z;
-      const float2 v1 = ok1 ? *reinterpret_cast<const float2*>(x1 + c) : z;
-      const float2 v2 = ok0 ? *reinterpret_cast<const float2*>(x0 + c + 8) : z;
-      const float2 v3 = ok1 ? *reinterpret_cast<const float2*>(x1 + c + 8) : z;
-      a[kt][0] = pack_bf16(v0.x, v0.y);
-      a[kt][1] = pack_bf16(v1.x, v1.y);
-      a[kt][2] = pack_bf16(v2.x, v2.y);
-      a[kt][3] = pack_bf16(v3.x, v3.y);
+    for (int j = 0; j < 16; ++j) {
+      const int c = 8 * j + 2 * tig;
+      const float2 u = *reinterpret_cast<const float2*>(x_tile + f32_off(r0, c));
+      const float2 v = *reinterpret_cast<const float2*>(x_tile + f32_off(r1, c));
+      xr[4 * j] = u.x; xr[4 * j + 1] = u.y; xr[4 * j + 2] = v.x; xr[4 * j + 3] = v.y;
     }
+    named_barrier(1 + wg, 128);  // the warpgroup is done reading x
+    if (wtid == 0 && next < num_tiles) tma_tile(x_dst, &x_map, 32, next * ROWS, x_full, X_BYTES);
 
-    float h[NT][4];
-    gemm(h, a, wt, gid, tig);
-    const AggT* g0 = agg + (size_t)r0 * D;
-    const AggT* g1 = g0 + 8 * D;
+    uint32_t a[8][4];
+    to_a(a, xr);
+    float h[64];
+    product(h, a, wt, 0);
+
+    mbar_wait(agg_full, par);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = nt * 8 + 2 * tig;
-      const float2 e0 = load_agg2(g0 + c, ok0);
-      const float2 e1 = load_agg2(g1 + c, ok1);
-      h[nt][0] = fmaxf(h[nt][0] + e0.x + vec[c], 0.f);
-      h[nt][1] = fmaxf(h[nt][1] + e0.y + vec[c + 1], 0.f);
-      h[nt][2] = fmaxf(h[nt][2] + e1.x + vec[c], 0.f);
-      h[nt][3] = fmaxf(h[nt][3] + e1.y + vec[c + 1], 0.f);
+    for (int j = 0; j < 16; ++j) {
+      const int c = 8 * j + 2 * tig;
+      const float2 bb = ld_vec2(b0 + c);
+      const float2 e0 = agg_pair(agg_tile, r0, c, (const AggT*)nullptr);
+      const float2 e1 = agg_pair(agg_tile, r1, c, (const AggT*)nullptr);
+      h[4 * j] = fmaxf(h[4 * j] + e0.x + bb.x, 0.f);
+      h[4 * j + 1] = fmaxf(h[4 * j + 1] + e0.y + bb.y, 0.f);
+      h[4 * j + 2] = fmaxf(h[4 * j + 2] + e1.x + bb.x, 0.f);
+      h[4 * j + 3] = fmaxf(h[4 * j + 3] + e1.y + bb.y, 0.f);
+    }
+    named_barrier(1 + wg, 128);  // the warpgroup is done reading agg
+    if (wtid == 0 && next < num_tiles)
+      tma_tile(agg_dst, &agg_map, agg_box, next * ROWS, agg_full, S::AGG_BYTES);
+
+    to_a(a, h);
+    product(h, a, wt, 1);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 bb = ld_vec2(b1 + 8 * j + 2 * tig);
+      h[4 * j] = fmaxf(h[4 * j] + bb.x, 0.f);
+      h[4 * j + 1] = fmaxf(h[4 * j + 1] + bb.y, 0.f);
+      h[4 * j + 2] = fmaxf(h[4 * j + 2] + bb.x, 0.f);
+      h[4 * j + 3] = fmaxf(h[4 * j + 3] + bb.y, 0.f);
     }
     to_a(a, h);
-    gemm(h, a, wt + D * LDW, gid, tig);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = nt * 8 + 2 * tig;
-      h[nt][0] = fmaxf(h[nt][0] + vec[D + c], 0.f);
-      h[nt][1] = fmaxf(h[nt][1] + vec[D + c + 1], 0.f);
-      h[nt][2] = fmaxf(h[nt][2] + vec[D + c], 0.f);
-      h[nt][3] = fmaxf(h[nt][3] + vec[D + c + 1], 0.f);
-    }
-    to_a(a, h);
-    gemm(h, a, wt + 2 * D * LDW, gid, tig);
+    product(h, a, wt, 2);
 
-    // y = h + bf; LayerNorm over each row's 128 columns, which the four
-    // lanes of a quad hold 32 apiece (two passes: mean, then variance).
+    // y = h + bf; LayerNorm over each row (two passes: mean, then variance).
     float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = nt * 8 + 2 * tig;
-      h[nt][0] += vec[2 * D + c];
-      h[nt][1] += vec[2 * D + c + 1];
-      h[nt][2] += vec[2 * D + c];
-      h[nt][3] += vec[2 * D + c + 1];
-      s0 += h[nt][0] + h[nt][1];
-      s1 += h[nt][2] + h[nt][3];
+    for (int j = 0; j < 16; ++j) {
+      const float2 bb = ld_vec2(bf + 8 * j + 2 * tig);
+      h[4 * j] += bb.x;
+      h[4 * j + 1] += bb.y;
+      h[4 * j + 2] += bb.x;
+      h[4 * j + 3] += bb.y;
+      s0 += h[4 * j] + h[4 * j + 1];
+      s1 += h[4 * j + 2] + h[4 * j + 3];
     }
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
-    const float mean0 = s0 / D, mean1 = s1 / D;
+    const float mean0 = quad_sum(s0) / D, mean1 = quad_sum(s1) / D;
     float q0 = 0.f, q1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      h[nt][0] -= mean0;
-      h[nt][1] -= mean0;
-      h[nt][2] -= mean1;
-      h[nt][3] -= mean1;
-      q0 += h[nt][0] * h[nt][0] + h[nt][1] * h[nt][1];
-      q1 += h[nt][2] * h[nt][2] + h[nt][3] * h[nt][3];
+    for (int j = 0; j < 16; ++j) {
+      h[4 * j] -= mean0;
+      h[4 * j + 1] -= mean0;
+      h[4 * j + 2] -= mean1;
+      h[4 * j + 3] -= mean1;
+      q0 += h[4 * j] * h[4 * j] + h[4 * j + 1] * h[4 * j + 1];
+      q1 += h[4 * j + 2] * h[4 * j + 2] + h[4 * j + 3] * h[4 * j + 3];
     }
-    q0 += __shfl_xor_sync(0xffffffffu, q0, 1);
-    q0 += __shfl_xor_sync(0xffffffffu, q0, 2);
-    q1 += __shfl_xor_sync(0xffffffffu, q1, 1);
-    q1 += __shfl_xor_sync(0xffffffffu, q1, 2);
-    const float rstd0 = rsqrtf(q0 / D + 1e-5f), rstd1 = rsqrtf(q1 / D + 1e-5f);
+    const float rstd0 = rsqrtf(quad_sum(q0) / D + LN_EPS);
+    const float rstd1 = rsqrtf(quad_sum(q1) / D + LN_EPS);
 
-    float* o0 = out + (size_t)r0 * D;
-    float* o1 = o0 + 8 * D;
+    const int g0 = tile * ROWS + r0, g1 = g0 + 8;
+    float* o0 = out + (size_t)g0 * D;
+    float* o1 = out + (size_t)g1 * D;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = nt * 8 + 2 * tig;
-      const float sc0 = vec[3 * D + c], sc1 = vec[3 * D + c + 1];
-      const float bb0 = vec[4 * D + c], bb1 = vec[4 * D + c + 1];
-      if (ok0) {
-        const float2 xv = *reinterpret_cast<const float2*>(x0 + c);
-        *reinterpret_cast<float2*>(o0 + c) = make_float2(
-            xv.x + (h[nt][0] * rstd0 * sc0 + bb0), xv.y + (h[nt][1] * rstd0 * sc1 + bb1));
-      }
-      if (ok1) {
-        const float2 xv = *reinterpret_cast<const float2*>(x1 + c);
-        *reinterpret_cast<float2*>(o1 + c) = make_float2(
-            xv.x + (h[nt][2] * rstd1 * sc0 + bb0), xv.y + (h[nt][3] * rstd1 * sc1 + bb1));
-      }
+    for (int j = 0; j < 16; ++j) {
+      const int c = 8 * j + 2 * tig;
+      const float2 sc = ld_vec2(ln_scale + c);
+      const float2 bb = ld_vec2(ln_bias + c);
+      if (g0 < n)
+        *reinterpret_cast<float2*>(o0 + c) =
+            make_float2(xr[4 * j] + (h[4 * j] * rstd0 * sc.x + bb.x),
+                        xr[4 * j + 1] + (h[4 * j + 1] * rstd0 * sc.y + bb.y));
+      if (g1 < n)
+        *reinterpret_cast<float2*>(o1 + c) =
+            make_float2(xr[4 * j + 2] + (h[4 * j + 2] * rstd1 * sc.x + bb.x),
+                        xr[4 * j + 3] + (h[4 * j + 3] * rstd1 * sc.y + bb.y));
     }
+    tile = next;
   }
 }
 
@@ -228,26 +226,18 @@ int launch(const float* x, const AggT* agg, const float* w0, const float* b0,
            const float* w1, const float* b1, const float* wf, const float* bf,
            const float* ln_scale, const float* ln_bias, float* out, int n,
            void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_tail_kernel<AggT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+  if (n <= 0) return (int)cudaSuccess;
+  CUtensorMap x_map = {}, agg_map = {};
+  if (!tile_map(&x_map, x, n, 4) || !tile_map(&agg_map, agg, n, (int)sizeof(AggT)))
+    return (int)cudaErrorInvalidValue;
+  const int smem = Smem<AggT>::BYTES;
+  int sms = 0;
+  const cudaError_t err = launch_setup<fused_tail_kernel<AggT>>(smem, 0, &sms);
   if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-      cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_tail_kernel<AggT>, THREADS, kSmemBytes)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int num_tiles = (n + TILE_ROWS - 1) / TILE_ROWS;
-  int blocks = sms * per_sm;
-  if (blocks > num_tiles) blocks = num_tiles;
-  if (blocks < 1) return (int)cudaSuccess;
-  fused_tail_kernel<AggT><<<blocks, THREADS, kSmemBytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      x, agg, w0, b0, w1, b1, wf, bf, ln_scale, ln_bias, out, n);
+  const int pairs = ((n + ROWS - 1) / ROWS + WGS - 1) / WGS;
+  const int blocks = pairs < sms ? pairs : sms;
+  fused_tail_kernel<AggT><<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      x_map, agg_map, w0, b0, w1, b1, wf, bf, ln_scale, ln_bias, out, n);
   return (int)cudaGetLastError();
 }
 
@@ -256,8 +246,9 @@ int launch(const float* x, const AggT* agg, const float* w0, const float* b0,
 // Plain C entry points (loaded with ctypes). x, out: [n, 128] f32; agg:
 // [n, 128] bf16 (fused_tail_launch) or f32 (fused_tail_f32agg_launch); w0,
 // w1, wf: [128, 128] f32 in the JAX [in, out] layout; b0, b1, bf, ln_scale,
-// ln_bias: [128] f32. All contiguous, out not aliasing x. Launch on
-// `stream`, do not synchronize, return the cudaError_t.
+// ln_bias: [128] f32. All contiguous, x and agg 16-byte aligned, out not
+// aliasing x. Launch on `stream`, do not synchronize, return the
+// cudaError_t.
 extern "C" int fused_tail_launch(const float* x, const void* agg, const float* w0,
                                  const float* b0, const float* w1, const float* b1,
                                  const float* wf, const float* bf,

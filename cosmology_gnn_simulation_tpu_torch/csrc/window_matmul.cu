@@ -54,12 +54,13 @@
 // 8) work. What holds it back (PERF.md): the widening pass and the one
 // barrier a chunk, at one block an SM; a persistent grid and a producer
 // warp are next.
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int WARPS = 8;        // two warpgroups
 constexpr int THREADS = WARPS * 32;
@@ -97,34 +98,6 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int x, int y,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
-
 __device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
   __nv_bfloat162 x = *reinterpret_cast<__nv_bfloat162*>(&a);
   __nv_bfloat162 y = *reinterpret_cast<__nv_bfloat162*>(&b);
@@ -159,15 +132,6 @@ __device__ __forceinline__ void store_counts(unsigned char* lo_chunk, unsigned c
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 // d (64 rows x 128 columns of f32, per warpgroup) += A (64 x 16 bf16, K-major
 // or, with TRANS_A, M-major) x B (16 x 128 bf16, N-major).
@@ -212,10 +176,10 @@ __global__ void __launch_bounds__(THREADS, 1) window_matmul_kernel(
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES];  // full[s]: stage s holds its chunk
 
-  const uint32_t raw0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t raw0 = smem_addr(smem_raw);
   const uint32_t smem0 = (raw0 + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (smem0 - raw0);
-  const uint32_t full0 = static_cast<uint32_t>(__cvta_generic_to_shared(full));
+  const uint32_t full0 = smem_addr(full);
 
   const int mblocks = (qb + BM - 1) / BM;
   const int tile = blockIdx.x / mblocks;
@@ -232,7 +196,7 @@ __global__ void __launch_bounds__(THREADS, 1) window_matmul_kernel(
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(full0 + 8 * s, use_tma ? 1 : THREADS);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -371,7 +335,7 @@ __global__ void __launch_bounds__(THREADS, 1) window_matmul_kernel(
   // phase.
   mbar_wait(full0, 0);
   scan(0);
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_async_smem();
   for (int c = 0; c < nchunks; ++c) {
     if (c + 1 < nchunks) mbar_wait(full0 + 8 * ((c + 1) % STAGES), ((c + 1) / STAGES) & 1);
     __syncthreads();  // chunk c is widened; chunk c - 1's products are done
@@ -396,7 +360,7 @@ __global__ void __launch_bounds__(THREADS, 1) window_matmul_kernel(
     wgmma_commit();
     if (c + 1 < nchunks) {
       scan(c + 1);
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_async_smem();
     }
     wgmma_wait_all();
   }
@@ -419,47 +383,6 @@ __global__ void __launch_bounds__(THREADS, 1) window_matmul_kernel(
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime (no -lcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-#if CUDART_VERSION >= 12050
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) != cudaSuccess)
-      p = nullptr;
-#endif
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2-D tensor map of a row-major [d1][d0] array with rows `stride` bytes
-// apart and a [b1][b0] box; false if the encoder refuses it.
-bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t d0,
-                uint64_t d1, uint64_t stride, uint32_t b0, uint32_t b1,
-                CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {d0, d1};
-  const cuuint64_t strides[1] = {stride};
-  const cuuint32_t box[2] = {b0, b1};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library, built by one ``nvcc`` call for ``sm_90a`` (Hopper) at first use and
 loaded with ``ctypes``. Nothing includes PyTorch's headers, so a build takes
 seconds. Libraries go to ``build/kernels/`` at the repository root, named by
-a hash of their source and flags, so an edited source is rebuilt and a
-stale library is never loaded.
+a hash of their source, the local headers it includes (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded.
 
 ``launches[name]`` counts the launches of kernel ``name`` (one source may
 host several: ``knn_select.cu`` has ``knn_select``, ``knn_codes`` and
@@ -21,10 +22,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
@@ -40,6 +42,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# One library's flags beside NVCC_FLAGS. K6 is built without FMA
+# contraction: its row warpgroup then spills less and runs faster.
+EXTRA_FLAGS: Dict[str, List[str]] = {"fused_tail_bwd": ["--fmad=false"]}
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -56,12 +61,30 @@ def _nvcc() -> str:
     return nvcc
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: Optional[list] = None) -> list:
+    """``path`` and every file it includes with ``#include "..."`` (relative
+    to the including file, recursively), each once, in the order met."""
+    seen = [] if seen is None else seen
+    path = path.resolve()
+    if path in seen:
+        return seen
+    seen.append(path)
+    for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+        _sources(path.parent / name.decode(), seen)
+    return seen
+
+
 def _library_path(name: str) -> Path:
-    source = PACKAGE_DIR / "csrc" / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the flags, the
+    source and the local headers it includes, so an edited header is
+    rebuilt too."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, [])).encode())
+    for path in _sources(PACKAGE_DIR / "csrc" / f"{name}.cu"):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
@@ -77,7 +100,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, []), "-o", str(tmp),
                str(PACKAGE_DIR / "csrc" / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True

@@ -127,19 +127,26 @@ def fused_step_tail_bwd_reference(x, agg, g, node_params, *, dtype=torch.bfloat1
 
 @functools.cache
 def _lib(name: str):
-    lib = kernels.library(name)
+    return _bind(kernels.library(name), name)
+
+
+def _bind(lib, name: str):
+    """``lib`` (K5's or K6's library) with its entry points' C types set."""
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "fused_tail":
         entries = (lib.fused_tail_launch, lib.fused_tail_f32agg_launch)
         argtypes = [p] * 11 + [i, p]
     else:
         entries = (lib.fused_tail_bwd_launch, lib.fused_tail_bwd_f32agg_launch)
-        argtypes = [p] * 14 + [i, p, i, p]
+        argtypes = [p] * 13 + [i, p, i, p]
         lib.fused_tail_bwd_partial_floats.restype = i
     for entry in entries:
         entry.argtypes = argtypes
         entry.restype = i
     return lib
+
+
+_FLAT_SHAPES = ((128, 128), (128,)) * 3 + ((128,), (128,))
 
 
 def _check_kernel_inputs(name, x, agg, flat, dtype, extra=()):
@@ -153,15 +160,15 @@ def _check_kernel_inputs(name, x, agg, flat, dtype, extra=()):
         )
     if agg.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name} kernel takes bf16 or f32 agg, got {agg.dtype}")
-    shapes = [(128, 128), (128,)] * 3 + [(128,), (128,)]
-    checks = [("x", x, (n, 128), torch.float32), ("agg", agg, (n, 128), agg.dtype)]
-    checks += [(f"weight {i}", w, s, torch.float32)
-               for i, (w, s) in enumerate(zip(flat, shapes))]
-    for label, t in extra:
-        checks.append((label, t, (n, 128), torch.float32))
+    # One pass with no string built unless a check fails: a K5 call is
+    # shorter on the card than its checks are on the host.
+    device, f32, rows = x.device, torch.float32, (n, 128)
+    checks = [("x", x, rows, f32), ("agg", agg, rows, agg.dtype),
+              *((i, w, shape, f32) for i, (w, shape) in enumerate(zip(flat, _FLAT_SHAPES))),
+              *((label, t, rows, f32) for label, t in extra)]
     for label, t, shape, dt in checks:
-        if t.device != x.device or t.dtype != dt or tuple(t.shape) != shape \
-                or not t.is_contiguous():
+        if t.dtype != dt or t.shape != shape or t.device != device or not t.is_contiguous():
+            label = f"weight {label}" if isinstance(label, int) else label
             raise ValueError(
                 f"{name}: {label} must be a contiguous {dt} {shape} tensor "
                 f"on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
@@ -200,8 +207,9 @@ def _tail_backward(x, agg, g, flat, dtype):
     dagg = torch.empty_like(agg)
     launch = (lib.fused_tail_bwd_launch if agg.dtype == torch.bfloat16
               else lib.fused_tail_bwd_f32agg_launch)
+    # K6 takes every weight but the LayerNorm bias (dbias is the sum of g).
     err = launch(
-        kernels.ptr(x), kernels.ptr(agg), kernels.ptr(g), *[kernels.ptr(w) for w in flat],
+        kernels.ptr(x), kernels.ptr(agg), kernels.ptr(g), *[kernels.ptr(w) for w in flat[:-1]],
         kernels.ptr(dx), kernels.ptr(dagg), kernels.ptr(partials), max_blocks,
         kernels.ptr(grads), n, kernels.stream_handle(x.device),
     )
@@ -256,4 +264,7 @@ def fused_step_tail(x: torch.Tensor, agg: torch.Tensor, node_params, *,
     f32 x and weights, bf16 operands, agg bf16 (the gather path) or f32 (the
     cell-block path); ``kernel_takes`` — and raise on any other.
     """
-    return _FusedTail.apply(x, agg, dtype, *_flatten(node_params, x.shape[1]))
+    flat = _flatten(node_params, x.shape[1])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, agg, *flat)):
+        return _FusedTail.apply(x, agg, dtype, *flat)
+    return _tail_forward(x, agg, flat, dtype)  # nothing to differentiate

@@ -295,10 +295,17 @@ def _tail_inputs(n, latent, device, seed=0):
     return x, agg, node
 
 
+# Row counts at the edges of the kernels' 64-row tiles and of a persistent
+# grid with fewer tiles than SMs (K5 pairs tiles per block).
+_TAIL_ROWS = [1, 16, 63, 64, 65, 4099, 65536]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [16, 4099, 65536])
-def test_fused_tail_kernel_matches_plain_version(cuda_device, n):
+@pytest.mark.parametrize("agg_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", _TAIL_ROWS)
+def test_fused_tail_kernel_matches_plain_version(cuda_device, n, agg_dtype):
     x, agg, node = _tail_inputs(n, 128, cuda_device)
+    agg = agg.to(getattr(torch, agg_dtype))
     out = fused_step_tail(x, agg, node)
     ref = fused_step_tail_reference(x, agg, node)
     torch.cuda.synchronize()
@@ -431,7 +438,7 @@ def _mostly_close(a, b, rel, mean_rel):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("agg_dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("n", [4099, 65536])
+@pytest.mark.parametrize("n", [n for n in _TAIL_ROWS if n != 16])
 def test_fused_tail_bwd_kernel_matches_plain_version(cuda_device, agg_dtype, n):
     x, agg, node = _tail_inputs(n, 128, cuda_device)
     agg = agg.to(getattr(torch, agg_dtype))
@@ -456,6 +463,22 @@ def test_fused_tail_bwd_kernel_matches_plain_version(cuda_device, agg_dtype, n):
     theirs = [auto[0], auto[1], auto[2][:128], *auto[3:]]  # w_self rows of layer 0
     for a, b in zip(mine, theirs):
         _mostly_close(a, b, 3e-2, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [4099, 65536])
+def test_fused_tail_bwd_launches_are_bit_equal(cuda_device, agg_dtype, n):
+    """The blocks' weight-gradient partials are summed in a fixed order and
+    nothing is added by atomics, so two launches agree to the bit."""
+    x, agg, node = _tail_inputs(n, 128, cuda_device)
+    agg = agg.to(getattr(torch, agg_dtype))
+    g = torch.randn(n, 128, generator=torch.Generator().manual_seed(7)).to(cuda_device)
+    first = fused_step_tail_bwd(x, agg, g, node)
+    second = fused_step_tail_bwd(x, agg, g, node)
+    torch.cuda.synchronize()
+    for a, b in zip([first[0], first[1], *first[2]], [second[0], second[1], *second[2]]):
+        assert torch.equal(a, b)
 
 
 def _reverse_inputs(device, cram):
