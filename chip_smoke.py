@@ -17,11 +17,16 @@ each timed on its own line:
   1. device and build: the card's name and power limit, one nvcc per source
      (all started together), each build's -Xptxas -v report;
   2. K1 (cell-list k-NN), its codes mode K1' and its dual mode K1'' (ids and
-     codes) against their plain versions on a uniform frame and on a frame
-     with cells past capacity (spill): equal ids and codes (the dual mode's
-     ids also equal to the ids mode's), bit-equal k-th distances and
-     certificate; brute force as the yardstick of exactness; all three
-     modes again at k = 48;
+     codes) against their plain versions on a uniform frame, on a frame
+     with cells past capacity (spill) and on the uniform frame snapped to
+     the 2^-10 lattice (many exactly equal distances: the tie order): equal
+     ids and codes (the dual mode's ids also equal to the ids mode's),
+     bit-equal k-th distances; certificate and brute force as the
+     yardstick of exactness on the first two; all three modes again at
+     k = 48 on the uniform and lattice frames; the kernels take the box as
+     a host number, and each mode is timed by events and from a CUDA graph
+     ("graph_ms"), with each instantiation's -Xptxas -v registers and
+     spills;
   3. K5 (fused step tail) and K6 (its recompute-backward) against their
      plain versions at [65536, 128], with bf16 and with float32 aggregates;
      K6 also against autograd through the plain forward; both timed, as
@@ -37,8 +42,11 @@ each timed on its own line:
      (its bound's bytes over its time), its registers and spills, and S's
      share of live (32-row, 64-deep) blocks; K8 (the dense-query
      search) against its plain version on the dense plan's inputs of the
-     uniform frame and of a frame whose search windows truncate, and the
-     dense plan on the card against the CPU plain path on both;
+     uniform frame, of a frame whose search windows truncate and of the
+     lattice frame, at k = 16 and (but the truncating frame) 48, on the
+     live rows of the plan's mask (padding rows the no-pick lane), and the
+     dense plan on the card against the CPU plain path on the first two;
+     K8 timed by events and from a CUDA graph;
   5. the gather slice: launch counts zeroed, 8 rollout steps, counts read (K1
      once and K5 ten times per step), trajectory finite, certificate true
      every step, ms per step from CUDA events after a warm-up; a 2-step
@@ -74,6 +82,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -159,6 +168,32 @@ def graph_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def print_ptxas(logs, name):
+    """Each kernel instantiation's registers and spills from ``name``'s
+    -Xptxas -v log, by its template arguments (the mangled name's
+    ``ILi1ELi0EE`` is <1, 0>). ptxas reports a kernel's stack and spills,
+    then its registers, after the line that names it."""
+    log = logs.get(name)
+    if log is None:
+        print(f"{name} -Xptxas -v: library already built, no log")
+        return
+    rows = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            func = line.split("'")[1]
+            args = re.search(r"I((?:L[a-z]+\d+E)+)EE", func)
+            label = (f"<{', '.join(re.findall(r'L[a-z]+(\d+)E', args.group(1)))}>"
+                     if args else func)
+            rows.append([label, "", ""])
+        elif rows and "registers" in line:
+            rows[-1][1] = line.split(": ", 1)[-1].strip()
+        elif rows and "spill" in line:
+            rows[-1][2] = line.strip()
+    print(f"{name} -Xptxas -v per kernel:")
+    for label, regs, spills in rows:
+        print(f"  {label}: {regs} | {spills}")
 
 
 def kernel_entry(source, replaces, max_abs_err, ms, plain_ms, nbytes, ops, op_rate,
@@ -273,24 +308,29 @@ def main() -> None:
         spill = pallas_knn.build_spill(pos, t.particle_rank, cap, spill_cap)
         return (t.x, t.y, t.z, t.ids), spill, int((t.particle_rank >= cap).sum())
 
-    k1_args = dict(k=K, n=N, g=g, box=box, mi_start=pallas_knn.min_image_start(cap, spill_cap))
+    # The kernels take the box as a host number; the plain versions its f32 tensor.
+    k1_args = dict(k=K, n=N, g=g, box=1.0, mi_start=pallas_knn.min_image_start(cap, spill_cap))
+    ref_args = {**k1_args, "box": box}
     crammed = pos0.clone()
     # Spill frame: 40 and 30 particles pulled into two cells of capacity cap.
     crammed[:40] = torch.tensor([0.52, 0.31, 0.77], device=dev) + 0.01 * crammed[:40]
     crammed[40:70] = torch.tensor([0.995, 0.002, 0.5], device=dev) + 0.004 * crammed[40:70]
     crammed = torch.remainder(crammed, 1.0)
-    frames = (("uniform", pos0), ("spill", crammed))
+    # Lattice frame: the uniform frame snapped to the 2^-10 lattice, where
+    # many squared distances are exactly equal (the tie order is tested).
+    lattice = torch.remainder(torch.round(pos0 * 1024) / 1024, 1.0)
+    frames = (("uniform", pos0), ("spill", crammed), ("lattice", lattice))
     for label, pos in frames:
         table, spill, n_spilled = k1_inputs(pos)
         ids, kth = pallas_knn.knn_select(table, spill, **k1_args)
-        ref_ids, ref_kth = pallas_knn.knn_select_reference(table, spill, **k1_args)
+        ref_ids, ref_kth = pallas_knn.knn_select_reference(table, spill, **ref_args)
         if not torch.equal(ids, ref_ids):
             fail(f"K1 {label}: ids differ from the plain version in "
                  f"{int((ids != ref_ids).any(1).sum())} rows")
         if not torch.equal(kth.view(torch.int32), ref_kth.view(torch.int32)):
             fail(f"K1 {label}: kth not bit-equal to the plain version")
         dual_ids, dual_codes, dkth = pallas_knn.knn_dual(table, spill, **k1_args)
-        ref_dids, ref_dcodes, ref_dkth = pallas_knn.knn_dual_reference(table, spill, **k1_args)
+        ref_dids, ref_dcodes, ref_dkth = pallas_knn.knn_dual_reference(table, spill, **ref_args)
         if not (torch.equal(dual_ids, ids) and torch.equal(dual_ids, ref_dids)):
             fail(f"K1'' {label}: ids differ from K1's in "
                  f"{int((dual_ids != ids).any(1).sum())} rows")
@@ -301,12 +341,19 @@ def main() -> None:
                 and torch.equal(dkth.view(torch.int32), kth.view(torch.int32))):
             fail(f"K1'' {label}: kth not bit-equal to the plain version and K1")
         codes, ckth = pallas_knn.knn_codes(table, spill, **k1_args)
-        ref_codes, ref_ckth = pallas_knn.knn_codes_reference(table, spill, **k1_args)
+        ref_codes, ref_ckth = pallas_knn.knn_codes_reference(table, spill, **ref_args)
         if not torch.equal(codes, ref_codes):
             fail(f"K1' {label}: codes differ from the plain version in "
                  f"{int((codes != ref_codes).any(1).sum())} rows")
         if not torch.equal(ckth.view(torch.int32), ref_ckth.view(torch.int32)):
             fail(f"K1' {label}: kth not bit-equal to the plain version")
+        if label == "lattice":
+            occupied = kth < 1e29
+            print(f"K1 lattice: ids equal, kth bit-equal ({n_spilled} spilled; "
+                  f"{int(torch.unique(kth[occupied]).numel())} distinct k-th distances over "
+                  f"{int(occupied.sum())} rows); K1' codes equal, kth bit-equal; K1'' ids "
+                  f"equal to K1's, codes equal, kth bit-equal")
+            continue
         nbr, (ovf, max_d2, excess) = pallas_knn.pallas_cell_list_knn(
             pos, K, 1.0, grid, return_diagnostics=True)
         exact = bool((ovf == 0) & (excess <= 0))
@@ -328,11 +375,17 @@ def main() -> None:
             k1d_err = float((dkth - ref_dkth).abs().max())
     kernels.reset_launches()
     k1_ms = time_ms(lambda: pallas_knn.knn_select(k1_table, k1_spill, **k1_args), 50)
-    k1_plain_ms = time_ms(lambda: pallas_knn.knn_select_reference(k1_table, k1_spill, **k1_args), 3)
+    k1_graph_ms = graph_ms(lambda: pallas_knn.knn_select(k1_table, k1_spill, **k1_args), 20)
+    k1_plain_ms = time_ms(lambda: pallas_knn.knn_select_reference(k1_table, k1_spill, **ref_args),
+                          3)
     k1c_ms = time_ms(lambda: pallas_knn.knn_codes(k1_table, k1_spill, **k1_args), 50)
-    k1c_plain_ms = time_ms(lambda: pallas_knn.knn_codes_reference(k1_table, k1_spill, **k1_args), 3)
+    k1c_graph_ms = graph_ms(lambda: pallas_knn.knn_codes(k1_table, k1_spill, **k1_args), 20)
+    k1c_plain_ms = time_ms(lambda: pallas_knn.knn_codes_reference(k1_table, k1_spill, **ref_args),
+                           3)
     k1d_ms = time_ms(lambda: pallas_knn.knn_dual(k1_table, k1_spill, **k1_args), 50)
-    k1d_plain_ms = time_ms(lambda: pallas_knn.knn_dual_reference(k1_table, k1_spill, **k1_args), 3)
+    k1d_graph_ms = graph_ms(lambda: pallas_knn.knn_dual(k1_table, k1_spill, **k1_args), 20)
+    k1d_plain_ms = time_ms(lambda: pallas_knn.knn_dual_reference(k1_table, k1_spill, **ref_args),
+                           3)
     occ = (k1_table[3] < N).sum(1)  # per cell
     coords = torch.arange(g**3, device=dev)
     ci, cj, cl = coords // (g * g), (coords // g) % g, coords % g
@@ -358,29 +411,39 @@ def main() -> None:
     report["knn_dual"] = kernel_entry(
         "knn_select.cu", "pallas_knn.py:257", k1d_err, k1d_ms, k1d_plain_ms, k1d_bytes, k1_ops,
         F32_FLOP_PER_S, None)
-    print(f"K1 time {k1_ms:.4f} ms, plain {k1_plain_ms:.3f} ms; K1' time {k1c_ms:.4f} ms, "
-          f"plain {k1c_plain_ms:.3f} ms; K1'' time {k1d_ms:.4f} ms, plain {k1d_plain_ms:.3f} ms; "
+    for name, gms in (("knn_select", k1_graph_ms), ("knn_codes", k1c_graph_ms),
+                      ("knn_dual", k1d_graph_ms)):
+        report[name]["graph_ms"] = gms
+    print(f"K1 time {k1_ms:.4f} ms (graph {k1_graph_ms:.4f}), plain {k1_plain_ms:.3f} ms; K1' "
+          f"time {k1c_ms:.4f} ms (graph {k1c_graph_ms:.4f}), plain {k1c_plain_ms:.3f} ms; K1'' "
+          f"time {k1d_ms:.4f} ms (graph {k1d_graph_ms:.4f}), plain {k1d_plain_ms:.3f} ms; "
           f"{pairs} occupied pairs, {k1_ops} operations, {k1_bytes} bytes ({k1d_bytes} K1'')")
     # k above the old register cap of 32: the KT = 64 list, both modes.
     grid48 = choose_cell_grid(N, K1_WIDE_K)
     cap48, _, spill48 = pallas_knn.spill_layout(N, K1_WIDE_K, grid48)
-    t48 = pallas_knn.build_table(pos0, grid48.grid_size, cap48, box)
-    sp48 = pallas_knn.build_spill(pos0, t48.particle_rank, cap48, spill48)
-    args48 = dict(k=K1_WIDE_K, n=N, g=grid48.grid_size, box=box,
+    args48 = dict(k=K1_WIDE_K, n=N, g=grid48.grid_size, box=1.0,
                   mi_start=pallas_knn.min_image_start(cap48, spill48))
-    planes48 = (t48.x, t48.y, t48.z, t48.ids)
-    for label, select, plain in (
-            ("K1", pallas_knn.knn_select, pallas_knn.knn_select_reference),
-            ("K1'", pallas_knn.knn_codes, pallas_knn.knn_codes_reference),
-            ("K1''", pallas_knn.knn_dual, pallas_knn.knn_dual_reference)):
-        *picks, kth = select(planes48, sp48, **args48)
-        *ref_picks, ref_kth = plain(planes48, sp48, **args48)
-        if not (all(torch.equal(a, b) for a, b in zip(picks, ref_picks))
-                and torch.equal(kth.view(torch.int32), ref_kth.view(torch.int32))):
-            fail(f"{label} k={K1_WIDE_K}: differs from the plain version in "
-                 f"{int((picks[0] != ref_picks[0]).any(1).sum())} rows")
-    print(f"K1, K1' and K1'' k={K1_WIDE_K} (grid {grid48.grid_size}, cap {cap48}): picks "
-          f"equal, kth bit-equal to the plain versions")
+    for frame, pos in (("uniform", pos0), ("lattice", lattice)):
+        t48 = pallas_knn.build_table(pos, grid48.grid_size, cap48, box)
+        sp48 = pallas_knn.build_spill(pos, t48.particle_rank, cap48, spill48)
+        planes48 = (t48.x, t48.y, t48.z, t48.ids)
+        for label, select, plain in (
+                ("K1", pallas_knn.knn_select, pallas_knn.knn_select_reference),
+                ("K1'", pallas_knn.knn_codes, pallas_knn.knn_codes_reference),
+                ("K1''", pallas_knn.knn_dual, pallas_knn.knn_dual_reference)):
+            *picks, kth = select(planes48, sp48, **args48)
+            *ref_picks, ref_kth = plain(planes48, sp48, **{**args48, "box": box})
+            if not (all(torch.equal(a, b) for a, b in zip(picks, ref_picks))
+                    and torch.equal(kth.view(torch.int32), ref_kth.view(torch.int32))):
+                fail(f"{label} k={K1_WIDE_K} {frame}: differs from the plain version in "
+                     f"{int((picks[0] != ref_picks[0]).any(1).sum())} rows")
+        if frame == "uniform":
+            k1_48 = [time_ms(lambda f=f: f(planes48, sp48, **args48), 20)
+                     for f in (pallas_knn.knn_select, pallas_knn.knn_codes, pallas_knn.knn_dual)]
+    print(f"K1, K1' and K1'' k={K1_WIDE_K} (grid {grid48.grid_size}, cap {cap48}), uniform and "
+          f"lattice frames: picks equal, kth bit-equal to the plain versions; uniform time "
+          f"{k1_48[0]:.4f}, {k1_48[1]:.4f}, {k1_48[2]:.4f} ms")
+    print_ptxas(logs, "knn_select")
     print(f"phase 2 K1, K1', K1'': {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. K5 against its plain version -------------------------------
@@ -675,32 +738,44 @@ def main() -> None:
         print(f"{name} flagship: {entry['ms']:.4f} ms, {rate:.1f} GB/s "
               f"({100 * entry['bound_ms'] / entry['ms']:.1f} % of its bytes bound); "
               f"bmm {entry['library_ms']:.4f} ms")
-    wm_log = logs.get("window_matmul", "")
-    wm_regs = [line.split("ptxas info    : ")[-1].strip() for line in wm_log.splitlines()
-               if "registers" in line or "spill" in line]
-    print(f"window_matmul -Xptxas -v (K4^T kernel first, then K4): "
-          f"{wm_regs if wm_regs else 'library already built, no log'}")
+    print_ptxas(logs, "window_matmul")
     del a_pad, aux_plan, aux_rows, table, s_b
 
-    # K8 on the dense plan's inputs: the uniform frame, and a frame whose
-    # search windows truncate (300 particles in one cell: the windows of its
-    # tiles outgrow w_eff), where the certificate must fail alike on the
-    # card and on the CPU plain path.
+    # K8 on the dense plan's inputs: the uniform frame, a frame whose search
+    # windows truncate (300 particles in one cell: the windows of its tiles
+    # outgrow w_eff), where the certificate must fail alike on the card and
+    # on the CPU plain path, and the lattice frame (ties). K8 searches the
+    # live rows of the plan's mask (padding rows get the no-pick lane and
+    # 1e30).
     dspec = cellblock.choose_dense_search_spec(N, spec)
     truncating = pos0.clone()
     truncating[:300] = torch.tensor([0.41, 0.41, 0.41], device=dev) + 0.05 * truncating[:300]
-    for label, pos in (("uniform", pos0), ("truncating", truncating)):
+    for label, pos in (("uniform", pos0), ("truncating", truncating), ("lattice", lattice)):
         layout = cellblock.cellblock_layout(pos, 1.0, spec)
         ds = cellblock.dense_search_inputs(layout, pos[layout.order], 1.0, spec, dspec)
-        k8_args = dict(k=K, query_block=dspec.query_block, w_eff=ds.w_eff)
-        lanes, kth = cellblock.dense_select(ds.table, ds.queries, ds.windows, 1.0, **k8_args)
-        ref_lanes, ref_kth = cellblock.dense_select_reference(
-            ds.table, ds.queries, ds.windows, 1.0, **k8_args)
-        if not torch.equal(lanes, ref_lanes):
-            fail(f"K8 {label}: lanes differ from the plain version in "
-                 f"{int((lanes != ref_lanes).any(1).sum())} rows")
-        if not torch.equal(kth.view(torch.int32), ref_kth.view(torch.int32)):
-            fail(f"K8 {label}: kth not bit-equal to the plain version")
+        live = (torch.arange(dspec.query_block, device=dev) < ds.rows[:, None]).reshape(-1)
+        for k in (K, K1_WIDE_K) if label != "truncating" else (K,):
+            k8_args = dict(k=k, query_block=dspec.query_block, w_eff=ds.w_eff)
+            lanes, kth = cellblock.dense_select(ds.table, ds.queries, ds.windows, 1.0, ds.rows,
+                                                **k8_args)
+            ref_lanes, ref_kth = cellblock.dense_select_reference(
+                ds.table, ds.queries, ds.windows, 1.0, **k8_args)
+            if not torch.equal(lanes[live], ref_lanes[live]):
+                fail(f"K8 {label} k={k}: lanes differ from the plain version in "
+                     f"{int((lanes[live] != ref_lanes[live]).any(1).sum())} live rows")
+            if not torch.equal(kth[live].view(torch.int32), ref_kth[live].view(torch.int32)):
+                fail(f"K8 {label} k={k}: kth not bit-equal to the plain version")
+            if not (bool((lanes[~live] == 9 * ds.w_eff).all()) and bool((kth[~live] == 1e30).all())):
+                fail(f"K8 {label} k={k}: padding rows not the no-pick lane and 1e30")
+            if label == "uniform" and k == K:
+                k8_ds, k8_args_u, k8_lanes, k8_kth = ds, k8_args, lanes, kth
+                k8_err = float((kth[live] - ref_kth[live]).abs().max())
+        print(f"K8 {label}: {ds.windows.shape[0]} tiles, {int(live.sum())} live rows of "
+              f"{live.numel()}; k = {K}{'' if label == 'truncating' else f' and {K1_WIDE_K}'}: "
+              f"live rows' lanes equal and kth bit-equal to the plain version, padding rows "
+              f"the no-pick lane")
+        if label == "lattice":
+            continue
         plan = cellblock.build_cellblock(pos, None, 1.0, spec, dense_search=dspec,
                                          num_neighbors=K)
         cpu_plan = cellblock.build_cellblock(pos.cpu(), None, 1.0, spec, dense_search=dspec,
@@ -716,29 +791,29 @@ def main() -> None:
                  f"search_excess {excess})")
         if label == "truncating" and swo == 0:
             fail("K8 truncating: the search windows truncated nothing")
-        print(f"K8 {label}: {ds.windows.shape[0]} tiles, lanes equal and kth bit-equal to the "
-              f"plain version; the dense plan equal to the CPU plain path (S, overflow "
+        print(f"K8 {label}: the dense plan equal to the CPU plain path (S, overflow "
               f"{int(plan.overflow)}, dropped {int(plan.dropped_edges)}, "
               f"search_window_overflow {swo}, search_excess {excess:.6g})")
-        if label == "uniform":
-            k8_ds, k8_args_u, k8_lanes, k8_kth = ds, k8_args, lanes, kth
-            k8_err = float((kth - ref_kth).abs().max())
         del plan, cpu_plan
     k8 = lambda: cellblock.dense_select(  # noqa: E731
-        k8_ds.table, k8_ds.queries, k8_ds.windows, 1.0, **k8_args_u)
+        k8_ds.table, k8_ds.queries, k8_ds.windows, 1.0, k8_ds.rows, **k8_args_u)
     k8_ms = time_ms(k8, 50)
+    k8_graph_ms = graph_ms(k8, 20)
     k8_plain_ms = time_ms(lambda: cellblock.dense_select_reference(
         k8_ds.table, k8_ds.queries, k8_ds.windows, 1.0, **k8_args_u), 3)
     # The work this data needs: every live query row against its 9 * w_eff
     # candidate lanes (3 sub, 3 mul, 2 add, 1 compare with the k-th each).
     live_rows = int(k8_ds.rows.sum())
     k8_pairs = live_rows * 9 * k8_ds.w_eff
-    k8_bytes = nbytes(k8_ds.table, k8_ds.queries, k8_ds.windows, k8_lanes, k8_kth)
+    k8_bytes = nbytes(k8_ds.table, k8_ds.queries, k8_ds.windows, k8_ds.rows, k8_lanes, k8_kth)
     report["dense_select"] = kernel_entry(
         "dense_select.cu", "cellblock.py:765", k8_err, k8_ms, k8_plain_ms, k8_bytes,
         9 * k8_pairs, F32_FLOP_PER_S, None)
-    print(f"K8 time {k8_ms:.4f} ms, plain {k8_plain_ms:.3f} ms; {live_rows} live query rows of "
+    report["dense_select"]["graph_ms"] = k8_graph_ms
+    print(f"K8 time {k8_ms:.4f} ms (graph {k8_graph_ms:.4f}), plain {k8_plain_ms:.3f} ms; "
+          f"{live_rows} live query rows of "
           f"{k8_ds.queries.shape[0]}, {k8_pairs} pairs, {k8_bytes} bytes")
+    print_ptxas(logs, "dense_select")
     del k8_ds, k8_lanes, k8_kth
     print(f"phase 4 K2, K3, K7, K4, K4^T (flagship and aux), K8: "
           f"{time.perf_counter() - t0:.1f} s")

@@ -11,128 +11,186 @@
 //   * d2 = ((dx^2 + dy^2) + dz^2) of the plain differences q - c;
 //   * the k smallest (d2, lane) pairs in ascending order (the smallest lane
 //     wins exact ties: the TPU kernel's masked re-min), lanes to out_lanes
-//     [T * QB_s, k] (9 * w_eff for a pick past the candidates), and the k-th
-//     d2 to out_kth [T * QB_s] (1e30 then).
+//     [T * QB_s, k], and the k-th d2 to out_kth [T * QB_s].
+// Only each tile's live rows are searched (rows[t], the plan's ds.rows):
+// its rows from rows[t] on are padding and get the no-pick lane 9 * w_eff
+// and kth 1e30.
 // The arithmetic uses __fsub_rn/__fmul_rn/__fadd_rn, which nvcc never
 // contracts into FMAs, so every d2 is bit-equal to the plain PyTorch version.
 //
 // Bound on the H100: the bytes are small (the table and the queries, a few
 // MB, read once); the work is ~9 f32 operations per (query, candidate) pair,
-// 164 M pairs at the flagship size (71,312 query rows x 2,304 lanes), plus
-// the selection. Design: one block per tile. The block stages the tile's 9
-// windows in shared memory once, with the periodic shift applied on load
-// (27.6 kB at w_eff = 256). One warp per query row: each lane scans the
-// candidates lane, lane + 32, ... and keeps a sorted top-KT list of (d2,
-// lane) in registers (K1's list); since it scans its candidates in
-// ascending lane order, a later equal d2 never passes an earlier one. The
-// warp then merges its 32 lists in k rounds: a shuffle argmin by (d2, lane)
-// over the lists' heads, and the lane whose head won pops it. The global
-// top k lies in the union of the per-lane top k, so KT >= k suffices. KT is
-// a template parameter instantiated at 8, 16, 32, 64 and 128.
+// 151 M pairs for the 65,536 live rows at the flagship size (2,304 lanes a
+// row), plus the selection; what costs is instructions issued per pair.
+// Design: one block per tile. The block stages the tile's 9 windows in
+// shared memory once, with the periodic shift applied on load (27.6 kB at
+// w_eff = 256). Each warp searches R = 2 query rows together, so one
+// shared-memory read of a candidate serves both; its 32 lanes split the
+// candidates, 32 a round, and WarpSelect (select_common.cuh) keeps each
+// row's top k in a warp queue. A round computes both rows' d2 and votes
+// once on d2 <= the k-th's d2: only a round where some lane passes offers
+// keys and merges, so a settled round costs the d2 arithmetic, a compare
+// and one vote. The key packs (d2, lane) in 64 bits, so one compare is the
+// (d2, lane) order, and the scan order is free: the warp starts at its
+// rows' own position in their own column (ring column 4; the block finds
+// the tile's first query there by its coordinates), so its first round
+// holds its nearest neighbours in z and the k-th falls fast. The warp
+// queue holds 32 * KW keys, KW = 1, 2, 4 for k <= 32, 64, 128, instead of
+// a k-deep sorted list in each lane's registers.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "select_common.cuh"
+
+
 namespace {
 
-constexpr float kBig = 1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxWarps = 16;
+using select_common::kBig;
+using select_common::kFull;
+using select_common::key_d2;
+using select_common::key_payload;
+using select_common::WarpSelect;
 
-__device__ __forceinline__ bool lex_less(float da, int la, float db, int lb) {
-  return da < db || (da == db && la < lb);
-}
+// Query rows a warp searches together, and keys a lane's thread queue
+// holds before the warp merges (one: a merge inserts few keys once the
+// k-th has settled, and a deeper queue admits more against a staler k-th).
+constexpr int kRowsPerWarp = 2;
+constexpr int kQueueDepth = 1;
+constexpr int kMaxWarps = 8;
 
-template <int KT>
-__global__ void dense_select_kernel(
+template <int KW>
+__global__ void __launch_bounds__(32 * kMaxWarps) dense_select_kernel(
     const float* __restrict__ table, const float* __restrict__ queries,
-    const int* __restrict__ windows, int qb, int w_eff, int ccp, int k,
-    float box, int* __restrict__ out_lanes, float* __restrict__ out_kth) {
+    const int* __restrict__ windows, const int* __restrict__ rows, int qb,
+    int w_eff, int ccp, int k, float box, int* __restrict__ out_lanes,
+    float* __restrict__ out_kth) {
+  constexpr int R = kRowsPerWarp;
   extern __shared__ float smem[];
   const int t = blockIdx.x;
   const int ncand = 9 * w_eff;
+  const int live = min(max(rows[t], 0), qb);
+  const size_t row0 = (size_t)t * qb;
+  __shared__ int first_row;  // the tile's first query in its own column's window
+  if (threadIdx.x == 0) first_row = w_eff;
+  // Padding rows: the no-pick lane and kth 1e30.
+  for (int i = threadIdx.x; i < (qb - live) * k; i += blockDim.x)
+    out_lanes[(row0 + live) * k + i] = ncand;
+  for (int r = live + threadIdx.x; r < qb; r += blockDim.x) out_kth[row0 + r] = kBig;
+  if (live == 0) return;
+
+  // The windows' first rows and shifts first, so that the copy loop's
+  // loads do not wait on one another.
+  __shared__ long long win_at[9];
+  __shared__ float win_sx[9], win_sy[9];
+  if (threadIdx.x < 9) {
+    const int* w = windows + ((size_t)t * 9 + threadIdx.x) * 4;
+    win_at[threadIdx.x] = (long long)w[0] * 3 * ccp + w[1];
+    win_sx[threadIdx.x] = __fmul_rn((float)w[2], box);
+    win_sy[threadIdx.x] = __fmul_rn((float)w[3], box);
+  }
+  __syncthreads();
   float* cx = smem;
   float* cy = cx + ncand;
   float* cz = cy + ncand;
+#pragma unroll 4
   for (int idx = threadIdx.x; idx < ncand; idx += blockDim.x) {
     const int j = idx / w_eff;
-    const int* w = windows + ((size_t)t * 9 + j) * 4;
-    const float* col = table + (size_t)w[0] * 3 * ccp + w[1] + (idx - j * w_eff);
-    cx[idx] = __fadd_rn(col[0], __fmul_rn((float)w[2], box));
-    cy[idx] = __fadd_rn(col[ccp], __fmul_rn((float)w[3], box));
+    const float* col = table + win_at[j] + (idx - j * w_eff);
+    cx[idx] = __fadd_rn(col[0], win_sx[j]);
+    cy[idx] = __fadd_rn(col[ccp], win_sy[j]);
     cz[idx] = col[2 * ccp];
   }
   __syncthreads();
+  // Find the tile's first query among its own column's candidates (ring
+  // column 4, unshifted): a warp's scan starts at its rows' neighbours in
+  // z, so its first round sets a tight k-th. Any start gives the same
+  // result; a query not found (a truncated window) starts at row 0.
+  {
+    const float fx = queries[row0 * 3], fy = queries[row0 * 3 + 1], fz = queries[row0 * 3 + 2];
+    for (int i = threadIdx.x; i < w_eff; i += blockDim.x) {
+      const int c = 4 * w_eff + i;
+      if (cx[c] == fx && cy[c] == fy && cz[c] == fz) atomicMin(&first_row, i);
+    }
+  }
+  __syncthreads();
+  const int q0 = first_row < w_eff ? first_row : 0;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
-  for (int r = warp; r < qb; r += warps) {
-    const size_t row = (size_t)t * qb + r;
-    const float qx = queries[row * 3], qy = queries[row * 3 + 1],
-                qz = queries[row * 3 + 2];
-    float bd[KT];
-    int bl[KT];
+  for (int r0 = warp * R; r0 < live; r0 += warps * R) {
+    // The round of 32 candidates around the warp's rows comes first. Rows
+    // past the live ones search row r0's query and are not written.
+    const int first = 4 * w_eff + max(0, min(q0 + r0 - 15, w_eff - 32));
+    float qx[R], qy[R], qz[R];
+    WarpSelect<KW, kQueueDepth, false> sel[R];
 #pragma unroll
-    for (int j = 0; j < KT; ++j) { bd[j] = kBig; bl[j] = ncand; }
-    for (int c = lane; c < ncand; c += 32) {
-      const float dx = __fsub_rn(qx, cx[c]);
-      const float dy = __fsub_rn(qy, cy[c]);
-      const float dz = __fsub_rn(qz, cz[c]);
-      float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-      d2 = __fadd_rn(d2, __fmul_rn(dz, dz));
-      if (lex_less(d2, c, bd[KT - 1], bl[KT - 1])) {
-        bd[KT - 1] = d2;
-        bl[KT - 1] = c;
+    for (int i = 0; i < R; ++i) {
+      const size_t row = row0 + (r0 + i < live ? r0 + i : r0);
+      qx[i] = queries[row * 3];
+      qy[i] = queries[row * 3 + 1];
+      qz[i] = queries[row * 3 + 2];
+      sel[i].init(k);
+    }
+    for (int base = 0; base < ncand; base += 32) {
+      const bool in = base + lane < ncand;
+      int c = first + base + lane;
+      if (c >= ncand) c -= ncand;
+      if (!in) c = 0;
+      const float x = cx[c], y = cy[c], z = cz[c];
+      float d2[R];
+      bool near_any = false;
 #pragma unroll
-        for (int j = KT - 1; j > 0; --j) {
-          if (lex_less(bd[j], bl[j], bd[j - 1], bl[j - 1])) {
-            const float td = bd[j]; bd[j] = bd[j - 1]; bd[j - 1] = td;
-            const int tl = bl[j]; bl[j] = bl[j - 1]; bl[j - 1] = tl;
-          }
+      for (int i = 0; i < R; ++i) {
+        const float dx = __fsub_rn(qx[i], x);
+        const float dy = __fsub_rn(qy[i], y);
+        const float dz = __fsub_rn(qz[i], z);
+        d2[i] = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+        d2[i] = __fadd_rn(d2[i], __fmul_rn(dz, dz));
+        near_any |= in && sel[i].may_admit(d2[i]);
+      }
+      // One vote a round: almost every round admits nothing.
+      if (__any_sync(kFull, near_any)) {
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          if (in) sel[i].add(d2[i], (uint32_t)c, 0);
+          sel[i].check();
         }
       }
     }
-    // Merge the 32 lists: k rounds of a warp argmin over their heads.
-    int* out = out_lanes + row * k;
-    for (int p = 0; p < k; ++p) {
-      float hd = bd[0];
-      int hl = bl[0];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(kFull, hd, off);
-        const int ol = __shfl_xor_sync(kFull, hl, off);
-        if (lex_less(od, ol, hd, hl)) { hd = od; hl = ol; }
-      }
-      if (bl[0] == hl) {  // this lane's head won (or all lists are spent)
+    for (int i = 0; i < R; ++i) {
+      sel[i].finish();
+      if (r0 + i >= live) continue;
+      int* out = out_lanes + (row0 + r0 + i) * k;
 #pragma unroll
-        for (int j = 0; j < KT - 1; ++j) { bd[j] = bd[j + 1]; bl[j] = bl[j + 1]; }
-        bd[KT - 1] = kBig;
-        bl[KT - 1] = ncand;
+      for (int w = 0; w < KW; ++w) {
+        const int q = w * 32 + lane;
+        if (q < k) out[q] = (int)key_payload(sel[i].wk[w]);
       }
-      if (lane == 0) {
-        const bool picked = hd < 0.5f * kBig;
-        out[p] = picked ? hl : ncand;
-        if (p == k - 1) out_kth[row] = hd;
-      }
+      const float kth = key_d2(sel[i].kth_key());
+      if (lane == 0) out_kth[row0 + r0 + i] = kth;
     }
   }
 }
 
-template <int KT>
+template <int KW>
 cudaError_t launch(const float* table, const float* queries, const int* windows,
-                   int num_tiles, int qb, int w_eff, int ccp, int k, float box,
-                   int* out_lanes, float* out_kth, cudaStream_t stream) {
+                   const int* rows, int num_tiles, int qb, int w_eff, int ccp,
+                   int k, float box, int* out_lanes, float* out_kth,
+                   cudaStream_t stream) {
   const size_t smem = (size_t)9 * w_eff * 3 * sizeof(float);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        dense_select_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dense_select_kernel<KW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const int warps = qb < kMaxWarps ? qb : kMaxWarps;
-  dense_select_kernel<KT><<<num_tiles, 32 * warps, smem, stream>>>(
-      table, queries, windows, qb, w_eff, ccp, k, box, out_lanes, out_kth);
+  const int groups = (qb + kRowsPerWarp - 1) / kRowsPerWarp;
+  const int warps = groups < kMaxWarps ? groups : kMaxWarps;
+  dense_select_kernel<KW><<<num_tiles, 32 * warps, smem, stream>>>(
+      table, queries, windows, rows, qb, w_eff, ccp, k, box, out_lanes, out_kth);
   return cudaGetLastError();
 }
 
@@ -140,29 +198,24 @@ cudaError_t launch(const float* table, const float* queries, const int* windows,
 
 // Plain C entry point (loaded with ctypes). table [C, 3, ccp] float32,
 // queries [num_tiles * qb, 3] float32, windows [num_tiles, 9, 4] int32
-// (column, first row, x shift, y shift); out_lanes [num_tiles * qb, k]
+// (column, first row, x shift, y shift), rows [num_tiles] int32 (live rows
+// of each tile); out_lanes [num_tiles * qb, k]
 // int32, out_kth [num_tiles * qb] float32. Launch on `stream`, do not
 // synchronize, return the launch's cudaError_t.
 extern "C" int dense_select_launch(const float* table, const float* queries,
-                                   const int* windows, int num_tiles, int qb,
-                                   int w_eff, int ccp, int k, float box,
-                                   int* out_lanes, float* out_kth,
-                                   void* stream) {
+                                   const int* windows, const int* rows,
+                                   int num_tiles, int qb, int w_eff, int ccp,
+                                   int k, float box, int* out_lanes,
+                                   float* out_kth, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k < 1 || k > 128 || k > 9 * w_eff || qb < 1 || num_tiles < 1)
     return (int)cudaErrorInvalidValue;
-  if (k <= 8)
-    return (int)launch<8>(table, queries, windows, num_tiles, qb, w_eff, ccp,
-                          k, box, out_lanes, out_kth, s);
-  if (k <= 16)
-    return (int)launch<16>(table, queries, windows, num_tiles, qb, w_eff, ccp,
-                           k, box, out_lanes, out_kth, s);
   if (k <= 32)
-    return (int)launch<32>(table, queries, windows, num_tiles, qb, w_eff, ccp,
-                           k, box, out_lanes, out_kth, s);
+    return (int)launch<1>(table, queries, windows, rows, num_tiles, qb, w_eff,
+                          ccp, k, box, out_lanes, out_kth, s);
   if (k <= 64)
-    return (int)launch<64>(table, queries, windows, num_tiles, qb, w_eff, ccp,
-                           k, box, out_lanes, out_kth, s);
-  return (int)launch<128>(table, queries, windows, num_tiles, qb, w_eff, ccp, k,
-                          box, out_lanes, out_kth, s);
+    return (int)launch<2>(table, queries, windows, rows, num_tiles, qb, w_eff,
+                          ccp, k, box, out_lanes, out_kth, s);
+  return (int)launch<4>(table, queries, windows, rows, num_tiles, qb, w_eff,
+                        ccp, k, box, out_lanes, out_kth, s);
 }

@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from cosmology_gnn_simulation_tpu_torch.ops.binning import bin_by_key, scatter_to_table
@@ -77,8 +78,30 @@ def choose_cell_grid(
 
 def f32(value, device) -> torch.Tensor:
     """A float32 scalar tensor (box sizes are rounded to f32 once, as
-    ``jnp.asarray(box, float32)``, before any arithmetic)."""
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    ``jnp.asarray(box, float32)``, before any arithmetic). Filled on the
+    device, so a CUDA scalar costs no host-to-device copy (which would wait
+    for the stream and could not be captured in a CUDA graph)."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def host_f32(box) -> float:
+    """The box size rounded to float32 on the host, once (``np.float32``
+    rounds to nearest, as ``f32`` does): a Python float with the bits of
+    ``f32(box)``, for a kernel launch. A CPU tensor is read; a tensor on
+    the card is refused, since reading it back would wait for the device."""
+    if isinstance(box, torch.Tensor):
+        if box.device.type != "cpu":
+            raise ValueError("a kernel launch takes the box size as a host number, not a "
+                             f"tensor on {box.device} (reading it back syncs the device)")
+        box = box.item()
+    return float(np.float32(box))
+
+
+def neighbor_offsets(device) -> torch.Tensor:
+    """``NEIGHBOR_OFFSETS`` as an int64 ``[27, 3]`` tensor, made on the
+    device (no host-to-device copy)."""
+    j = torch.arange(27, device=device)
+    return torch.stack([j // 9 - 1, (j // 3) % 3 - 1, j % 3 - 1], dim=1)
 
 
 def cell_coords(positions: torch.Tensor, g: int, box: torch.Tensor) -> torch.Tensor:
@@ -133,7 +156,7 @@ def cell_list_knn(
     b = bin_by_key(cell_id, g**3, cap)
     table = scatter_to_table(b, b.order, g**3, cap, n, torch.int64)
     planes = [torch.cat([positions[:, d], positions.new_zeros(1)]) for d in range(3)]
-    offsets = torch.tensor(NEIGHBOR_OFFSETS, device=dev)
+    offsets = neighbor_offsets(dev)
     idx_tiles, d2_tiles = [], []
     for start in range(0, n, query_tile):
         q = positions[start:start + query_tile]

@@ -59,6 +59,7 @@ from cosmology_gnn_simulation_tpu_torch.ops.cell_list import (
     cell_coords,
     choose_cell_grid,
     f32,
+    host_f32,
     window_margin_sq,
 )
 
@@ -648,8 +649,8 @@ class DenseSearch(NamedTuple):
                 ``w_eff`` rows fit), and the x and y periodic shifts (-1, 0,
                 1) of its coordinates. ``T = C + ceil(N / QB_s)``.
       tile_col, tile_row0, rows, abs0: ``[T]`` — each tile's column, first
-                row in it, live rows (0 for tiles past the used ones) and
-                first sorted row.
+                row in it, live rows (int32, K8's mask; 0 for tiles past
+                the used ones) and first sorted row.
       window_overflow: scalar — rows the windows truncated plus z-wrap
                 copies past ``wrap_cap`` (``search_window_overflow``).
       w_eff:    rows a window reads, ``min(W_s + 128, ccp)``.
@@ -755,7 +756,7 @@ def dense_search_inputs(layout: CellBlockLayout, sorted_pos: torch.Tensor, box_s
                    + torch.clamp(gstart[cols * g + 1] - gstart[cols * g] - wrap, min=0).sum())
     windows = torch.stack([cj, fl, sx, sy], dim=-1).to(torch.int32).contiguous()
     return DenseSearch(table=table, queries=queries, windows=windows, tile_col=tile_col,
-                       tile_row0=tile_row0, rows=rows_t, abs0=abs0,
+                       tile_row0=tile_row0, rows=rows_t.to(torch.int32), abs0=abs0,
                        window_overflow=truncated + wrap_hidden, w_eff=w_eff, ccp=ccp_s)
 
 
@@ -900,7 +901,7 @@ def build_cellblock(
     if dense_search is not None:
         sorted_pos = positions.float()[layout.order]
         ds = dense_search_inputs(layout, sorted_pos, box_size, spec, dense_search)
-        lanes, kth = dense_select(ds.table, ds.queries, ds.windows, box_size, k=k,
+        lanes, kth = dense_select(ds.table, ds.queries, ds.windows, box_size, ds.rows, k=k,
                                   query_block=dense_search.query_block, w_eff=ds.w_eff)
         offsets, picks, kth_sorted = dense_offsets(lanes, kth, ds, layout, spec)
         margin = window_margin_sq(sorted_pos, f32(box_size, positions.device),
@@ -1024,7 +1025,7 @@ def _lib(name: str):
     elif name == "reverse_table":
         entries = {"reverse_table_launch": [p] * 3 + [i] * 5 + [p]}
     elif name == "dense_select":
-        entries = {"dense_select_launch": [p] * 3 + [i] * 5 + [ctypes.c_float] + [p] * 3}
+        entries = {"dense_select_launch": [p] * 4 + [i] * 5 + [ctypes.c_float] + [p] * 3}
     else:
         entries = {"window_matmul_launch": [p] * 4 + [i] * 6 + [p],
                    "window_matmul_t_launch": [p] * 4 + [i] * 6 + [p]}
@@ -1193,6 +1194,8 @@ def reverse_table(packed: torch.Tensor, window_starts: torch.Tensor, *,
 # Search tiles per chunk of K8's plain version (bounds its [tiles, QB_s,
 # 9 * w_eff] distance table).
 _DENSE_PLAIN_TILES = 128
+# K8's kth for a padding row (no pick).
+_DENSE_NO_KTH = 1e30
 
 
 def dense_select_reference(table, queries, windows, box_size, *, k: int, query_block: int,
@@ -1232,29 +1235,37 @@ def dense_select_reference(table, queries, windows, box_size, *, k: int, query_b
     return lanes, kth
 
 
-def dense_select(table, queries, windows, box_size, *, k: int, query_block: int,
+def dense_select(table, queries, windows, box_size, rows, *, k: int, query_block: int,
                  w_eff: int):
     """K8: the dense-query k-selection over 9 column windows (see
-    ``dense_select_reference``; ``k <= 9 * w_eff``). CPU tensors take the
-    plain version; CUDA tensors launch ``csrc/dense_select.cu`` or raise."""
+    ``dense_select_reference``; ``k <= 9 * w_eff``; ``box_size`` a host
+    number) for each tile's live rows: ``rows`` ``[T]`` (the plan's
+    ``DenseSearch.rows``) says how many; a tile's rows from ``rows[t]`` on
+    are padding, not searched, and get lane ``9 * w_eff`` and kth 1e30.
+    The live rows are the plain version's. CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/dense_select.cu`` or raise."""
     num_tiles = windows.shape[0]
     if not 1 <= k <= min(9 * w_eff, 128):
         raise ValueError(f"dense_select takes 1 <= k <= min(9 * w_eff, 128), got {k}")
     if table.device.type == "cpu":
-        return dense_select_reference(table, queries, windows, box_size, k=k,
-                                      query_block=query_block, w_eff=w_eff)
+        lanes, kth = dense_select_reference(table, queries, windows, box_size, k=k,
+                                            query_block=query_block, w_eff=w_eff)
+        pad = (torch.arange(query_block) >= rows[:, None]).reshape(-1)
+        return (torch.where(pad[:, None], 9 * w_eff, lanes).to(torch.int32),
+                torch.where(pad, _DENSE_NO_KTH, kth))
     ccp = table.shape[2]
     _check("dense_select", table.device, [
         ("table", table, (table.shape[0], 3, ccp), torch.float32),
         ("queries", queries, (num_tiles * query_block, 3), torch.float32),
         ("windows", windows, (num_tiles, 9, 4), torch.int32),
+        ("rows", rows, (num_tiles,), torch.int32),
     ])
     lanes = torch.empty((num_tiles * query_block, k), dtype=torch.int32, device=table.device)
     kth = torch.empty((num_tiles * query_block,), dtype=torch.float32, device=table.device)
     err = _lib("dense_select").dense_select_launch(
-        kernels.ptr(table), kernels.ptr(queries), kernels.ptr(windows), num_tiles,
-        query_block, w_eff, ccp, k, ctypes.c_float(float(box_size)), kernels.ptr(lanes),
-        kernels.ptr(kth), kernels.stream_handle(table.device),
+        kernels.ptr(table), kernels.ptr(queries), kernels.ptr(windows), kernels.ptr(rows),
+        num_tiles, query_block, w_eff, ccp, k, ctypes.c_float(host_f32(box_size)),
+        kernels.ptr(lanes), kernels.ptr(kth), kernels.stream_handle(table.device),
     )
     kernels.check("dense_select", err)
     kernels.launches["dense_select"] += 1

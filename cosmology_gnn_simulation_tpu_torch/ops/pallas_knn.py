@@ -39,10 +39,11 @@ import torch
 from cosmology_gnn_simulation_tpu_torch import kernels
 from cosmology_gnn_simulation_tpu_torch.ops.binning import bin_by_key, scatter_to_table
 from cosmology_gnn_simulation_tpu_torch.ops.cell_list import (
-    NEIGHBOR_OFFSETS,
     CellGrid,
     cell_coords,
     f32,
+    host_f32,
+    neighbor_offsets,
     poisson_occupancy_capacity,
     window_margin_sq,
 )
@@ -166,7 +167,7 @@ def candidate_rows(table, spill, cells: torch.Tensor, g: int, box: torch.Tensor)
     difference ``q - c`` is a valid periodic displacement."""
     tx, ty, tz, tids = table
     dev = cells.device
-    offsets = torch.tensor(NEIGHBOR_OFFSETS, device=dev)
+    offsets = neighbor_offsets(dev)
     coords = torch.stack([cells // (g * g), (cells // g) % g, cells % g], dim=-1)
     raw = coords[:, None, :] + offsets[None, :, :]  # [M, 27, 3]
     wrapped = torch.remainder(raw, g)
@@ -318,6 +319,7 @@ def _launch(name: str, table, spill, *, k, n, g, box, mi_start):
         raise ValueError(f"table has {num_cells} cells, grid {g}^3 = {g**3}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"{name} kernel supports 1 <= k <= {MAX_K}, got {k}")
+    box32 = host_f32(box)
     dtypes = (torch.float32,) * 3 + (torch.int32,)
     checks = [("table", t, (num_cells, cap), dt) for t, dt in zip(table, dtypes)]
     checks += [("spill", t, (spill_cap,), dt) for t, dt in zip(spill, dtypes)]
@@ -334,7 +336,7 @@ def _launch(name: str, table, spill, *, k, n, g, box, mi_start):
     entry = getattr(_lib(), f"{name}_launch")
     err = entry(
         *[kernels.ptr(t) for t in table], *[kernels.ptr(t) for t in spill],
-        num_cells, g, cap, spill_cap, k, n, ctypes.c_float(float(box)), mi_start,
+        num_cells, g, cap, spill_cap, k, n, ctypes.c_float(box32), mi_start,
         *[kernels.ptr(t) for t in outs], kernels.ptr(out_kth),
         kernels.stream_handle(tx.device),
     )
@@ -343,39 +345,39 @@ def _launch(name: str, table, spill, *, k, n, g, box, mi_start):
     return (*outs, out_kth)
 
 
-def knn_select(table, spill, *, k: int, n: int, g: int, box: torch.Tensor,
-               mi_start: int):
+def knn_select(table, spill, *, k: int, n: int, g: int, box, mi_start: int):
     """K1: per-cell exact k-NN selection (see ``knn_select_reference``).
+    ``box`` is the box size as a host number (or a CPU tensor).
 
     CPU tensors take the plain version; CUDA tensors launch
     ``csrc/knn_select.cu`` or raise."""
     if table[0].device.type == "cpu":
-        return knn_select_reference(table, spill, k=k, n=n, g=g, box=box,
-                                    mi_start=mi_start)
+        return knn_select_reference(table, spill, k=k, n=n, g=g,
+                                    box=f32(host_f32(box), "cpu"), mi_start=mi_start)
     return _launch("knn_select", table, spill, k=k, n=n, g=g, box=box,
                    mi_start=mi_start)
 
 
-def knn_codes(table, spill, *, k: int, n: int, g: int, box: torch.Tensor,
-              mi_start: int):
+def knn_codes(table, spill, *, k: int, n: int, g: int, box, mi_start: int):
     """K1': per-cell exact k-NN selection emitting candidate lanes (see
-    ``knn_codes_reference``). CPU tensors take the plain version; CUDA
-    tensors launch the codes mode of ``csrc/knn_select.cu`` or raise."""
+    ``knn_codes_reference``; ``box`` as for ``knn_select``). CPU tensors
+    take the plain version; CUDA tensors launch the codes mode of
+    ``csrc/knn_select.cu`` or raise."""
     if table[0].device.type == "cpu":
-        return knn_codes_reference(table, spill, k=k, n=n, g=g, box=box,
-                                   mi_start=mi_start)
+        return knn_codes_reference(table, spill, k=k, n=n, g=g,
+                                   box=f32(host_f32(box), "cpu"), mi_start=mi_start)
     return _launch("knn_codes", table, spill, k=k, n=n, g=g, box=box,
                    mi_start=mi_start)
 
 
-def knn_dual(table, spill, *, k: int, n: int, g: int, box: torch.Tensor,
-             mi_start: int):
+def knn_dual(table, spill, *, k: int, n: int, g: int, box, mi_start: int):
     """K1'': per-cell exact k-NN selection emitting ids and candidate lanes
-    (see ``knn_dual_reference``). CPU tensors take the plain version; CUDA
-    tensors launch the dual mode of ``csrc/knn_select.cu`` or raise."""
+    (see ``knn_dual_reference``; ``box`` as for ``knn_select``). CPU tensors
+    take the plain version; CUDA tensors launch the dual mode of
+    ``csrc/knn_select.cu`` or raise."""
     if table[0].device.type == "cpu":
-        return knn_dual_reference(table, spill, k=k, n=n, g=g, box=box,
-                                  mi_start=mi_start)
+        return knn_dual_reference(table, spill, k=k, n=n, g=g,
+                                  box=f32(host_f32(box), "cpu"), mi_start=mi_start)
     return _launch("knn_dual", table, spill, k=k, n=n, g=g, box=box,
                    mi_start=mi_start)
 
@@ -430,7 +432,7 @@ def pallas_cell_list_knn(
         overflow = torch.clamp(overflow - spill_cap, min=0)
     planes = (table.x, table.y, table.z, table.ids)
     select = knn_codes if codes_only else knn_dual if with_codes else knn_select
-    *picked, kth = select(planes, spill, k=k, n=n, g=g, box=box,
+    *picked, kth = select(planes, spill, k=k, n=n, g=g, box=box_size,
                           mi_start=min_image_start(cap, spill_cap))
 
     # Back to particle order. A particle past `cap` has no table row: it

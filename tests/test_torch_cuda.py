@@ -82,14 +82,9 @@ def _spill_positions(seed=1234):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["uniform", "spill"])
+@pytest.mark.parametrize("case", ["uniform", "spill", "lattice"])
 def test_knn_kernel_matches_plain_version(cuda_device, case):
-    if case == "spill":
-        pos, k, grid = _spill_positions(), 8, CellGrid(8, 16)
-    else:
-        pos = torch.rand(20000, 3, generator=torch.Generator().manual_seed(0))
-        k = 16
-        grid = choose_cell_grid(pos.shape[0], k)
+    pos, k, grid = _codes_case(case)
     idx, diag = pallas_cell_list_knn(pos.to(cuda_device), k, 1.0, grid,
                                      return_diagnostics=True)
     cidx, cdiag = pallas_cell_list_knn(pos, k, 1.0, grid, return_diagnostics=True)
@@ -97,19 +92,24 @@ def test_knn_kernel_matches_plain_version(cuda_device, case):
     assert torch.equal(idx.cpu(), cidx)
     for a, b in zip(diag, cdiag):
         assert torch.equal(a.cpu(), b)
-    ref = knn_periodic(pos.to(cuda_device), k, 1.0)
-    assert all(set(a) == set(b) for a, b in zip(idx.tolist(), ref.tolist()))
+    if case != "lattice":  # ties: brute force may pick another equal-distance set
+        ref = knn_periodic(pos.to(cuda_device), k, 1.0)
+        assert all(set(a) == set(b) for a, b in zip(idx.tolist(), ref.tolist()))
 
 
 def _codes_case(case):
+    """(positions, k, grid): uniform; a cell crammed past capacity (spill);
+    the uniform frame on the 2^-10 lattice (many exactly equal distances)."""
     if case == "spill":
         return _spill_positions(), 8, CellGrid(8, 16)
     pos = torch.rand(20000, 3, generator=torch.Generator().manual_seed(0))
+    if case == "lattice":
+        pos = torch.remainder(torch.round(pos * 1024) / 1024, 1.0)
     return pos, 16, choose_cell_grid(pos.shape[0], 16)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["uniform", "spill"])
+@pytest.mark.parametrize("case", ["uniform", "spill", "lattice"])
 def test_knn_codes_kernel_matches_plain_version(cuda_device, case):
     pos, k, grid = _codes_case(case)
     n = pos.shape[0]
@@ -118,12 +118,12 @@ def test_knn_codes_kernel_matches_plain_version(cuda_device, case):
     box = torch.tensor(1.0, device=cuda_device)
     t = pallas_knn.build_table(dpos, grid.grid_size, cap, box)
     spill = pallas_knn.build_spill(dpos, t.particle_rank, cap, spill_cap)
-    args = dict(k=k, n=n, g=grid.grid_size, box=box,
-                mi_start=pallas_knn.min_image_start(cap, spill_cap))
+    # The kernel takes the box as a host number, the plain version as f32.
+    args = dict(k=k, n=n, g=grid.grid_size, mi_start=pallas_knn.min_image_start(cap, spill_cap))
     planes = (t.x, t.y, t.z, t.ids)
     kernels.reset_launches()
-    codes, kth = pallas_knn.knn_codes(planes, spill, **args)
-    ref_codes, ref_kth = pallas_knn.knn_codes_reference(planes, spill, **args)
+    codes, kth = pallas_knn.knn_codes(planes, spill, box=1.0, **args)
+    ref_codes, ref_kth = pallas_knn.knn_codes_reference(planes, spill, box=box, **args)
     torch.cuda.synchronize()
     assert kernels.launches["knn_codes"] == 1
     assert torch.equal(codes, ref_codes)
@@ -600,7 +600,7 @@ def test_train_step_on_the_card_goes_through_its_kernels(cuda_device, aggregatio
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["uniform", "spill"])
+@pytest.mark.parametrize("case", ["uniform", "spill", "lattice"])
 def test_knn_dual_kernel_matches_plain_version(cuda_device, case):
     """K1'': ids equal to K1's ids mode, codes and kth to its plain version."""
     pos, k, grid = _codes_case(case)
@@ -610,13 +610,12 @@ def test_knn_dual_kernel_matches_plain_version(cuda_device, case):
     box = torch.tensor(1.0, device=cuda_device)
     t = pallas_knn.build_table(dpos, grid.grid_size, cap, box)
     spill = pallas_knn.build_spill(dpos, t.particle_rank, cap, spill_cap)
-    args = dict(k=k, n=n, g=grid.grid_size, box=box,
-                mi_start=pallas_knn.min_image_start(cap, spill_cap))
+    args = dict(k=k, n=n, g=grid.grid_size, mi_start=pallas_knn.min_image_start(cap, spill_cap))
     planes = (t.x, t.y, t.z, t.ids)
     kernels.reset_launches()
-    ids, codes, kth = pallas_knn.knn_dual(planes, spill, **args)
-    k1_ids, k1_kth = pallas_knn.knn_select(planes, spill, **args)
-    ref_ids, ref_codes, ref_kth = pallas_knn.knn_dual_reference(planes, spill, **args)
+    ids, codes, kth = pallas_knn.knn_dual(planes, spill, box=1.0, **args)
+    k1_ids, k1_kth = pallas_knn.knn_select(planes, spill, box=1.0, **args)
+    ref_ids, ref_codes, ref_kth = pallas_knn.knn_dual_reference(planes, spill, box=box, **args)
     torch.cuda.synchronize()
     assert kernels.launches["knn_dual"] == 1
     assert torch.equal(ids, k1_ids) and torch.equal(ids, ref_ids)
@@ -631,37 +630,118 @@ def test_knn_dual_kernel_matches_plain_version(cuda_device, case):
         assert torch.equal(a.cpu(), b)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [500_000, 600_000])
+def test_knn_dual_kernel_packs_or_carries_the_lane(cuda_device, n):
+    """K1'' packs id << lane_bits | lane into its key's payload where the
+    ids fit beside the lanes (n <= 2^19 with the 8,064 candidate lanes of
+    grid 3, capacity 296: 13 lane bits) and carries the lane as a value past
+    that; both equal the plain version."""
+    pos = torch.rand(n, 3, generator=torch.Generator().manual_seed(6)).to(cuda_device)
+    k, grid = 16, CellGrid(3, 296)
+    cap, num_cand, spill_cap = pallas_knn.spill_layout(n, k, grid)
+    assert (cap, num_cand) == (296, 8064)
+    box = torch.tensor(1.0, device=cuda_device)
+    t = pallas_knn.build_table(pos, grid.grid_size, cap, box)
+    spill = pallas_knn.build_spill(pos, t.particle_rank, cap, spill_cap)
+    args = dict(k=k, n=n, g=grid.grid_size, mi_start=pallas_knn.min_image_start(cap, spill_cap))
+    planes = (t.x, t.y, t.z, t.ids)
+    ids, codes, kth = pallas_knn.knn_dual(planes, spill, box=1.0, **args)
+    ref_ids, ref_codes, ref_kth = pallas_knn.knn_dual_reference(planes, spill, box=box, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, ref_ids) and torch.equal(codes, ref_codes)
+    assert torch.equal(kth.view(torch.int32), ref_kth.view(torch.int32))
+
+
+def _flat(out):
+    """The tensors of a (nested) k-NN result, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for part in out if part is not None for t in _flat(part)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ids", "codes_only", "with_codes"])
+def test_cell_list_knn_is_captured_in_a_cuda_graph(cuda_device, mode):
+    """The whole K1 search (table build, kernel, reorder, spill solve,
+    certificate) reads nothing back from the device, so it is captured in a
+    CUDA graph; a replay equals the eager call, on the captured positions
+    and on new ones copied into the same tensor."""
+    n, k = 20000, 16
+    gen = torch.Generator().manual_seed(3)
+    pos = torch.rand(n, 3, generator=gen).to(cuda_device)
+    grid = choose_cell_grid(n, k)
+    kw = {"ids": {}, "codes_only": {"codes_only": True}, "with_codes": {"with_codes": True}}[mode]
+    name = {"ids": "knn_select", "codes_only": "knn_codes", "with_codes": "knn_dual"}[mode]
+
+    def run():
+        return pallas_cell_list_knn(pos, k, 1.0, grid, return_diagnostics=True, **kw)
+
+    eager = _flat(run())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    kernels.reset_launches()
+    with torch.cuda.graph(graph):
+        captured = _flat(run())
+    assert kernels.launches[name] == 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert len(captured) == len(eager)
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+    pos.copy_(torch.rand(n, 3, generator=gen).to(cuda_device))
+    graph.replay()
+    fresh = _flat(run())
+    torch.cuda.synchronize()
+    for a, b in zip(captured, fresh):
+        assert torch.equal(a, b)
+    assert not torch.equal(captured[0], eager[0])
+
+
 def _dense_frame(case, n=65536):
     rng = np.random.default_rng(5)
     pos = rng.uniform(0, 1, (n, 3))
     if case == "truncating":
         # 300 particles in one cell: its tiles' windows outgrow w_eff.
         pos[:300] = 0.41 + 0.05 * rng.uniform(0, 1, (300, 3))
+    if case == "lattice":  # many exactly equal distances
+        pos = np.remainder(np.round(pos * 1024) / 1024, 1.0)
     return torch.tensor(pos, dtype=torch.float32)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["uniform", "truncating"])
+@pytest.mark.parametrize("case", ["uniform", "truncating", "lattice", "uniform_k48",
+                                  "lattice_k48"])
 def test_dense_select_kernel_matches_plain_version(cuda_device, case):
-    """K8 against its plain version at the flagship spec, and the dense plan
-    on the card against the CPU plain path (S, certificate, S_rev)."""
-    pos = _dense_frame(case)
-    n, k = pos.shape[0], 16
-    spec = cellblock.choose_cellblock_spec(n, k)
+    """K8 against its plain version at the flagship spec on the live rows
+    the plan passes (padding rows the no-pick lane), and the dense plan on
+    the card against the CPU plain path (S, certificate, S_rev)."""
+    frame, _, wide = case.partition("_k")
+    pos = _dense_frame(frame)
+    n, k = pos.shape[0], int(wide or 16)
+    spec = cellblock.choose_cellblock_spec(n, 16)
     dspec = cellblock.choose_dense_search_spec(n, spec)
     dpos = pos.to(cuda_device)
     layout = cellblock.cellblock_layout(dpos, 1.0, spec)
     ds = cellblock.dense_search_inputs(layout, dpos[layout.order], 1.0, spec, dspec)
+    args = dict(k=k, query_block=dspec.query_block, w_eff=ds.w_eff)
     kernels.reset_launches()
-    lanes, kth = cellblock.dense_select(ds.table, ds.queries, ds.windows, 1.0, k=k,
-                                        query_block=dspec.query_block, w_eff=ds.w_eff)
-    ref_lanes, ref_kth = cellblock.dense_select_reference(
-        ds.table, ds.queries, ds.windows, 1.0, k=k, query_block=dspec.query_block,
-        w_eff=ds.w_eff)
+    lanes, kth = cellblock.dense_select(ds.table, ds.queries, ds.windows, 1.0, ds.rows, **args)
+    ref_lanes, ref_kth = cellblock.dense_select_reference(ds.table, ds.queries, ds.windows,
+                                                          1.0, **args)
     torch.cuda.synchronize()
     assert kernels.launches["dense_select"] == 1
-    assert torch.equal(lanes, ref_lanes)
-    assert torch.equal(kth.view(torch.int32), ref_kth.view(torch.int32))
+    live = (torch.arange(dspec.query_block, device=cuda_device) < ds.rows[:, None]).reshape(-1)
+    assert not bool(live.all())
+    assert torch.equal(lanes[live], ref_lanes[live])
+    assert torch.equal(kth[live].view(torch.int32), ref_kth[live].view(torch.int32))
+    assert bool((lanes[~live] == 9 * ds.w_eff).all()) and bool((kth[~live] == 1e30).all())
+    if wide:
+        return
     plan = cellblock.build_cellblock(dpos, None, 1.0, spec, with_reverse=True,
                                      dense_search=dspec, num_neighbors=k)
     cpu = cellblock.build_cellblock(pos, None, 1.0, spec, with_reverse=True,
@@ -671,7 +751,7 @@ def test_dense_select_kernel_matches_plain_version(cuda_device, case):
         assert torch.equal(getattr(plan, field).cpu(), getattr(cpu, field)), field
     if case == "truncating":
         assert int(plan.search_window_overflow) > 0
-    else:
+    elif case == "uniform":
         assert int(plan.search_window_overflow) == 0 and float(plan.search_excess) <= 0
         assert int(plan.reverse_mismatch) == 0
 

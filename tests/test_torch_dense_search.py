@@ -171,8 +171,8 @@ def test_dense_select_plain_version_orders_ties_by_lane():
     windows[0, 0, 2] = -1  # ring column 0: x shifted by -box
     queries = torch.zeros(8, 3)
     queries[0, 0] = 1.5  # rows 1 and 2 of each window at d^2 = 0.25
-    lanes, kth = cellblock.dense_select(table, queries, windows, 10.0, k=k, query_block=8,
-                                        w_eff=w_eff)
+    lanes, kth = cellblock.dense_select(table, queries, windows, 10.0, torch.tensor([8]), k=k,
+                                        query_block=8, w_eff=w_eff)
     # Ring column 0's rows sit at x - 10: its lanes 1 and 2 come last.
     assert lanes[0].tolist() == [5, 6, 9, 10, 13]
     assert float(kth[0]) == 0.25
