@@ -34,10 +34,15 @@ each timed on its own line:
      from a CUDA graph of those calls (the device time alone, reported as
      "graph_ms"), with each agg dtype's bound, and the three (K5) and nine
      (K6) bf16 products alone by torch.matmul;
-  4. K2 (codes -> S offsets), K3 (int8 S rows), K7 (the reverse table), K4
-     (window matmul) and K4^T (its S^T mode) against their plain versions at
-     the flagship cell-block spec (K2, K3, K7 on both frames, with the
-     transpose certificate reverse_mismatch == 0); K4 and K4^T also on the
+  4. K2 (particle-order codes -> S offsets and the dropped count, the slot
+     gather and normalization inside), K3 (int8 S rows, with and without
+     its edge count), K7 (the reverse table and its edge total, from the
+     sender packs), K4 (window matmul) and K4^T (its S^T mode) against their
+     plain versions at the flagship cell-block spec (K2, K3, K7 on the
+     uniform, spill and lattice frames, with the transpose certificate
+     reverse_mismatch == 0 from the two counts, and K2, K3, K7 timed by
+     events and from a CUDA graph); K7 also on the aux spec (timed the same
+     way); K4 and K4^T also on the
      aux spec's plan (grid 14, with its reverse table), each mode's rate
      (its bound's bytes over its time), its registers and spills, and S's
      share of live (32-row, 64-deep) blocks; K8 (the dense-query
@@ -45,8 +50,15 @@ each timed on its own line:
      uniform frame, of a frame whose search windows truncate and of the
      lattice frame, at k = 16 and (but the truncating frame) 48, on the
      live rows of the plan's mask (padding rows the no-pick lane), and the
-     dense plan on the card against the CPU plain path on the first two;
+     dense train plan (with its reverse table, K7) on the card against the
+     CPU plain path on the first two;
      K8 timed by events and from a CUDA graph;
+ 4b. the uncertified regime: two clustered frames (95 % of the particles
+     in a sigma 0.01 ball, 30 % in a sigma 0.05 ball), where the spill block
+     overflows and rows run short of candidates: K1's three modes, K8, K2,
+     K3 and K7 against their plain versions, the card's k-NN and plan
+     (S, S_rev, overflow, dropped edges, reverse_mismatch) against the CPU
+     plain path, whose certificate must be false;
   5. the gather slice: launch counts zeroed, 8 rollout steps, counts read (K1
      once and K5 ten times per step), trajectory finite, certificate true
      every step, ms per step from CUDA events after a warm-up; a 2-step
@@ -210,6 +222,24 @@ def kernel_entry(source, replaces, max_abs_err, ms, plain_ms, nbytes, ops, op_ra
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# The uncertified regime's clustered frames: (label, share of the particles
+# in a normal ball about the box centre, the ball's sigma). They and
+# clustered_frame must stay the frames of tests/test_torch_knn_select_schedule.py
+# (CLUSTERED, clustered_positions: seed 21, this script's --seed 0 + 21), which
+# the CPU tests hold against the JAX package.
+CLUSTERED = (("clustered95", 0.95, 0.01), ("clustered30", 0.30, 0.05))
+
+
+def clustered_frame(n: int, share: float, sigma: float, seed: int):
+    """A share of the particles in a normal ball of width sigma about the
+    box centre, the rest uniform (the frames of the port's tests)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, 1, (n, 3))
+    m = int(share * n)
+    pos[:m] = 0.5 + sigma * rng.standard_normal((m, 3))
+    return np.remainder(pos, 1.0).astype(np.float32)
 
 
 def seed_window(n: int, seed: int):
@@ -551,42 +581,61 @@ def main() -> None:
     spec = cellblock.choose_cellblock_spec(N, K)
     codes_cap = pallas_knn.codes_packing_cap(N, K, grid)
     width = spec.s_width
-    for label, pos in frames:
+
+    def plan_kernels(label, pos, certified=True):
+        """K2 (from K1''s particle-order codes), K3 with its count and
+        without it (the rollouts' mode) and K7 with its total against their
+        plain versions on one frame, and the plan build's tables and
+        certificate counts against them."""
         layout = cellblock.cellblock_layout(pos, 1.0, spec)
         _, codes, spill = pallas_knn.pallas_cell_list_knn(pos, K, 1.0, grid, codes_only=True)
-        dec_in = cellblock.s_decode_inputs(layout, codes, codes_cap, spill, spec)
-        offsets = cellblock.s_decode(*dec_in, spec=spec, codes_cap=codes_cap)
-        ref_off = cellblock.s_decode_reference(*dec_in, spec=spec, codes_cap=codes_cap)
-        dropped = int((offsets == width + 1).sum())
-        if not torch.equal(offsets, ref_off) or dropped != int((ref_off == width + 1).sum()):
+        offsets, dropped = cellblock.s_decode(codes, spill, layout, spec, codes_cap)
+        ref_off = cellblock.s_decode_reference(
+            *cellblock.s_decode_inputs(layout, codes, codes_cap, spill, spec), spec=spec,
+            codes_cap=codes_cap)
+        if not torch.equal(offsets, ref_off) or int(dropped) != int((ref_off == width + 1).sum()):
             fail(f"K2 {label}: offsets differ from the plain version in "
-                 f"{int((offsets != ref_off).sum())} entries")
-        s_table = cellblock.s_onehot(offsets, width=width)
-        if not torch.equal(s_table, cellblock.s_onehot_reference(offsets, width=width)):
-            fail(f"K3 {label}: S table differs from the plain version")
-        print(f"K2 {label}: offsets and dropped ({dropped}) equal; K3 {label}: S equal "
-              f"({int(s_table.sum(dtype=torch.int64))} edges); overflow "
-              f"{int(layout.overflow)}, window_overflow {int(layout.window_overflow)}")
-        sc = cellblock.slot_codes(layout, codes, codes_cap, spill, spec)
-        packed = cellblock.reverse_candidates(cellblock.sender_packs(sc, codes_cap, spec),
-                                              layout, spec)
-        s_rev = cellblock.reverse_table(packed, layout.window_starts, spec=spec)
-        if not torch.equal(s_rev, cellblock.reverse_table_reference(
-                packed, layout.window_starts, spec=spec)):
-            fail(f"K7 {label}: reverse table differs from the plain version")
+                 f"{int((offsets != ref_off).sum())} entries, dropped {int(dropped)}")
+        s_table, s_total = cellblock.s_onehot(offsets, width=width, with_total=True)
+        uncounted = cellblock.s_onehot(offsets, width=width)  # the rollouts' mode
+        ref_s = cellblock.s_onehot_reference(offsets, width=width)
+        if not (torch.equal(s_table, ref_s) and torch.equal(uncounted, ref_s)
+                and int(s_total) == int(ref_s.sum(dtype=torch.int64))):
+            fail(f"K3 {label}: S table (with or without its count) or its count "
+                 f"({int(s_total)}) differs from the plain version")
+        packs = cellblock.sender_packs(cellblock.slot_codes(layout, codes, codes_cap, spill, spec),
+                                       layout, codes_cap, spec)
+        s_rev, rev_total = cellblock.reverse_table(packs, layout, spec)
+        ref_rev = cellblock.reverse_table_reference(
+            cellblock.reverse_candidates(packs, layout, spec), layout.window_starts, spec=spec)
+        if not (torch.equal(s_rev, ref_rev)
+                and int(rev_total) == int(ref_rev.sum(dtype=torch.int64))):
+            fail(f"K7 {label}: reverse table or its total ({int(rev_total)}) differs from the "
+                 "plain version")
         plan = cellblock.build_cellblock(pos, None, 1.0, spec, with_reverse=True,
                                          neighbor_codes=codes, codes_cap=codes_cap,
                                          codes_spill=spill)
-        if not (torch.equal(plan.s_table, s_table) and torch.equal(plan.s_rev_table, s_rev)):
-            fail(f"K7 {label}: the plan's tables differ from the kernels' outputs")
-        if int(plan.reverse_mismatch) != 0:
-            fail(f"K7 {label}: reverse_mismatch {int(plan.reverse_mismatch)}")
-        print(f"K7 {label}: S_rev equal to the plain version "
-              f"({int(s_rev.sum(dtype=torch.int64))} edges), reverse_mismatch 0")
-        del plan
+        mismatch = int(plan.reverse_mismatch)
+        if not (torch.equal(plan.s_table, s_table) and torch.equal(plan.s_rev_table, s_rev)
+                and mismatch == int(s_total) - int(rev_total)
+                and int(plan.dropped_edges) == int(dropped)):
+            fail(f"{label}: the plan's tables or counts differ from the kernels' outputs")
+        if certified and mismatch != 0:
+            fail(f"K7 {label}: reverse_mismatch {mismatch}")
+        print(f"K2 {label}: offsets and dropped ({int(dropped)}) equal; K3: S and its count "
+              f"({int(s_total)}) equal; K7: S_rev and its total ({int(rev_total)}) equal; "
+              f"reverse_mismatch {mismatch}, overflow {int(layout.overflow)}, window_overflow "
+              f"{int(layout.window_overflow)}")
+        return dict(layout=layout, codes=codes, spill=spill, offsets=offsets, s_table=s_table,
+                    packs=packs, s_rev=s_rev, plan=plan)
+
+    for label, pos in frames:
+        out = plan_kernels(label, pos)
         if label == "uniform":
-            k2_in, k2_off, k4_s, k4_starts = dec_in, offsets, s_table, layout.window_starts
-            k7_packed, k7_s = packed, s_rev
+            k2_in = (out["codes"], out["spill"], out["layout"])
+            k2_off, k4_s, k4_starts = out["offsets"], out["s_table"], out["layout"].window_starts
+            k7_packs, k7_s = out["packs"], out["s_rev"]
+        del out
     z_pad = torch.randn(spec.num_padded, 128, generator=gen).bfloat16().to(dev)
     out = cellblock.window_matmul(k4_s, z_pad, k4_starts, spec=spec)
     ref = cellblock.window_matmul_reference(k4_s, z_pad, k4_starts, spec=spec)
@@ -598,20 +647,34 @@ def main() -> None:
     print(f"K4 [{spec.num_slots}, {width}] x [{spec.num_padded}, 128]: max abs err "
           f"{k4_err:.3g} (tol {K4_MAX_ABS_TOL}), mean {k4_mean:.3g} (tol {K4_MEAN_ABS_TOL})")
 
-    k2 = lambda: cellblock.s_decode(*k2_in, spec=spec, codes_cap=codes_cap)  # noqa: E731
+    # K2 as the plan build calls it: particle-order codes to offsets and the
+    # dropped count (the parent's torch prologue of slot scatter,
+    # normalization and 27-roll start table is inside the kernel now).
+    k2_codes, k2_spill, k2_layout = k2_in
+    k2 = lambda: cellblock.s_decode(k2_codes, k2_spill, k2_layout, spec, codes_cap)  # noqa: E731
     k2_ms = time_ms(k2, 200)
+    k2_graph_ms = graph_ms(k2, 50)
     k2_plain_ms = time_ms(lambda: cellblock.s_decode_reference(
-        *k2_in, spec=spec, codes_cap=codes_cap), 20)
-    # Per edge: ~40 integer operations (divisions, compares, selects),
-    # counted against the float32 vector rate (the guide's table has no
-    # integer rate); far below the bytes either way.
-    k2_bytes = nbytes(*k2_in, k2_off)
-    k2_ops = 40 * k2_off.numel()
+        *cellblock.s_decode_inputs(k2_layout, k2_codes, codes_cap, k2_spill, spec), spec=spec,
+        codes_cap=codes_cap), 20)
+    # In: the codes, the slot, order and z-cell maps, the start and tile
+    # tables, the spill tables; out: the offsets and the count. Per pick
+    # ~30 integer operations (one division, compares, selects), counted
+    # against the float32 vector rate; far below the bytes either way.
+    k2_bytes = nbytes(k2_codes, k2_layout.particle_of_slot, k2_layout.order, k2_layout.sorted_cz,
+                      k2_layout.cstart_rel, k2_layout.tile_const, k2_off) + 4
+    if k2_spill is not None:
+        k2_bytes += nbytes(*k2_spill)
+    k2_ops = 30 * k2_off.numel()
     report["s_decode"] = kernel_entry(
         "s_decode.cu", "cellblock.py:546", 0.0, k2_ms, k2_plain_ms, k2_bytes, k2_ops,
         F32_FLOP_PER_S, None)
+    report["s_decode"]["graph_ms"] = k2_graph_ms
 
     k3_ms = time_ms(lambda: cellblock.s_onehot(k2_off, width=width), 200)
+    k3_graph_ms = graph_ms(lambda: cellblock.s_onehot(k2_off, width=width), 50)
+    k3c_ms = time_ms(lambda: cellblock.s_onehot(k2_off, width=width, with_total=True), 200)
+    k3c_graph_ms = graph_ms(lambda: cellblock.s_onehot(k2_off, width=width, with_total=True), 50)
     k3_plain_ms = time_ms(lambda: cellblock.s_onehot_reference(k2_off, width=width), 20)
     # Yardstick: scatter_add_ of ones into a zeroed int32 table with two
     # extra columns that catch the sentinels (width, width + 1).
@@ -622,6 +685,7 @@ def main() -> None:
     report["s_onehot"] = kernel_entry(
         "s_onehot.cu", "cellblock.py:499", 0.0, k3_ms, k3_plain_ms,
         nbytes(k2_off, k4_s), k2_off.numel(), F32_FLOP_PER_S, k3_lib_ms)
+    report["s_onehot"]["graph_ms"] = k3_graph_ms
 
     k4_ms = time_ms(lambda: cellblock.window_matmul(k4_s, z_pad, k4_starts, spec=spec), 100)
     k4_plain_ms = time_ms(lambda: cellblock.window_matmul_reference(
@@ -644,8 +708,10 @@ def main() -> None:
     report["window_matmul"] = kernel_entry(
         "window_matmul.cu", "cellblock.py:2607", k4_err, k4_ms, k4_plain_ms,
         nbytes(k4_s, z_pad, k4_starts, out), k4_ops, BF16_TENSOR_FLOP_PER_S, k4_lib_ms)
-    print(f"K2 time {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, {k2_bytes} bytes; "
-          f"K3 time {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, scatter_add_ {k3_lib_ms:.4f} ms; "
+    print(f"K2 time {k2_ms:.4f} ms (graph {k2_graph_ms:.4f}; bound "
+          f"{report['s_decode']['bound_ms']:.5f}), plain {k2_plain_ms:.4f} ms, {k2_bytes} bytes; "
+          f"K3 time {k3_ms:.4f} ms (graph {k3_graph_ms:.4f}), with its count {k3c_ms:.4f} (graph "
+          f"{k3c_graph_ms:.4f}), plain {k3_plain_ms:.4f} ms, scatter_add_ {k3_lib_ms:.4f} ms; "
           f"K4 time {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, bmm {k4_lib_ms:.4f} ms, "
           f"{k4_nnz} nonzero S entries of {k4_s.numel()} ({100 * (1 - k4_nnz / k4_s.numel()):.3f} % "
           f"zeros), {100 * k4_live:.2f} % of (32-row, 64-deep) S blocks live, dense bf16 work "
@@ -653,16 +719,51 @@ def main() -> None:
     del out, ref, k4_s, z_pad
 
     # K7's time; K4^T against its plain version on the uniform frame's S_rev.
-    k7 = lambda: cellblock.reverse_table(k7_packed, k4_starts, spec=spec)  # noqa: E731
-    k7_ms = time_ms(k7, 100)
-    k7_plain_ms = time_ms(lambda: cellblock.reverse_table_reference(
-        k7_packed, k4_starts, spec=spec), 5)
-    # Per window row, k senders matched (a subtraction and two compares
-    # each), counted against the float32 vector rate.
-    k7_ops = 3 * spec.num_tiles * width * k7_packed.shape[1]
+    def k7_timing(pspec, layout, packs):
+        """K7's events and graph times, its plain version's, and its
+        yardstick's: one scatter_add_ of ones into a zeroed int8 table of
+        [rows, rev_lanes + 1] from flat indices computed beforehand (the
+        edges that do not count go to the extra column), as K3's."""
+        fn = lambda: cellblock.reverse_table(packs, layout, pspec)  # noqa: E731
+        ms, gms = time_ms(fn, 100), graph_ms(fn, 20)
+        # The card's practical store rate: one fill_ of a table of S_rev's
+        # size (a floor for the writes alone, not a yardstick).
+        table = torch.empty((pspec.num_tiles, pspec.s_width, pspec.rev_lanes), dtype=torch.int8,
+                            device=dev)
+        fill_ms = graph_ms(lambda: table.fill_(0), 20)
+        del table
+        plain_ms = time_ms(lambda: cellblock.reverse_table_reference(
+            cellblock.reverse_candidates(packs, layout, pspec), layout.window_starts,
+            spec=pspec).sum(dtype=torch.int32), 5)
+        lanes, w_ = pspec.rev_lanes, pspec.window
+        rows_ = (layout.window_starts.long()[:, :, None]
+                 + torch.arange(w_, device=dev)).reshape(pspec.num_tiles, -1)  # [T, 9W]
+        cand = cellblock.reverse_candidates(packs, layout, pspec).long()
+        win = cand[rows_]  # [T, 9W, k + 1]
+        starts_ = layout.window_starts.long().repeat_interleave(w_, dim=1)  # [T, 9W]
+        main = win[..., -1]
+        speaks = (main == rows_) | (main < starts_) | (main >= starts_ + w_)
+        local = win[..., :-1] - (torch.arange(pspec.num_tiles, device=dev)
+                                 * pspec.query_block)[:, None, None]
+        ok = speaks[..., None] & (local >= 0) & (local < pspec.query_block)
+        idx = torch.where(ok, local, lanes).reshape(-1, local.shape[-1])
+        ones_ = torch.ones_like(idx, dtype=torch.int8)
+        lib_ms = time_ms(lambda: torch.zeros((idx.shape[0], lanes + 1), dtype=torch.int8,
+                                             device=dev).scatter_add_(1, idx, ones_), 20)
+        del cand, win, local, ok, idx, ones_
+        # In: the packs, pad_src, c_pre, the window starts; out: S_rev and
+        # its total. Per (row, sender): a subtraction and two compares.
+        nb = nbytes(packs, layout.pad_src, layout.c_pre, layout.window_starts) + 4 + (
+            pspec.num_tiles * pspec.s_width * lanes)
+        ops = 3 * pspec.num_tiles * pspec.s_width * packs.shape[1]
+        return ms, gms, plain_ms, lib_ms, nb, ops, fill_ms
+
+    k7_ms, k7_graph_ms, k7_plain_ms, k7_lib_ms, k7_bytes, k7_ops, k7_fill_ms = k7_timing(
+        spec, k2_layout, k7_packs)
     report["reverse_table"] = kernel_entry(
-        "reverse_table.cu", "cellblock.py:2431", 0.0, k7_ms, k7_plain_ms,
-        nbytes(k7_packed, k4_starts, k7_s), k7_ops, F32_FLOP_PER_S, None)
+        "reverse_table.cu", "cellblock.py:2431", 0.0, k7_ms, k7_plain_ms, k7_bytes, k7_ops,
+        F32_FLOP_PER_S, k7_lib_ms)
+    report["reverse_table"]["graph_ms"] = k7_graph_ms
     g_pad = torch.randn(spec.num_padded, 128, generator=gen).bfloat16().to(dev)
     out = cellblock.window_matmul_t(k7_s, g_pad, k4_starts, spec=spec)
     ref = cellblock.window_matmul_t_reference(k7_s, g_pad, k4_starts, spec=spec)
@@ -688,21 +789,44 @@ def main() -> None:
         "window_matmul.cu", "cellblock.py:2607", k4t_err, k4t_ms, k4t_plain_ms,
         nbytes(k7_s, g_pad, k4_starts, out), 2 * k4t_nnz * 128, BF16_TENSOR_FLOP_PER_S,
         k4t_lib_ms)
-    print(f"K7 time {k7_ms:.4f} ms, plain {k7_plain_ms:.4f} ms; K4^T time {k4t_ms:.4f} ms, "
+    print(f"K7 time {k7_ms:.4f} ms (graph {k7_graph_ms:.4f}; bound "
+          f"{report['reverse_table']['bound_ms']:.5f}), plain {k7_plain_ms:.4f} ms, scatter_add_ "
+          f"{k7_lib_ms:.4f} ms, fill_ of the table {k7_fill_ms:.4f} ms (graph), {k7_bytes} bytes; "
+          f"K4^T time {k4t_ms:.4f} ms, "
           f"plain {k4t_plain_ms:.4f} ms, bmm {k4t_lib_ms:.4f} ms, {k4t_nnz} nonzero S_rev "
           f"entries")
-    del out, ref, g_pad, k7_s, k7_packed
+    del out, ref, g_pad, k7_s
 
     # K4 and K4^T on the aux spec (grid 14: QB 224, W 384, S width 3,456),
     # from the plan of K1's neighbor ids with its reverse table; and each
     # mode's rate, registers and spills.
     aux_spec = cellblock.choose_cellblock_spec(N)
-    aux_plan = cellblock.build_cellblock(
-        pos0, pallas_knn.pallas_cell_list_knn(pos0, K, 1.0, grid), 1.0, aux_spec,
-        with_reverse=True)
+    aux_ids = pallas_knn.pallas_cell_list_knn(pos0, K, 1.0, grid)
+    aux_plan = cellblock.build_cellblock(pos0, aux_ids, 1.0, aux_spec, with_reverse=True)
     if int(aux_plan.reverse_mismatch) != 0 or int(aux_plan.dropped_edges) != 0:
         fail(f"aux plan: reverse_mismatch {int(aux_plan.reverse_mismatch)}, dropped "
              f"{int(aux_plan.dropped_edges)}")
+    # K7 on the aux spec (rev_lanes 256 over QB 224, W 384), from the aux
+    # route's sender packs.
+    aux_layout = cellblock.cellblock_layout(pos0, 1.0, aux_spec)
+    aux_packs = (cellblock.aux_slot_senders(aux_layout, aux_ids, aux_spec)
+                 // aux_spec.grid_size).to(torch.int32)
+    a_rev, a_total = cellblock.reverse_table(aux_packs, aux_layout, aux_spec)
+    a_ref = cellblock.reverse_table_reference(
+        cellblock.reverse_candidates(aux_packs, aux_layout, aux_spec), aux_layout.window_starts,
+        spec=aux_spec)
+    if not (torch.equal(a_rev, a_ref) and torch.equal(a_rev, aux_plan.s_rev_table)
+            and int(a_total) == int(a_ref.sum(dtype=torch.int64))):
+        fail("K7 aux spec: reverse table or its total differs from the plain version")
+    ka_ms, ka_graph_ms, ka_plain_ms, ka_lib_ms, ka_bytes, _, ka_fill_ms = k7_timing(
+        aux_spec, aux_layout, aux_packs)
+    report["reverse_table"].update(aux_ms=ka_ms, aux_graph_ms=ka_graph_ms)
+    print(f"K7 aux spec (G {aux_spec.grid_size}, QB {aux_spec.query_block}, W "
+          f"{aux_spec.window}): S_rev and its total ({int(a_total)}) equal to the plain version; "
+          f"time {ka_ms:.4f} ms (graph {ka_graph_ms:.4f}; bound "
+          f"{ka_bytes / HBM_BYTES_PER_S * 1e3:.5f}), plain {ka_plain_ms:.4f} ms, scatter_add_ "
+          f"{ka_lib_ms:.4f} ms, fill_ of the table {ka_fill_ms:.4f} ms (graph), {ka_bytes} bytes")
+    del a_rev, a_ref, aux_layout, aux_packs, aux_ids
     a_pad = torch.randn(aux_spec.num_padded, 128, generator=gen).bfloat16().to(dev)
     aux_rows = (aux_plan.window_starts.long()[:, :, None]
                 + torch.arange(aux_spec.window, device=dev)).reshape(aux_spec.num_tiles, -1)
@@ -739,6 +863,8 @@ def main() -> None:
               f"({100 * entry['bound_ms'] / entry['ms']:.1f} % of its bytes bound); "
               f"bmm {entry['library_ms']:.4f} ms")
     print_ptxas(logs, "window_matmul")
+    for name in ("s_decode", "reverse_table", "s_onehot"):
+        print_ptxas(logs, name)
     del a_pad, aux_plan, aux_rows, table, s_b
 
     # K8 on the dense plan's inputs: the uniform frame, a frame whose search
@@ -776,23 +902,27 @@ def main() -> None:
               f"the no-pick lane")
         if label == "lattice":
             continue
+        # The dense train plan: with its reverse table (K7 from the dense
+        # route's sender packs) and the certificate from the two counts.
         plan = cellblock.build_cellblock(pos, None, 1.0, spec, dense_search=dspec,
-                                         num_neighbors=K)
+                                         num_neighbors=K, with_reverse=True)
         cpu_plan = cellblock.build_cellblock(pos.cpu(), None, 1.0, spec, dense_search=dspec,
-                                             num_neighbors=K)
-        for field in ("s_table", "overflow", "dropped_edges", "search_window_overflow",
-                      "search_excess"):
+                                             num_neighbors=K, with_reverse=True)
+        for field in ("s_table", "s_rev_table", "overflow", "dropped_edges", "reverse_mismatch",
+                      "search_window_overflow", "search_excess"):
             if not torch.equal(getattr(plan, field).cpu(), getattr(cpu_plan, field)):
                 fail(f"K8 {label}: the dense plan's {field} differs from the CPU plain path")
         swo, excess = int(plan.search_window_overflow), float(plan.search_excess)
         if label == "uniform" and not (swo == 0 and excess <= 0 and int(plan.overflow) == 0
-                                       and int(plan.dropped_edges) == 0):
+                                       and int(plan.dropped_edges) == 0
+                                       and int(plan.reverse_mismatch) == 0):
             fail(f"K8 uniform: certificate false (search_window_overflow {swo}, "
-                 f"search_excess {excess})")
+                 f"search_excess {excess}, reverse_mismatch {int(plan.reverse_mismatch)})")
         if label == "truncating" and swo == 0:
             fail("K8 truncating: the search windows truncated nothing")
-        print(f"K8 {label}: the dense plan equal to the CPU plain path (S, overflow "
-              f"{int(plan.overflow)}, dropped {int(plan.dropped_edges)}, "
+        print(f"K8 {label}: the dense train plan equal to the CPU plain path (S, S_rev, "
+              f"overflow {int(plan.overflow)}, dropped {int(plan.dropped_edges)}, "
+              f"reverse_mismatch {int(plan.reverse_mismatch)}, "
               f"search_window_overflow {swo}, search_excess {excess:.6g})")
         del plan, cpu_plan
     k8 = lambda: cellblock.dense_select(  # noqa: E731
@@ -817,6 +947,65 @@ def main() -> None:
     del k8_ds, k8_lanes, k8_kth
     print(f"phase 4 K2, K3, K7, K4, K4^T (flagship and aux), K8: "
           f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 4b. the uncertified regime ----------------------------------------
+    # Frames where the certificate is false: the spill block overflows, rows
+    # run short of k candidates (sentinel picks), columns overflow. Every
+    # kernel is held bit-equal to its plain version there, and the plan's
+    # counts to the CPU plain path's; the certificate is what the plain
+    # path says (false), never asserted true.
+    t0 = time.perf_counter()
+    for label, share, sigma in CLUSTERED:
+        pos = torch.as_tensor(clustered_frame(N, share, sigma, args.seed + 21), device=dev)
+        table, spill, n_spilled = k1_inputs(pos)
+        for name, select, plain in (
+                ("K1", pallas_knn.knn_select, pallas_knn.knn_select_reference),
+                ("K1'", pallas_knn.knn_codes, pallas_knn.knn_codes_reference),
+                ("K1''", pallas_knn.knn_dual, pallas_knn.knn_dual_reference)):
+            *picks, kth = select(table, spill, **k1_args)
+            *ref_picks, ref_kth = plain(table, spill, **ref_args)
+            if not (all(torch.equal(a, b) for a, b in zip(picks, ref_picks))
+                    and torch.equal(kth.view(torch.int32), ref_kth.view(torch.int32))):
+                fail(f"{name} {label}: differs from the plain version in "
+                     f"{int((picks[0] != ref_picks[0]).any(1).sum())} rows")
+        short_rows = int((kth >= 1e29).sum())
+        nbr, diag = pallas_knn.pallas_cell_list_knn(pos, K, 1.0, grid, return_diagnostics=True)
+        cpu_nbr, cpu_diag = pallas_knn.pallas_cell_list_knn(pos.cpu(), K, 1.0, grid,
+                                                            return_diagnostics=True)
+        if not (torch.equal(nbr.cpu(), cpu_nbr)
+                and all(torch.equal(a.cpu(), b) for a, b in zip(diag, cpu_diag))):
+            fail(f"K1 {label}: neighbors or diagnostics differ from the CPU plain path")
+        overflow, excess = int(cpu_diag[0]), float(cpu_diag[2])
+        if overflow == 0:
+            fail(f"{label}: the CPU plain path certifies the frame (overflow 0)")
+        layout = cellblock.cellblock_layout(pos, 1.0, spec)
+        ds = cellblock.dense_search_inputs(layout, pos[layout.order], 1.0, spec, dspec)
+        live = (torch.arange(dspec.query_block, device=dev) < ds.rows[:, None]).reshape(-1)
+        k8_args = dict(k=K, query_block=dspec.query_block, w_eff=ds.w_eff)
+        lanes, kth8 = cellblock.dense_select(ds.table, ds.queries, ds.windows, 1.0, ds.rows,
+                                             **k8_args)
+        ref_lanes, ref_kth8 = cellblock.dense_select_reference(ds.table, ds.queries, ds.windows,
+                                                               1.0, **k8_args)
+        if not (torch.equal(lanes[live], ref_lanes[live])
+                and torch.equal(kth8[live].view(torch.int32), ref_kth8[live].view(torch.int32))):
+            fail(f"K8 {label}: live rows differ from the plain version")
+        out = plan_kernels(label, pos, certified=False)
+        cpu_plan = cellblock.build_cellblock(
+            pos.cpu(), None, 1.0, spec, with_reverse=True, neighbor_codes=out["codes"].cpu(),
+            codes_cap=codes_cap, codes_spill=tuple(t.cpu() for t in out["spill"]))
+        for field in ("s_table", "s_rev_table", "overflow", "dropped_edges",
+                      "reverse_mismatch", "window_overflow"):
+            mine, theirs = getattr(out["plan"], field), getattr(cpu_plan, field)
+            if not (torch.equal(mine.cpu(), theirs) if mine.dim() else int(mine) == int(theirs)):
+                fail(f"{label}: the plan's {field} differs from the CPU plain path")
+        print(f"uncertified {label} ({share:.0%} in a sigma {sigma} ball): K1, K1', K1'' equal "
+              f"to their plain versions ({n_spilled} spilled, {short_rows} rows short of k "
+              f"candidates), K8 live rows equal; the CPU plain path's certificate false "
+              f"(overflow {overflow}, max_excess {excess:.6g}), the card's equal; the plan's S, "
+              f"S_rev, overflow {int(cpu_plan.overflow)}, dropped {int(cpu_plan.dropped_edges)}, "
+              f"reverse_mismatch {int(cpu_plan.reverse_mismatch)} equal to the CPU plain path's")
+        del out, cpu_plan, layout, ds
+    print(f"phase 4b uncertified regime: {time.perf_counter() - t0:.1f} s")
 
     # ---- 5-8. the rollout slices -----------------------------------------
     stats = NormalizationStats.from_metadata(METADATA, device=dev)

@@ -15,19 +15,26 @@
 // memory with 8-byte coalesced stores: S is written once, never
 // read-modified-written. The TPU kernel instead compared every lane
 // against every offset (k passes over a [rows, width] tile).
+//
+// With a `total` pointer (the plan build's training path) it also counts
+// the offsets it accumulates, the sum of S, for the transpose certificate
+// reverse_mismatch: a warp reduce and one atomicAdd a block into an int32
+// the caller zeroed. A null pointer skips the count (rollouts).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 __global__ void s_onehot_kernel(const int16_t* __restrict__ offsets,
-                                uint8_t* __restrict__ out, int rows, int k,
-                                int width) {
+                                uint8_t* __restrict__ out, int* __restrict__ total,
+                                int rows, int k, int width) {
   extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int warp_sums[32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   const int words = width >> 2;
   uint32_t* buf = smem + warp * words;
+  int count = 0;
   for (long long row = (long long)blockIdx.x * warps + warp; row < rows;
        row += (long long)gridDim.x * warps) {
     for (int w = lane; w < words; w += 32) buf[w] = 0u;
@@ -35,7 +42,10 @@ __global__ void s_onehot_kernel(const int16_t* __restrict__ offsets,
     const int16_t* o = offsets + row * k;
     for (int p = lane; p < k; p += 32) {
       const int v = o[p];
-      if (v >= 0 && v < width) atomicAdd(&buf[v >> 2], 1u << ((v & 3) * 8));
+      if (v >= 0 && v < width) {
+        atomicAdd(&buf[v >> 2], 1u << ((v & 3) * 8));
+        ++count;
+      }
     }
     __syncwarp();
     const uint2* src = reinterpret_cast<const uint2*>(buf);
@@ -43,14 +53,24 @@ __global__ void s_onehot_kernel(const int16_t* __restrict__ offsets,
     for (int w = lane; w < (width >> 3); w += 32) dst[w] = src[w];
     __syncwarp();
   }
+  if (total == nullptr) return;
+  count = __reduce_add_sync(0xffffffffu, count);
+  if (lane == 0) warp_sums[warp] = count;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int i = 0; i < warps; ++i) sum += warp_sums[i];
+    if (sum) atomicAdd(total, sum);
+  }
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). offsets [rows, k] int16, out
-// [rows, width] int8, contiguous; width % 8 == 0 and k <= 127. Launches on
-// `stream`, does not synchronize, returns the cudaError_t.
-extern "C" int s_onehot_launch(const void* offsets, void* out, int rows, int k,
+// [rows, width] int8, contiguous; width % 8 == 0 and k <= 127; total one
+// int32 zeroed by the caller, or null. Launches on `stream`, does not
+// synchronize, returns the cudaError_t.
+extern "C" int s_onehot_launch(const void* offsets, void* out, int* total, int rows, int k,
                                int width, void* stream) {
   if (width % 8 || width <= 0 || k < 1 || k > 127)
     return (int)cudaErrorInvalidValue;
@@ -68,7 +88,7 @@ extern "C" int s_onehot_launch(const void* offsets, void* out, int rows, int k,
   if (blocks > 65535LL * 8) blocks = 65535LL * 8;
   s_onehot_kernel<<<(unsigned)blocks, 32 * warps, smem,
                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(offsets), static_cast<uint8_t*>(out), rows, k,
+      static_cast<const int16_t*>(offsets), static_cast<uint8_t*>(out), total, rows, k,
       width);
   return (int)cudaGetLastError();
 }

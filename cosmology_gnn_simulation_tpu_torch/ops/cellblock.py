@@ -398,18 +398,16 @@ def cellblock_layout(positions: torch.Tensor, box_size, spec: CellBlockSpec) -> 
 
 
 class SlotCodes(NamedTuple):
-    """The k-NN codes moved to their query's slot, with what decoding them
-    reads: ``codes [num_slots, k]`` int32 (empty slots and slotless
-    particles' rows hold an always-invalid sentinel), the slot's query
-    z-cell ``qz_slot [num_slots]``, the compact starts of each cell's 27
-    neighbor cells in code order ``cstart27 [G^3, 27]``, and each spill
-    candidate's packed sender ``slot * G + cz`` (``sp_aux [spill_len]``, the
-    overflow sentinel ``num_slots * G`` past capacity; None without a spill
-    block)."""
+    """The k-NN codes moved to their query's slot: ``codes [num_slots, k]``
+    int32 (empty slots and slotless particles' rows hold an always-invalid
+    sentinel), the slot's query z-cell ``qz_slot [num_slots]``, and each
+    spill candidate's packed sender ``slot * G + cz`` (``sp_aux
+    [spill_len]``, the overflow sentinel ``num_slots * G`` past capacity;
+    None without a spill block). The plain path of K2 and the train path's
+    sender packs read it; K2 on the card gathers its codes itself."""
 
     codes: torch.Tensor
     qz_slot: torch.Tensor
-    cstart27: torch.Tensor
     sp_aux: Optional[torch.Tensor]
 
 
@@ -434,12 +432,6 @@ def slot_codes(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes_cap:
     codes_slots[slot_of_particle] = neighbor_codes.to(torch.int32)
     qz_slot = torch.zeros(num_slots + 1, dtype=torch.int32, device=dev)
     qz_slot[slot_of_sorted] = layout.sorted_cz.to(torch.int32)
-    # Compact starts of each cell's 27 neighbor cells, in code order.
-    cstart3 = layout.cstart_rel.reshape(g, g, g)
-    cstart27 = torch.stack(
-        [torch.roll(cstart3, (-dx, -dy, -dz), dims=(0, 1, 2)) for dx, dy, dz in NEIGHBOR_OFFSETS],
-        dim=-1,
-    ).reshape(g**3, 27).to(torch.int32).contiguous()
     sp_aux = None
     if spill_len:
         sp_cells = torch.clamp(codes_spill[0].long(), 0, g**3 - 1)
@@ -448,8 +440,27 @@ def slot_codes(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes_cap:
         sp_in = sp_rs < cc
         sp_slot = torch.where(sp_in, sp_col * cc + sp_rs, num_slots)
         sp_aux = sp_slot * g + torch.where(sp_in, sp_cz, 0)
-    return SlotCodes(codes=codes_slots[:num_slots], qz_slot=qz_slot[:num_slots],
-                     cstart27=cstart27, sp_aux=sp_aux)
+    return SlotCodes(codes=codes_slots[:num_slots], qz_slot=qz_slot[:num_slots], sp_aux=sp_aux)
+
+
+def neighbor_starts27(cstart_rel: torch.Tensor, g: int) -> torch.Tensor:
+    """The compact starts of each cell's 27 neighbor cells in code order,
+    ``[G^3, 27]`` int32, by 27 rolls of ``cstart_rel [C, G]`` (the plain
+    path of K2; ``neighbor_cell`` finds the same entry by arithmetic)."""
+    cstart3 = cstart_rel.reshape(g, g, g)
+    return torch.stack(
+        [torch.roll(cstart3, (-dx, -dy, -dz), dims=(0, 1, 2)) for dx, dy, dz in NEIGHBOR_OFFSETS],
+        dim=-1,
+    ).reshape(g**3, 27).to(torch.int32).contiguous()
+
+
+def neighbor_cell(col: torch.Tensor, qz: torch.Tensor, j27: torch.Tensor, g: int):
+    """Neighbor cell ``j27 = (dx+1) * 9 + (dy+1) * 3 + (dz+1)`` of the cell
+    at column ``col``, z-cell ``qz``: its column ``((cx + dx) mod G, (cy +
+    dy) mod G)`` and z-cell ``(qz + dz) mod G``, as K2 computes them
+    (``cstart_rel[neighbor_cell(...)]`` is the 27-roll table's entry)."""
+    ncol = ((col // g + j27 // 9 - 1) % g) * g + (col % g + (j27 // 3) % 3 - 1) % g
+    return ncol, (qz + j27 % 3 - 1) % g
 
 
 def _normalized_codes(sc: SlotCodes, codes_cap: int, spec: CellBlockSpec) -> torch.Tensor:
@@ -488,21 +499,24 @@ def _normalized_codes(sc: SlotCodes, codes_cap: int, spec: CellBlockSpec) -> tor
 
 def s_decode_inputs(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes_cap: int,
                     codes_spill, spec: CellBlockSpec):
-    """K2's inputs: ``(codes [num_slots, k], qz_slot [num_slots],
-    cstart27 [G^3, 27], tile_const [T, 45])``, all int32 — the k-NN codes
-    moved to their query's slot and pre-normalized (``slot_codes``,
-    ``_normalized_codes``)."""
+    """The plain version's inputs of K2: ``(codes [num_slots, k], qz_slot
+    [num_slots], cstart27 [G^3, 27], tile_const [T, 45])``, all int32 — the
+    k-NN codes moved to their query's slot and pre-normalized
+    (``slot_codes``, ``_normalized_codes``) and the 27-roll start table
+    (``neighbor_starts27``). K2 on the card does all of this itself."""
     sc = slot_codes(layout, neighbor_codes, codes_cap, codes_spill, spec)
-    return (_normalized_codes(sc, codes_cap, spec), sc.qz_slot.contiguous(), sc.cstart27,
-            layout.tile_const)
+    return (_normalized_codes(sc, codes_cap, spec), sc.qz_slot.contiguous(),
+            neighbor_starts27(layout.cstart_rel, spec.grid_size), layout.tile_const)
 
 
-def sender_packs(sc: SlotCodes, codes_cap: int, spec: CellBlockSpec) -> torch.Tensor:
+def sender_packs(sc: SlotCodes, layout: CellBlockLayout, codes_cap: int,
+                 spec: CellBlockSpec) -> torch.Tensor:
     """Each slot's k sender PACK ids ``col * CC + rank`` ``[num_slots, k]``
     int32, ``num_slots`` where there is no sender (the JAX codes path's
     arithmetic decode, which its reverse build reads): a ring code names
-    the neighbor cell ``j27`` of the query's cell and the sender's rank in
-    it; a spill code reads the spill candidate's packed sender."""
+    the neighbor cell ``j27`` of the query's cell (``neighbor_cell``) and
+    the sender's rank in it; a spill code reads the spill candidate's
+    packed sender."""
     g, cc = spec.grid_size, spec.col_capacity
     num_slots = spec.num_slots
     dev = sc.codes.device
@@ -512,9 +526,8 @@ def sender_packs(sc: SlotCodes, codes_cap: int, spec: CellBlockSpec) -> torch.Te
     rank = codes - j27 * codes_cap
     valid = j27 < 27
     j27 = torch.where(valid, j27, 0)
-    start = torch.gather(sc.cstart27.long()[col_q[:, 0] * g + sc.qz_slot.long()], 1, j27)
-    scol = ((col_q // g + j27 // 9 - 1) % g) * g + (col_q % g + (j27 // 3) % 3 - 1) % g
-    sr = start + rank
+    scol, sz = neighbor_cell(col_q, sc.qz_slot.long()[:, None], j27, g)
+    sr = layout.cstart_rel[scol, sz] + rank
     pack = torch.where(valid & (sr < cc), scol * cc + sr, num_slots)
     if sc.sp_aux is not None:
         spill_len = sc.sp_aux.shape[0]
@@ -526,10 +539,11 @@ def sender_packs(sc: SlotCodes, codes_cap: int, spec: CellBlockSpec) -> torch.Te
 
 def reverse_candidates(packs: torch.Tensor, layout: CellBlockLayout,
                        spec: CellBlockSpec) -> torch.Tensor:
-    """K7's input ``[num_padded, k + 1]`` int32: per padded-image row, the
-    sender packs of its particle's neighbor list and, last, the padded row
-    of the particle's main image (``num_slots`` throughout for unused
-    rows)."""
+    """The plain version's input of K7, ``[num_padded, k + 1]`` int32: per
+    padded-image row, the sender packs of its particle's neighbor list and,
+    last, the padded row of the particle's main image (``num_slots``
+    throughout for unused rows). K7 on the card reads ``packs`` through
+    ``pad_src`` and computes the main-image rows itself."""
     cc = spec.col_capacity
     num_slots = spec.num_slots
     slots = torch.arange(num_slots, device=packs.device)
@@ -912,24 +926,23 @@ def build_cellblock(
         if with_reverse:
             packs = dense_sender_packs(offsets, picks, ds.ccp, layout, spec)
     elif neighbor_codes is not None:
-        sc = slot_codes(layout, neighbor_codes, codes_cap, codes_spill, spec)
-        offsets = s_decode(_normalized_codes(sc, codes_cap, spec), sc.qz_slot.contiguous(),
-                           sc.cstart27, layout.tile_const, spec=spec, codes_cap=codes_cap)
-        dropped = (offsets == width + 1).sum()
+        offsets, dropped = s_decode(neighbor_codes, codes_spill, layout, spec, codes_cap)
         if with_reverse:
-            packs = sender_packs(sc, codes_cap, spec)
+            sc = slot_codes(layout, neighbor_codes, codes_cap, codes_spill, spec)
+            packs = sender_packs(sc, layout, codes_cap, spec)
     else:
         senders = aux_slot_senders(layout, neighbors, spec)
         offsets, dropped = aux_offsets(senders, layout, spec)
         if with_reverse:
             packs = (senders // g).to(torch.int32)
-    s_table = s_onehot(offsets, width=width)
     s_rev_table = reverse_mismatch = None
     if with_reverse:
-        s_rev_table = reverse_table(reverse_candidates(packs, layout, spec),
-                                    layout.window_starts, spec=spec)
-        reverse_mismatch = (s_table.sum(dtype=torch.int64)
-                            - s_rev_table.sum(dtype=torch.int64))
+        # The certificate from the two kernels' own edge counts.
+        s_table, s_total = s_onehot(offsets, width=width, with_total=True)
+        s_rev_table, rev_total = reverse_table(packs, layout, spec)
+        reverse_mismatch = s_total - rev_total
+    else:
+        s_table = s_onehot(offsets, width=width)
     return CellBlockGraph(
         order=layout.order,
         slot_of_sorted=layout.slot_of_sorted,
@@ -1019,11 +1032,11 @@ def _lib(name: str):
     lib = kernels.library(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "s_decode":
-        entries = {"s_decode_launch": [p] * 5 + [i] * 7 + [p]}
+        entries = {"s_decode_launch": [p] * 10 + [i] * 9 + [p]}
     elif name == "s_onehot":
-        entries = {"s_onehot_launch": [p, p, i, i, i, p]}
+        entries = {"s_onehot_launch": [p, p, p, i, i, i, p]}
     elif name == "reverse_table":
-        entries = {"reverse_table_launch": [p] * 3 + [i] * 5 + [p]}
+        entries = {"reverse_table_launch": [p] * 6 + [i] * 8 + [p]}
     elif name == "dense_select":
         entries = {"dense_select_launch": [p] * 4 + [i] * 5 + [ctypes.c_float] + [p] * 3}
     else:
@@ -1045,36 +1058,53 @@ def _check(name: str, device, tensors) -> None:
             )
 
 
-def s_decode(codes, qz_slot, cstart27, tile_const, *, spec: CellBlockSpec,
-             codes_cap: int) -> torch.Tensor:
-    """K2: pre-normalized codes -> int16 S-lane offsets (see
-    ``s_decode_reference``). CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/s_decode.cu`` or raise."""
-    if codes.device.type == "cpu":
-        return s_decode_reference(codes, qz_slot, cstart27, tile_const, spec=spec,
-                                  codes_cap=codes_cap)
-    num_slots, k = codes.shape
-    g = spec.grid_size
-    if spec.s_width + 2 >= 2**15:
-        raise ValueError(f"s_decode writes int16 offsets; S width {spec.s_width} too wide")
-    if num_slots != spec.num_slots:
-        raise ValueError(f"s_decode: {num_slots} code rows, spec has {spec.num_slots} slots")
-    _check("s_decode", codes.device, [
-        ("codes", codes, (num_slots, k), torch.int32),
-        ("qz_slot", qz_slot, (num_slots,), torch.int32),
-        ("cstart27", cstart27, (g**3, 27), torch.int32),
-        ("tile_const", tile_const, (spec.num_tiles, 45), torch.int32),
-    ])
-    out = torch.empty((num_slots, k), dtype=torch.int16, device=codes.device)
+def s_decode(neighbor_codes: torch.Tensor, codes_spill, layout: CellBlockLayout,
+             spec: CellBlockSpec, codes_cap: int):
+    """K2: the k-NN codes ``[N, k]`` (particle order, as ``pallas_cell_list_knn(...,
+    codes_only=True)`` returns them, with its spill tables ``codes_spill`` or
+    None) -> ``(offsets [num_slots, k] int16, dropped)``: each slot's S-lane
+    offsets (``s_decode_reference`` of ``s_decode_inputs``) and the int32
+    count of dropped edges (offsets ``9W + 1``). CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/s_decode.cu``, which gathers the
+    codes to their slots, resolves and normalizes them and finds each
+    neighbor cell's start itself, or raise."""
+    width = spec.s_width
+    if neighbor_codes.device.type == "cpu":
+        offsets = s_decode_reference(
+            *s_decode_inputs(layout, neighbor_codes, codes_cap, codes_spill, spec), spec=spec,
+            codes_cap=codes_cap)
+        return offsets, (offsets == width + 1).sum(dtype=torch.int32)
+    n, k = neighbor_codes.shape
+    g, num_slots = spec.grid_size, spec.num_slots
+    if width + 2 >= 2**15:
+        raise ValueError(f"s_decode writes int16 offsets; S width {width} too wide")
+    dev = neighbor_codes.device
+    spill_len = 0 if codes_spill is None else codes_spill[0].shape[0]
+    tensors = [
+        ("neighbor_codes", neighbor_codes, (n, k), torch.int32),
+        ("particle_of_slot", layout.particle_of_slot, (num_slots,), torch.int64),
+        ("order", layout.order, (n,), torch.int64),
+        ("sorted_cz", layout.sorted_cz, (n,), torch.int64),
+        ("cstart_rel", layout.cstart_rel, (spec.num_columns, g), torch.int64),
+        ("tile_const", layout.tile_const, (spec.num_tiles, 45), torch.int32),
+    ]
+    if spill_len:
+        tensors += [("spill_cells", codes_spill[0], (spill_len,), torch.int32),
+                    ("spill_ranks", codes_spill[1], (spill_len,), torch.int32)]
+    _check("s_decode", dev, tensors)
+    offsets = torch.empty((num_slots, k), dtype=torch.int16, device=dev)
+    dropped = torch.zeros((), dtype=torch.int32, device=dev)
     err = _lib("s_decode").s_decode_launch(
-        kernels.ptr(codes), kernels.ptr(qz_slot), kernels.ptr(cstart27),
-        kernels.ptr(tile_const), kernels.ptr(out), num_slots, k, g,
-        spec.col_capacity, spec.query_block, spec.window, codes_cap,
-        kernels.stream_handle(codes.device),
+        kernels.ptr(neighbor_codes), kernels.ptr(codes_spill[0] if spill_len else None),
+        kernels.ptr(codes_spill[1] if spill_len else None), kernels.ptr(layout.particle_of_slot),
+        kernels.ptr(layout.order), kernels.ptr(layout.sorted_cz), kernels.ptr(layout.cstart_rel),
+        kernels.ptr(layout.tile_const), kernels.ptr(offsets), kernels.ptr(dropped),
+        spec.num_tiles, n, k, spill_len, g, spec.col_capacity, spec.query_block, spec.window,
+        codes_cap, kernels.stream_handle(dev),
     )
     kernels.check("s_decode", err)
     kernels.launches["s_decode"] += 1
-    return out
+    return offsets, dropped
 
 
 # ---------------------------------------------------------------------------
@@ -1097,26 +1127,32 @@ def s_onehot_reference(offsets: torch.Tensor, *, width: int) -> torch.Tensor:
     return s[:-1].reshape(rows, width).to(torch.int8)
 
 
-def s_onehot(offsets: torch.Tensor, *, width: int) -> torch.Tensor:
+def s_onehot(offsets: torch.Tensor, *, width: int, with_total: bool = False):
     """K3: int8 S rows of multiplicity counts from per-row lane offsets (see
-    ``s_onehot_reference``; ``k <= 127``, so counts fit int8). CPU tensors
-    take the plain version; CUDA tensors launch ``csrc/s_onehot.cu`` or
-    raise."""
+    ``s_onehot_reference``; ``k <= 127``, so counts fit int8). With
+    ``with_total`` it returns ``(S, s_total)``, ``s_total`` the int32 count
+    of the offsets in ``[0, width)``, which is S's sum (the training path's
+    half of ``reverse_mismatch``). CPU tensors take the plain version; CUDA
+    tensors launch ``csrc/s_onehot.cu`` (the count inside it) or raise."""
     if offsets.device.type == "cpu":
-        return s_onehot_reference(offsets, width=width)
+        s_table = s_onehot_reference(offsets, width=width)
+        if not with_total:
+            return s_table
+        return s_table, ((offsets >= 0) & (offsets < width)).sum(dtype=torch.int32)
     rows, k = offsets.shape
     if k > 127 or width % 8:
         raise ValueError(f"s_onehot kernel takes k <= 127 and width % 8 == 0, "
                          f"got k={k}, width={width}")
     _check("s_onehot", offsets.device, [("offsets", offsets, (rows, k), torch.int16)])
     out = torch.empty((rows, width), dtype=torch.int8, device=offsets.device)
+    total = torch.zeros((), dtype=torch.int32, device=offsets.device) if with_total else None
     err = _lib("s_onehot").s_onehot_launch(
-        kernels.ptr(offsets), kernels.ptr(out), rows, k, width,
+        kernels.ptr(offsets), kernels.ptr(out), kernels.ptr(total), rows, k, width,
         kernels.stream_handle(offsets.device),
     )
     kernels.check("s_onehot", err)
     kernels.launches["s_onehot"] += 1
-    return out
+    return (out, total) if with_total else out
 
 
 # ---------------------------------------------------------------------------
@@ -1161,30 +1197,42 @@ def reverse_table_reference(packed: torch.Tensor, window_starts: torch.Tensor, *
     return out
 
 
-def reverse_table(packed: torch.Tensor, window_starts: torch.Tensor, *,
-                  spec: CellBlockSpec) -> torch.Tensor:
-    """K7: the reverse selection table (see ``reverse_table_reference``;
-    ``k <= 127``, so counts fit int8). CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/reverse_table.cu`` or raise."""
-    if packed.device.type == "cpu":
-        return reverse_table_reference(packed, window_starts, spec=spec)
-    k = packed.shape[1] - 1
+def reverse_table(packs: torch.Tensor, layout: CellBlockLayout, spec: CellBlockSpec):
+    """K7: the reverse selection table and its edge total from each slot's
+    sender packs ``packs [num_slots, k]`` int32 (``sender_packs``,
+    ``dense_sender_packs``, or the aux senders' packs; ``num_slots`` for no
+    sender): ``(S_rev [num_tiles, 9W, rev_lanes] int8, rev_total)``,
+    ``reverse_table_reference`` of ``reverse_candidates`` and the int32 sum
+    of its counts (``k <= 127``, so counts fit int8). CPU tensors take the
+    plain version; CUDA tensors launch ``csrc/reverse_table.cu``, which
+    reads ``packs`` through ``layout.pad_src`` and computes the main-image
+    rows itself, or raise."""
+    num_slots, k = packs.shape
+    if packs.device.type == "cpu":
+        s_rev = reverse_table_reference(reverse_candidates(packs, layout, spec),
+                                        layout.window_starts, spec=spec)
+        return s_rev, s_rev.sum(dtype=torch.int32)
+    lanes = spec.rev_lanes
     if not 1 <= k <= 127:
-        raise ValueError(f"reverse_table kernel takes 1 <= k <= 127, got {k}")
-    _check("reverse_table", packed.device, [
-        ("packed", packed, (spec.num_padded, k + 1), torch.int32),
-        ("window_starts", window_starts, (spec.num_tiles, 9), torch.int32),
+        raise ValueError(f"reverse_table kernel takes 1 <= k <= 127, got k={k}")
+    dev = packs.device
+    _check("reverse_table", dev, [
+        ("packs", packs, (spec.num_slots, k), torch.int32),
+        ("pad_src", layout.pad_src, (spec.num_padded,), torch.int64),
+        ("c_pre", layout.c_pre, (spec.num_columns,), torch.int64),
+        ("window_starts", layout.window_starts, (spec.num_tiles, 9), torch.int32),
     ])
-    out = torch.empty((spec.num_tiles, spec.s_width, spec.rev_lanes), dtype=torch.int8,
-                      device=packed.device)
+    out = torch.empty((spec.num_tiles, spec.s_width, lanes), dtype=torch.int8, device=dev)
+    total = torch.zeros((), dtype=torch.int32, device=dev)
     err = _lib("reverse_table").reverse_table_launch(
-        kernels.ptr(packed), kernels.ptr(window_starts), kernels.ptr(out), spec.num_tiles,
-        spec.query_block, spec.window, k, spec.rev_lanes,
-        kernels.stream_handle(packed.device),
+        kernels.ptr(packs), kernels.ptr(layout.pad_src), kernels.ptr(layout.c_pre),
+        kernels.ptr(layout.window_starts), kernels.ptr(out), kernels.ptr(total),
+        spec.num_tiles, num_slots, spec.col_capacity, spec.padded_col, spec.query_block,
+        spec.window, k, lanes, kernels.stream_handle(dev),
     )
     kernels.check("reverse_table", err)
     kernels.launches["reverse_table"] += 1
-    return out
+    return out, total
 
 
 # ---------------------------------------------------------------------------

@@ -10,10 +10,10 @@ the given aggregation (on the hybrid path: the re-neighboring route of
 without k, on another grid than the k-NN's: plans from neighbor ids) once
 to warm up, times ``--steps`` steps with CUDA
 events, then traces the same steps with ``torch.profiler`` and prints the
-device time by kernel (largest first), the device's busy share of the
-traced window, the device operations (kernels, copies, fills) launched per
-step, the peak device memory of the timed run, and the card's name and
-power limit. ``--train`` does the same for ``--steps`` train steps (batch
+device time of every kernel (largest first), the device's busy share of
+the traced window, the device operations (kernels, copies, fills)
+launched per step, the peak device memory of the timed run, and the
+card's name and power limit. ``--train`` does the same for ``--steps`` train steps (batch
 1, noise 3e-4, Adam; the fused tail on) in place of the rollout. Needs a
 CUDA device.
 """
@@ -125,7 +125,7 @@ def main() -> None:
           f"{100 - 100 * total / wall_ms:.1f} %), {len(kernels) / args.steps:.1f} device "
           f"operations per step")
     print(f"{'device ms/step':>14} {'share':>6}  kernel")
-    for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:30]:
+    for name, ms in sorted(busy.items(), key=lambda kv: -kv[1]):
         print(f"{ms / args.steps:14.4f} {100 * ms / total:5.1f}%  {name[:110]}")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

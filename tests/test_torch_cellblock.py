@@ -21,6 +21,7 @@ from cosmology_gnn_simulation_tpu.ops.cell_list import CellGrid as JaxCellGrid
 from cosmology_gnn_simulation_tpu.ops.pallas_knn import (
     pallas_cell_list_knn as jax_pallas_cell_list_knn,
 )
+from cosmology_gnn_simulation_tpu_torch import kernels
 from cosmology_gnn_simulation_tpu_torch.ops import cellblock
 from cosmology_gnn_simulation_tpu_torch.ops.cell_list import CellGrid
 from cosmology_gnn_simulation_tpu_torch.ops.neighbors import knn_periodic
@@ -108,30 +109,23 @@ def test_build_cellblock_matches_jax(name):
 
 
 @pytest.mark.parametrize("name", sorted(FRAMES))
-def test_s_decode_and_onehot_match_jax_kernels(name, monkeypatch):
-    """K2 then K3 (plain) against the Pallas ``_s_from_codes_fused`` on the
-    decode inputs the plan build hands K2, laid out as the JAX kernel's
-    ``[k + 73, slots]`` block."""
+def test_s_decode_and_onehot_match_jax_kernels(name):
+    """K2 (from the particle-order codes, with the slot gather and the
+    normalization it now does itself) then K3, both plain, against the
+    Pallas ``_s_from_codes_fused`` on the plain version's decode inputs
+    laid out as the JAX kernel's ``[k + 73, slots]`` block; the dropped
+    count against the kernel's, and the plan's S against both."""
     spec, pos, grid, codes, spill, cap = _frame(name)
-    seen = {}
-    real = cellblock.s_decode
-
-    def spy(codes_n, qz_slot, cstart27, tile_const, **kw):
-        seen["args"] = (codes_n, qz_slot, cstart27, tile_const)
-        return real(codes_n, qz_slot, cstart27, tile_const, **kw)
-
-    monkeypatch.setattr(cellblock, "s_decode", spy)
     tspec = cellblock.CellBlockSpec(**spec)
-    plan = cellblock.build_cellblock(
-        torch.from_numpy(pos), None, 1.0, tspec, neighbor_codes=torch.from_numpy(codes),
-        codes_cap=cap, codes_spill=_torch_spill(spill),
-    )
-    codes_n, qz_slot, cstart27, tile_const = seen["args"]
-    offsets = cellblock.s_decode_reference(codes_n, qz_slot, cstart27, tile_const,
-                                           spec=tspec, codes_cap=cap)
-    assert offsets.dtype == torch.int16
-    s_table = cellblock.s_onehot_reference(offsets, width=tspec.s_width)
+    layout = cellblock.cellblock_layout(torch.from_numpy(pos), 1.0, tspec)
+    offsets, dropped = cellblock.s_decode(torch.from_numpy(codes), _torch_spill(spill),
+                                          layout, tspec, cap)
+    assert offsets.dtype == torch.int16 and dropped.dtype == torch.int32
+    s_table, s_total = cellblock.s_onehot(offsets, width=tspec.s_width, with_total=True)
+    assert int(s_total) == int(s_table.sum(dtype=torch.int64))
 
+    codes_n, qz_slot, cstart27, tile_const = cellblock.s_decode_inputs(
+        layout, torch.from_numpy(codes), cap, _torch_spill(spill), tspec)
     slots = torch.arange(tspec.num_slots)
     s27 = cstart27[(slots // tspec.col_capacity) * tspec.grid_size + qz_slot.long()]
     const = tile_const.repeat_interleave(tspec.query_block, dim=0)
@@ -140,8 +134,27 @@ def test_s_decode_and_onehot_match_jax_kernels(name, monkeypatch):
     js, jdropped = jcb._s_from_codes_fused(jnp.asarray(packed), jcb.CellBlockSpec(**spec),
                                            K, cap, True)
     np.testing.assert_array_equal(s_table.numpy(), np.asarray(js))
-    assert int((offsets == tspec.s_width + 1).sum()) == int(jdropped)
+    assert int(dropped) == int(jdropped)
+    plan = cellblock.build_cellblock(
+        torch.from_numpy(pos), None, 1.0, tspec, neighbor_codes=torch.from_numpy(codes),
+        codes_cap=cap, codes_spill=_torch_spill(spill),
+    )
     assert torch.equal(plan.s_table, s_table)
+    assert int(plan.dropped_edges) == int(dropped)
+
+
+@pytest.mark.parametrize("g", [3, 4, 19])
+def test_neighbor_cell_arithmetic_equals_the_27_roll_table(g):
+    """The start K2 and the sender packs read by arithmetic
+    (``neighbor_cell``) is the 27-roll table's entry for every cell and
+    code, on grids where a ring wraps onto itself (3), with even G (4) and
+    at the flagship's 19."""
+    cstart_rel = torch.randint(0, 1000, (g * g, g), generator=torch.Generator().manual_seed(g))
+    table = cellblock.neighbor_starts27(cstart_rel, g)
+    cells = torch.arange(g**3)[:, None]
+    j27 = torch.arange(27)[None, :]
+    ncol, nz = cellblock.neighbor_cell(cells // g, cells % g, j27, g)
+    assert torch.equal(cstart_rel[ncol, nz], table.long())
 
 
 def test_s_onehot_matches_jax_kernel():
@@ -214,9 +227,12 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     layout = cellblock.cellblock_layout(torch.from_numpy(pos), 1.0, tspec)
     dec_in = cellblock.s_decode_inputs(layout, torch.from_numpy(codes), cap,
                                        _torch_spill(spill), tspec)
-    offsets = cellblock.s_decode(*dec_in, spec=tspec, codes_cap=cap)
+    kernels.reset_launches()
+    offsets, dropped = cellblock.s_decode(torch.from_numpy(codes), _torch_spill(spill),
+                                          layout, tspec, cap)
     assert torch.equal(offsets, cellblock.s_decode_reference(*dec_in, spec=tspec,
                                                              codes_cap=cap))
+    assert int(dropped) == int((offsets == tspec.s_width + 1).sum()) > 0
     s_table = cellblock.s_onehot(offsets, width=tspec.s_width)
     assert torch.equal(s_table, cellblock.s_onehot_reference(offsets, width=tspec.s_width))
     z_pad = torch.randn(tspec.num_padded, 16).bfloat16()
@@ -224,6 +240,7 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     want = cellblock.window_matmul_reference(s_table, z_pad, layout.window_starts,
                                              spec=tspec)
     assert torch.equal(got, want)
+    assert not any(kernels.launches.values())
 
 
 def test_unported_plan_options_raise():

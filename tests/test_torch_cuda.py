@@ -13,7 +13,12 @@ order on the tensor cores: 1e-3 absolute, 1e-5 mean, on sums of at most 16
 N(0, 1) values. K5 sums on tensor cores in another order than the plain
 version's f32 matmul, and a last-bit difference can flip the bf16 rounding
 of an intermediate before the next product: 5e-2 absolute, 2e-3 mean.
-K7 is exact (integer counts: equal tables, reverse_mismatch 0); K4^T as K4.
+K7 is exact (integer counts: equal tables and totals); K4^T as K4. K2, K3
+(with and without its count) and K7 run at the flagship spec on a uniform
+frame, a spill frame and the two clustered frames where the certificate is
+false, on the aux spec, two small edge specs and two wide ones (rev_lanes
+384 and 640: K7's generic row width); K1's modes and K8 on the clustered
+frames too.
 K1'' (ids and codes together) and K8 (the dense-query search) are exact:
 equal ids, codes and lanes, bit-equal k-th distances, equal plans and
 certificates.
@@ -59,6 +64,8 @@ from cosmology_gnn_simulation_tpu_torch.rollout import one_step_prediction, roll
 from cosmology_gnn_simulation_tpu_torch.training import TrainConfig, make_train_step
 from cosmology_gnn_simulation_tpu_torch.training.trainer import Optimizer
 from cosmology_gnn_simulation_tpu_torch.types import NormalizationStats, tree_leaves, tree_map
+from test_torch_knn_select_schedule import CLUSTERED, clustered_positions
+from test_torch_reverse_mismatch import drop_one_edge
 
 METADATA = {
     "temp_mean": 1.0, "temp_std": 0.3, "temp_rate_mean": 0.0,
@@ -81,8 +88,11 @@ def _spill_positions(seed=1234):
     return torch.tensor(np.concatenate([bg, cram]), dtype=torch.float32)
 
 
+_KNN_CASES = ["uniform", "spill", "lattice", *CLUSTERED]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["uniform", "spill", "lattice"])
+@pytest.mark.parametrize("case", _KNN_CASES)
 def test_knn_kernel_matches_plain_version(cuda_device, case):
     pos, k, grid = _codes_case(case)
     idx, diag = pallas_cell_list_knn(pos.to(cuda_device), k, 1.0, grid,
@@ -92,14 +102,21 @@ def test_knn_kernel_matches_plain_version(cuda_device, case):
     assert torch.equal(idx.cpu(), cidx)
     for a, b in zip(diag, cdiag):
         assert torch.equal(a.cpu(), b)
-    if case != "lattice":  # ties: brute force may pick another equal-distance set
+    if case in CLUSTERED:  # uncertified: the spill block overflows
+        assert int(diag[0]) > 0
+    elif case != "lattice":  # ties: brute force may pick another equal-distance set
         ref = knn_periodic(pos.to(cuda_device), k, 1.0)
         assert all(set(a) == set(b) for a, b in zip(idx.tolist(), ref.tolist()))
 
 
 def _codes_case(case):
     """(positions, k, grid): uniform; a cell crammed past capacity (spill);
-    the uniform frame on the 2^-10 lattice (many exactly equal distances)."""
+    the uniform frame on the 2^-10 lattice (many exactly equal distances);
+    the clustered frames at N = 65,536 (spill block overflowing, rows short
+    of k candidates)."""
+    if case in CLUSTERED:
+        n = 65536
+        return torch.from_numpy(clustered_positions(n, case)), 16, choose_cell_grid(n, 16)
     if case == "spill":
         return _spill_positions(), 8, CellGrid(8, 16)
     pos = torch.rand(20000, 3, generator=torch.Generator().manual_seed(0))
@@ -109,7 +126,7 @@ def _codes_case(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["uniform", "spill", "lattice"])
+@pytest.mark.parametrize("case", _KNN_CASES)
 def test_knn_codes_kernel_matches_plain_version(cuda_device, case):
     pos, k, grid = _codes_case(case)
     n = pos.shape[0]
@@ -136,36 +153,81 @@ def test_knn_codes_kernel_matches_plain_version(cuda_device, case):
         assert torch.equal(a.cpu(), b)
 
 
-def _decode_inputs(device, cram=0):
-    """K2's inputs at the flagship spec (N = 65,536, k = 16) on ``device``;
-    ``cram`` particles packed into one cell make the k-NN spill."""
-    n, k = 65536, 16
-    pos = torch.rand(n, 3, generator=torch.Generator().manual_seed(4))
-    if cram:
-        pos[:cram] = 0.51 + 0.01 * pos[:cram]
+# The plan kernels' cases (K2, K3, K7): name -> (particles, k, spec): None
+# for the chooser's spec of (n, k), "aux" for the chooser's spec of n alone
+# (grid 14), a _WINDOW_SPECS name, or CellBlockSpec keywords. The k-NN runs
+# on the spec's grid (K1' codes decode only there).
+_PLAN_CASES = {
+    "flagship": (65536, 16, None),
+    "spill": (65536, 16, None),  # 60 particles crammed into one cell
+    "clustered95": (65536, 16, None),
+    "clustered30": (65536, 16, None),
+    "aux": (65536, 16, "aux"),
+    "small": (300, 8, "small"),  # QB 32, W 96
+    "w8": (200, 12, "w8"),  # W 8, rev_lanes 128; k 12 takes K2's generic path
+    # rev_lanes 384 and 640: K7's generic row width (a warp a row, in passes).
+    "qb288": (2000, 16, dict(grid_size=3, col_capacity=288, query_block=288, window=384,
+                             wrap_cap=48)),
+    "qb544": (3000, 16, dict(grid_size=3, col_capacity=544, query_block=544, window=640,
+                             wrap_cap=48)),
+}
+
+# reverse_mismatch of each case's plan as the plain path builds it on the CPU
+# (0 wherever the transpose certificate holds); the card must give the same.
+_PLAN_MISMATCH = {"clustered30": 1042, "clustered95": 23, "w8": -22}
+
+
+def _plan_inputs(case, device):
+    """(spec, codes cap, layout, particle-order codes, spill tables,
+    positions) of one plan-kernel case on ``device``."""
+    n, k, spec_name = _PLAN_CASES[case]
+    if case in CLUSTERED:
+        pos = torch.from_numpy(clustered_positions(n, case))
+    else:
+        pos = torch.rand(n, 3, generator=torch.Generator().manual_seed(4))
+    if case == "spill":
+        pos[:60] = 0.51 + 0.01 * pos[:60]
+    if spec_name is None:
+        spec, grid = cellblock.choose_cellblock_spec(n, k), choose_cell_grid(n, k)
+    else:
+        if spec_name == "aux":
+            spec = cellblock.choose_cellblock_spec(n)
+        else:
+            kw = spec_name if isinstance(spec_name, dict) else _WINDOW_SPECS[spec_name][0]
+            spec = cellblock.CellBlockSpec(h_block=128, **kw)
+        g = spec.grid_size
+        grid = CellGrid(g, max(8, -(-2 * n // g**3)))
     pos = pos.to(device)
-    grid = choose_cell_grid(n, k)
-    spec = cellblock.choose_cellblock_spec(n, k)
     _, codes, spill = pallas_cell_list_knn(pos, k, 1.0, grid, codes_only=True)
     layout = cellblock.cellblock_layout(pos, 1.0, spec)
-    cap = codes_packing_cap(n, k, grid)
-    return spec, cap, layout, cellblock.s_decode_inputs(layout, codes, cap, spill, spec)
+    return spec, codes_packing_cap(n, k, grid), layout, codes, spill, pos
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cram", [0, 60])
-def test_s_decode_and_onehot_kernels_match_plain_versions(cuda_device, cram):
-    spec, cap, _, inputs = _decode_inputs(cuda_device, cram)
+@pytest.mark.parametrize("case", sorted(_PLAN_CASES))
+def test_s_decode_and_onehot_kernels_match_plain_versions(cuda_device, case):
+    """K2 (codes to slots, normalization, neighbor starts and decode in one
+    kernel) and K3 with and without its count, against their plain versions
+    on the same inputs: offsets, dropped edges, S and its total equal."""
+    spec, cap, layout, codes, spill, _ = _plan_inputs(case, cuda_device)
+    width = spec.s_width
     kernels.reset_launches()
-    offsets = cellblock.s_decode(*inputs, spec=spec, codes_cap=cap)
-    ref = cellblock.s_decode_reference(*inputs, spec=spec, codes_cap=cap)
-    s_table = cellblock.s_onehot(offsets, width=spec.s_width)
-    ref_s = cellblock.s_onehot_reference(offsets, width=spec.s_width)
+    offsets, dropped = cellblock.s_decode(codes, spill, layout, spec, cap)
+    s_table, s_total = cellblock.s_onehot(offsets, width=width, with_total=True)
+    uncounted = cellblock.s_onehot(offsets, width=width)
+    ref = cellblock.s_decode_reference(
+        *cellblock.s_decode_inputs(layout, codes, cap, spill, spec), spec=spec, codes_cap=cap)
+    ref_s = cellblock.s_onehot_reference(offsets, width=width)
     torch.cuda.synchronize()
-    assert kernels.launches["s_decode"] == 1 and kernels.launches["s_onehot"] == 1
+    assert kernels.launches["s_decode"] == 1 and kernels.launches["s_onehot"] == 2
     assert torch.equal(offsets, ref)
-    assert torch.equal(s_table, ref_s)
-    assert int(s_table.sum(dtype=torch.int64)) == int((offsets < spec.s_width).sum())
+    assert int(dropped) == int((ref == width + 1).sum())
+    assert torch.equal(s_table, ref_s) and torch.equal(uncounted, ref_s)
+    assert int(s_total) == int(s_table.sum(dtype=torch.int64)) == int((offsets < width).sum())
+    if case == "w8":  # windows of 8 rows miss most senders
+        assert int(dropped) > 0
+    if case in CLUSTERED:  # uncertified: columns overflow
+        assert int(layout.overflow) > 0
 
 
 # Synthetic window-matmul specs on the edges of the kernel's contract, with
@@ -195,14 +257,13 @@ def _window_inputs(shape, device, transpose):
     of one window-matmul case on ``device``."""
     gen = torch.Generator().manual_seed(5)
     if shape == "flagship":
+        spec, cap, layout, codes, spill, _ = _plan_inputs("flagship", device)
         if transpose:
-            spec, _, layout, packed, _, _, _ = _reverse_inputs(device, 0)
-            table = cellblock.reverse_table(packed, layout.window_starts, spec=spec)
+            table, _ = cellblock.reverse_table(_packs(layout, codes, cap, spill, spec), layout,
+                                               spec)
             gen = torch.Generator().manual_seed(8)
         else:
-            spec, _, layout, inputs = _decode_inputs(device)
-            cap = codes_packing_cap(65536, 16, choose_cell_grid(65536, 16))
-            table = cellblock.s_onehot(cellblock.s_decode(*inputs, spec=spec, codes_cap=cap),
+            table = cellblock.s_onehot(cellblock.s_decode(codes, spill, layout, spec, cap)[0],
                                        width=spec.s_width)
         starts, h = layout.window_starts, 128
         z_pad = torch.randn(spec.num_padded, h, generator=gen)
@@ -481,33 +542,45 @@ def test_fused_tail_bwd_launches_are_bit_equal(cuda_device, agg_dtype, n):
         assert torch.equal(a, b)
 
 
-def _reverse_inputs(device, cram):
-    spec, cap, layout, _ = _decode_inputs(device, cram)
-    n, k = 65536, 16
-    pos = torch.rand(n, 3, generator=torch.Generator().manual_seed(4))
-    if cram:
-        pos[:cram] = 0.51 + 0.01 * pos[:cram]
-    _, codes, spill = pallas_cell_list_knn(pos.to(device), k, 1.0, choose_cell_grid(n, k),
-                                           codes_only=True)
-    sc = cellblock.slot_codes(layout, codes, cap, spill, spec)
-    packed = cellblock.reverse_candidates(cellblock.sender_packs(sc, cap, spec), layout, spec)
-    return spec, cap, layout, packed, pos.to(device), codes, spill
+def _packs(layout, codes, cap, spill, spec):
+    return cellblock.sender_packs(cellblock.slot_codes(layout, codes, cap, spill, spec), layout,
+                                  cap, spec)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cram", [0, 60])
-def test_reverse_table_kernel_matches_plain_version(cuda_device, cram):
-    spec, cap, layout, packed, pos, codes, spill = _reverse_inputs(cuda_device, cram)
+@pytest.mark.parametrize("case", sorted(_PLAN_CASES))
+def test_reverse_table_kernel_matches_plain_version(cuda_device, case):
+    """K7 from the sender packs (read through pad_src, main-image rows
+    computed in the kernel) against its plain version on the padded
+    candidates: S_rev and its total equal; the plan's certificate from the
+    two kernels' counts equal to the plain tables' sums."""
+    spec, cap, layout, codes, spill, pos = _plan_inputs(case, cuda_device)
+    packs = _packs(layout, codes, cap, spill, spec)
     kernels.reset_launches()
-    s_rev = cellblock.reverse_table(packed, layout.window_starts, spec=spec)
-    ref = cellblock.reverse_table_reference(packed, layout.window_starts, spec=spec)
+    s_rev, total = cellblock.reverse_table(packs, layout, spec)
+    ref = cellblock.reverse_table_reference(cellblock.reverse_candidates(packs, layout, spec),
+                                            layout.window_starts, spec=spec)
     torch.cuda.synchronize()
     assert kernels.launches["reverse_table"] == 1
     assert torch.equal(s_rev, ref)
+    assert int(total) == int(ref.sum(dtype=torch.int64)) > 0
     plan = cellblock.build_cellblock(pos, None, 1.0, spec, with_reverse=True,
                                      neighbor_codes=codes, codes_cap=cap, codes_spill=spill)
     assert torch.equal(plan.s_rev_table, s_rev)
-    assert int(plan.reverse_mismatch) == 0
+    mismatch = int(plan.s_table.sum(dtype=torch.int64)) - int(ref.sum(dtype=torch.int64))
+    assert int(plan.reverse_mismatch) == mismatch == _PLAN_MISMATCH.get(case, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["packs", "offsets"])
+def test_reverse_mismatch_fires_on_the_card(cuda_device, side, monkeypatch):
+    """One edge dropped from the sender packs before the reverse build (+1)
+    or from S's offsets (-1): the kernels' two counts disagree by it."""
+    spec, cap, layout, codes, spill, pos = _plan_inputs("flagship", cuda_device)
+    drop_one_edge(monkeypatch, side, spec)
+    plan = cellblock.build_cellblock(pos, None, 1.0, spec, with_reverse=True,
+                                     neighbor_codes=codes, codes_cap=cap, codes_spill=spill)
+    assert int(plan.reverse_mismatch) == (1 if side == "packs" else -1)
 
 
 @pytest.mark.cuda
@@ -600,7 +673,7 @@ def test_train_step_on_the_card_goes_through_its_kernels(cuda_device, aggregatio
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["uniform", "spill", "lattice"])
+@pytest.mark.parametrize("case", _KNN_CASES)
 def test_knn_dual_kernel_matches_plain_version(cuda_device, case):
     """K1'': ids equal to K1's ids mode, codes and kth to its plain version."""
     pos, k, grid = _codes_case(case)
@@ -703,6 +776,8 @@ def test_cell_list_knn_is_captured_in_a_cuda_graph(cuda_device, mode):
 
 
 def _dense_frame(case, n=65536):
+    if case in CLUSTERED:
+        return torch.from_numpy(clustered_positions(n, case))
     rng = np.random.default_rng(5)
     pos = rng.uniform(0, 1, (n, 3))
     if case == "truncating":
@@ -715,7 +790,7 @@ def _dense_frame(case, n=65536):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["uniform", "truncating", "lattice", "uniform_k48",
-                                  "lattice_k48"])
+                                  "lattice_k48", *CLUSTERED])
 def test_dense_select_kernel_matches_plain_version(cuda_device, case):
     """K8 against its plain version at the flagship spec on the live rows
     the plan passes (padding rows the no-pick lane), and the dense plan on
@@ -751,6 +826,8 @@ def test_dense_select_kernel_matches_plain_version(cuda_device, case):
         assert torch.equal(getattr(plan, field).cpu(), getattr(cpu, field)), field
     if case == "truncating":
         assert int(plan.search_window_overflow) > 0
+    elif case in CLUSTERED:
+        assert int(plan.overflow) > 0
     elif case == "uniform":
         assert int(plan.search_window_overflow) == 0 and float(plan.search_excess) <= 0
         assert int(plan.reverse_mismatch) == 0

@@ -377,6 +377,22 @@ def _lattice_grid(n):
     return (8, poisson_occupancy_capacity(n / 8**3, 8**3))
 
 
+# The uncertified regime's two clustered frames: a share of the particles in
+# a normal ball of width sigma about the box centre, the rest uniform. The
+# spill block overflows and sparse cells leave rows with fewer than k
+# candidates (sentinel picks). name -> (share, sigma).
+CLUSTERED = {"clustered95": (0.95, 0.01), "clustered30": (0.30, 0.05)}
+
+
+def clustered_positions(n, name, seed=21):
+    share, sigma = CLUSTERED[name]
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, 1, (n, 3))
+    m = int(share * n)
+    pos[:m] = 0.5 + sigma * rng.standard_normal((m, 3))
+    return np.remainder(pos, 1.0).astype(np.float32)
+
+
 K1_FRAMES = {
     "uniform-k8": (lambda: _uniform(0, 3000), 8, None),
     "uniform-k16": (lambda: _uniform(0, 3000), 16, None),
@@ -386,6 +402,8 @@ K1_FRAMES = {
     "lattice-k16": (lambda: _lattice(11, 4096), 16, _lattice_grid(4096)),
     "lattice-k48": (lambda: _lattice(11, 4096), 48, None),
     "lattice_spill-k8": (lambda: _lattice(12, 4096, cram=40), 8, _lattice_grid(4096)),
+    "clustered95-k16": (lambda: clustered_positions(3000, "clustered95"), 16, None),
+    "clustered30-k16": (lambda: clustered_positions(3000, "clustered30"), 16, None),
 }
 
 
@@ -411,6 +429,10 @@ def test_k1_schedule_matches_plain_versions(frame, mode):
         _equal(a, b)
     if frame.startswith(("spill", "lattice_spill")):
         assert int((t.particle_rank >= cap).sum()) > 0  # the frame spills
+    if frame.startswith("clustered"):
+        # The spill block overflows, and some rows run out of candidates.
+        assert int((t.particle_rank >= cap).sum()) > spill_cap
+        assert bool((want[-1] >= BIG).any())
 
 
 def test_k1_schedule_is_the_same_at_every_queue_depth_and_staging_order():
@@ -436,6 +458,8 @@ def _dense_inputs(name):
     rng = np.random.default_rng(7)
     if name == "lattice":
         pos, n, spec_k = (rng.integers(0, 1024, (2 * NP, 3)) / 1024), 2 * NP, K
+    elif name in CLUSTERED:
+        pos, n, spec_k = clustered_positions(NP, name), NP, K
     else:
         pos, n, spec_k = rng.random((NP, 3)), NP, K
     pos = torch.from_numpy(pos.astype(np.float32))
@@ -447,7 +471,7 @@ def _dense_inputs(name):
 
 
 @pytest.mark.parametrize("k", [8, 16, 48])
-@pytest.mark.parametrize("name", ["uniform", "lattice"])
+@pytest.mark.parametrize("name", ["uniform", "lattice", "clustered95"])
 def test_k8_schedule_matches_plain_version(name, k):
     """The live rows equal the plain version's; with the live-row mask the
     padding rows are skipped and get the no-pick lane, as the wrapper's CPU
