@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py [--seed S]
 
-Drives the port's rollout paths, its one-step prediction and its two
-train-step paths of the default model (latent 128, 10 message-passing
-steps) at N = 65,536 particles, k = 16, bf16 operands: the gather rollout,
-the hybrid cell-block rollout that is the JAX package's main path, and the
-hybrid rollout's two other re-neighboring routes (the fused dense-query
-search, and the plan from neighbor ids on a spec of another grid), each
-re-neighboring every step with the exactness certificate; then the gather
-and the hybrid train step (batch 1, noise 3e-4, Adam, the fused tail).
+Drives the port's rollout paths, its one-step prediction, its two
+train-step paths and its training loop of the default model (latent 128, 10
+message-passing steps) at N = 65,536 particles, k = 16, bf16 operands: the
+gather rollout, the hybrid cell-block rollout that is the JAX package's main
+path, and the hybrid rollout's two other re-neighboring routes (the fused
+dense-query search, and the plan from neighbor ids on a spec of another
+grid), each re-neighboring every step with the exactness certificate; then
+the gather and the hybrid train step (batch 1, noise 3e-4, Adam, the fused
+tail); then ``Trainer.fit`` on the hybrid path (epochs, validation,
+checkpoints, a resume) and activation checkpointing.
 Before that it builds every CUDA kernel from ``csrc/`` and holds each
 against its plain PyTorch version at the shapes the paths give it. Phases,
 each timed on its own line:
@@ -81,6 +83,29 @@ each timed on its own line:
      K6 ten times per step; cellblock_violations 0 every step); then at
      N = 8,192 one train step of each path on the card against the CPU
      plain path (loss and every gradient), and hybrid against gather;
+ 12a. the Trainer slice: Trainer.fit on aggregation="cellblock_hybrid"
+     (bf16, noise 3e-4, augmentation, batch 1, Adam from lr 1e-4 to 1e-5),
+     3 epochs over an in-memory dataset of the port's synthetic generator
+     (a training simulation of 9 snapshots: 4 windows; a validation one of
+     7: 2 windows), save_every 1: launch counts zeroed before fit and read
+     after (per train step K1', K2, K3, K7 once and K4, K4^T, K5, K6 ten
+     times; per eval step K1', K2, K3 once and K4, K5 ten times; the
+     exactness check on the first window runs the plain cell list, no
+     kernel), every epoch's losses finite, cellblock_violations 0 every
+     step, model_best, model_epoch_{0,1,2}, model_final and
+     training_history.json with the JAX Trainer's keys; each epoch's time,
+     ms per train step inside fit (CUDA events around each step) against
+     phase 11's bare step, ms per step of each epoch's loop, peak memory;
+ 12b. resume equals continuous: a second Trainer restores model_epoch_0
+     (epoch, schedule position and learning rate, generator state checked)
+     and fits epochs 1-2; its model_epoch_2 params and Adam state must be
+     bit-equal to the first run's, and its history equal;
+ 12c. remat: one train step (noise 0, no augmentation, SGD with lr 1) at
+     N = 65,536 with remat, with remat_chunk=5 and with neither, on the
+     hybrid bf16 path with the fused tail and on gather in f32 without it:
+     loss and every gradient bit-equal to the run without remat, launches
+     as the recomputation implies (K4 and K5 M, 2M and 2M + (M/c)(c-1)
+     times; the rest once a step), peak memory of each;
  12. one JSON line of every ported kernel: launches on its path, time, bound,
      plain version's time, library yardstick's time.
 
@@ -92,12 +117,16 @@ CUDA device the script exits non-zero at once and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
+import dataclasses
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -130,6 +159,17 @@ TRAIN_STEPS, TRAIN_NOISE = 4, 3e-4
 # CPU the hybrid and gather gradients differ by at most 2.0e-2, the gather
 # path rounding each aggregate to bf16), the loss within 1e-3 relative.
 TRAIN_GRAD_TOL, TRAIN_LOSS_RTOL = 5e-2, 1e-3
+# The Trainer slice: a training simulation of 9 snapshots (4 windows) and a
+# validation one of 7 (2 windows), 3 epochs, the learning rate 1e-4 -> 1e-5.
+FIT_TRAIN_SNAPSHOTS, FIT_VAL_SNAPSHOTS, FIT_EPOCHS = 9, 7, 3
+# The keys of the JAX Trainer's training_history.json.
+HISTORY_KEYS = ["best_epoch", "best_val_loss", "component_losses", "learning_rates",
+                "train_loss", "val_loss"]
+COMPONENT_KEYS = ["acc_train", "acc_val", "momentum_train", "momentum_val",
+                  "temp_rate_train", "temp_rate_val"]
+# Remat: the recomputed forward runs the same kernels on the same inputs, so
+# the loss and every gradient leaf must be bit-equal to the run without it.
+REMAT_GRAD_TOL = 0.0
 
 METADATA = {
     "temp_mean": 1.0, "temp_std": 0.3, "temp_rate_mean": 0.0,
@@ -264,6 +304,35 @@ def train_batch(n: int, seed: int):
             "target_positions": pos[None, WINDOW], "target_temperatures": temp[None, WINDOW]}
 
 
+class MemoryDataset:
+    """``SequenceDataset.batches``' contract over simulations held in memory
+    (the windows and the shuffle of the port's ``data/dataset.py``)."""
+
+    def __init__(self, sims):
+        self.sims = [(sim["Coordinates"], sim["InternalEnergy"]) for sim in sims]
+        self.per_sim = self.sims[0][0].shape[0] - WINDOW
+
+    def __len__(self):
+        return len(self.sims) * self.per_sim
+
+    def batches(self, batch_size, *, shuffle=True, seed=0, drop_remainder=True,
+                include_extras=False):
+        order = np.arange(len(self))
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
+        for i in range(0, len(order), batch_size):
+            chunk = order[i:i + batch_size]
+            if drop_remainder and len(chunk) < batch_size:
+                break
+            windows = []
+            for j in chunk:
+                (pos, temp), start = self.sims[j // self.per_sim], j % self.per_sim
+                end = start + WINDOW
+                windows.append({"positions": pos[start:end], "temperatures": temp[start:end],
+                                "target_positions": pos[end], "target_temperatures": temp[end]})
+            yield {key: np.stack([w[key] for w in windows]) for key in windows[0]}
+
+
 def mostly_close(a, b, rel, mean_rel):
     """(ok, max abs error): at most 1e-5 of the entries off by more than
     ``rel`` of b's largest magnitude, mean error within ``mean_rel`` of b's
@@ -300,13 +369,16 @@ def main() -> None:
     )
     from cosmology_gnn_simulation_tpu_torch.ops.neighbors import knn_periodic
     from cosmology_gnn_simulation_tpu_torch.rollout import one_step_prediction, rollout
+    from cosmology_gnn_simulation_tpu_torch.data.synthetic import generate_synthetic_simulation
     from cosmology_gnn_simulation_tpu_torch.training import (
         TrainConfig,
+        Trainer,
         make_optimizer,
         make_train_step,
     )
     from cosmology_gnn_simulation_tpu_torch.training.trainer import Optimizer
     from cosmology_gnn_simulation_tpu_torch.types import NormalizationStats, tree_leaves
+    from cosmology_gnn_simulation_tpu_torch.utils import checkpoint as ckpt_lib
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
@@ -1197,6 +1269,215 @@ def main() -> None:
     print(f"train slice check: N={SMALL_N}, hybrid vs gather gradients on the card: worst "
           f"leaf rel err {cross:.3g} (tol {TRAIN_GRAD_TOL})")
     print(f"phase 11 train check: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 12a. the Trainer slice ------------------------------------------
+    t0 = time.perf_counter()
+    fit_train = MemoryDataset([generate_synthetic_simulation(
+        num_snapshots=FIT_TRAIN_SNAPSHOTS, num_particles=N, seed=args.seed + 10)])
+    fit_val = MemoryDataset([generate_synthetic_simulation(
+        num_snapshots=FIT_VAL_SNAPSHOTS, num_particles=N, seed=args.seed + 11)])
+    train_steps, eval_steps = FIT_EPOCHS * len(fit_train), FIT_EPOCHS * len(fit_val)
+    fit_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_fit_")  # removed after 12b
+    fit_root = fit_tmp.name
+    fit_tc = TrainConfig(aggregation="cellblock_hybrid", num_neighbors=K, batch_size=1,
+                         compute_dtype="bfloat16", noise_std=TRAIN_NOISE, num_epochs=FIT_EPOCHS,
+                         save_every=1, learning_rate=1e-4, final_learning_rate=1e-5,
+                         seed=args.seed, output_dir=os.path.join(fit_root, "continuous"))
+
+    def timed_steps(trainer):
+        """Wrap the trainer's train step in CUDA events (no sync): each
+        step's (start, end, metrics)."""
+        steps, step = [], trainer.train_step
+
+        def timed(*step_args):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            out = step(*step_args)
+            end.record()
+            steps.append((start, end, out[2]))
+            return out
+
+        trainer.train_step = timed
+        return steps
+
+    fitter = Trainer(cfg, stats, fit_tc, len(fit_train), device=dev)
+    steps = timed_steps(fitter)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    fitter.fit(fit_train, fit_val)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    fit_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    expected = {"knn_codes": train_steps + eval_steps, "s_decode": train_steps + eval_steps,
+                "s_onehot": train_steps + eval_steps, "reverse_table": train_steps,
+                "window_matmul": mp * (train_steps + eval_steps),
+                "window_matmul_t": mp * train_steps,
+                "fused_tail": mp * (train_steps + eval_steps), "fused_tail_bwd": mp * train_steps}
+    if launches != {**zero, **expected}:
+        fail(f"Trainer.fit: launches {launches}, expected {expected}")
+    h = fitter.history
+    losses = h["train_loss"] + h["val_loss"]
+    if len(h["train_loss"]) != FIT_EPOCHS or not all(np.isfinite(losses)):
+        fail(f"Trainer.fit: losses {h['train_loss']}, {h['val_loss']}")
+    violations = [float(m["cellblock_violations"]) for _, _, m in steps]
+    if len(steps) != train_steps or any(violations):
+        fail(f"Trainer.fit: {len(steps)} train steps, cellblock_violations {violations}")
+    out_dir = fit_tc.output_dir
+    artifacts = ["model_best", "model_final", "training_history.json",
+                 *(f"model_epoch_{e}" for e in range(FIT_EPOCHS))]
+    missing = [a for a in artifacts if not os.path.exists(os.path.join(out_dir, a))]
+    with open(os.path.join(out_dir, "training_history.json")) as f:
+        saved_history = json.load(f)
+    if missing or sorted(saved_history) != HISTORY_KEYS or \
+            sorted(saved_history["component_losses"]) != COMPONENT_KEYS:
+        fail(f"Trainer.fit artifacts: missing {missing}, history keys {sorted(saved_history)}")
+    per_epoch = len(fit_train)
+    step_ms = [start.elapsed_time(end) for start, end, _ in steps]
+    loop_ms = [steps[e * per_epoch][0].elapsed_time(steps[(e + 1) * per_epoch - 1][1]) / per_epoch
+               for e in range(FIT_EPOCHS)]
+    fit_step_ms = float(np.mean(step_ms[per_epoch:]))  # after the first epoch
+    epoch_s = fitter.step_timer.summary()["train_epoch"]
+    print(f"Trainer.fit cellblock_hybrid: N={N} k={K} default model bf16, noise {TRAIN_NOISE}, "
+          f"batch 1, {FIT_EPOCHS} epochs of {per_epoch} train + {len(fit_val)} eval steps; "
+          f"train losses {[float(f'{v:.6g}') for v in h['train_loss']]}, val losses "
+          f"{[float(f'{v:.6g}') for v in h['val_loss']]}, cellblock_violations 0 every step; "
+          f"launches { {k: v for k, v in launches.items() if v} }")
+    print(f"Trainer.fit times: train loop per epoch (host clock, StepTimer) mean "
+          f"{epoch_s['mean_s']:.4f} s, p50 {epoch_s['p50_s']:.4f} s, total "
+          f"{epoch_s['total_s']:.4f} s; ms per train step inside fit (events around each "
+          f"step, epochs 1-{FIT_EPOCHS - 1}) {fit_step_ms:.4f} against phase 11's bare step "
+          f"{train_ms['cellblock_hybrid']:.4f}; ms per step of each epoch's loop (first step's "
+          f"start to last step's end, over {per_epoch}) {[round(x, 4) for x in loop_ms]}; "
+          f"peak memory {fit_peak_gib:.3f} GiB")
+    path_launches["Trainer.fit"] = launches
+    print(f"phase 12a Trainer slice: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 12b. resume equals continuous ------------------------------------
+    t0 = time.perf_counter()
+    resume_tc = dataclasses.replace(fit_tc, output_dir=os.path.join(fit_root, "resumed"))
+    resumed = Trainer(cfg, stats, resume_tc, len(fit_train), device=dev)
+    saved = ckpt_lib.load_state(os.path.join(out_dir, "model_epoch_0"))
+    start_epoch = resumed.restore(os.path.join(out_dir, "model_epoch_0"))
+    gamma = (fit_tc.final_learning_rate / fit_tc.learning_rate) ** (1 / FIT_EPOCHS)
+    lr = resumed.opt_state.optimizer.param_groups[0]["lr"]
+    if (start_epoch != 1 or resumed.opt_state.schedule.last_epoch != per_epoch
+            or abs(lr - fit_tc.learning_rate * gamma) > 1e-12 * fit_tc.learning_rate
+            or not torch.equal(resumed.generator.get_state(), saved["generator"])):
+        fail(f"restore: start epoch {start_epoch}, schedule step "
+             f"{resumed.opt_state.schedule.last_epoch}, lr {lr}, generator state restored "
+             f"{torch.equal(resumed.generator.get_state(), saved['generator'])}")
+    # The resumed fit runs with CUDA's sync debug mode on: every call that
+    # makes the host wait for the device warns. The loop must make none
+    # between two train steps of an epoch (its reads are once an epoch).
+    marks, step = [], resumed.train_step
+
+    def sync_calls():
+        return [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+
+    def marked(*step_args):
+        first = len(sync_calls())
+        out = step(*step_args)
+        marks.append((first, len(sync_calls())))
+        return out
+
+    resumed.train_step = marked
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            resumed.fit(fit_train, fit_val, start_epoch=start_epoch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    in_step = [end - begin for begin, end in marks]
+    sync_sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}"
+                                     for w in sync_calls()[marks[0][0]:marks[0][1]])
+    between = [marks[i + 1][0] - marks[i][1] for i in range(len(marks) - 1)
+               if (i + 1) % per_epoch]
+    if any(between):
+        fail(f"Trainer.fit: synchronizing calls between train steps {between}")
+    a = ckpt_lib.load_state(os.path.join(out_dir, f"model_epoch_{FIT_EPOCHS - 1}"))
+    b = ckpt_lib.load_state(os.path.join(resume_tc.output_dir, f"model_epoch_{FIT_EPOCHS - 1}"))
+    diffs = [float((x - y).abs().max()) for x, y in zip(tree_leaves(a["params"]),
+                                                         tree_leaves(b["params"]))]
+    for i, state in a["optimizer"]["state"].items():
+        other = b["optimizer"]["state"][i]
+        diffs += [float((state[key] - other[key]).abs().max())
+                  for key in ("step", "exp_avg", "exp_avg_sq")]
+    if max(diffs) != 0 or not torch.equal(a["generator"], b["generator"]) \
+            or a["schedule"] != b["schedule"] or resumed.history != fitter.history:
+        fail(f"resume differs from the continuous run: largest difference {max(diffs)} over "
+             f"params and Adam state; generator equal "
+             f"{torch.equal(a['generator'], b['generator'])}, schedule equal "
+             f"{a['schedule'] == b['schedule']}")
+    print(f"resume: model_epoch_0 restored (epoch 1 next, schedule step {per_epoch}, lr {lr:.6g}, "
+          f"generator state equal); model_epoch_{FIT_EPOCHS - 1} params and Adam state "
+          f"bit-equal to the continuous run's, history equal; synchronizing calls inside each "
+          f"train step {in_step}, between the steps of an epoch {between}, "
+          f"{len(sync_calls()) - sum(in_step)} in the fit outside its train steps; the first "
+          f"step's at "
+          f"{dict(sync_sites)}")
+    del fitter, resumed, saved, a, b
+    fit_tmp.cleanup()
+    print(f"phase 12b resume: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 12c. remat -------------------------------------------------------
+    # One train step (noise 0, no augmentation, SGD with lr 1: the update is
+    # the gradient) with remat, remat_chunk=5 and neither. The recomputation
+    # runs each checkpointed step's forward again before its backward, and
+    # each chunk's forward again up to its last step's input (torch's
+    # early-stopping recomputation): K4 and K5 run M, 2M and
+    # 2M + (M / c)(c - 1) times (tests/test_torch_remat.py).
+    t0 = time.perf_counter()
+    rbatch = train_batch(N, args.seed + 3)
+    chunk = 5
+    remat_paths = (
+        ("cellblock_hybrid", "bf16, fused tail", dict(compute_dtype="bfloat16", fused_tail=None),
+         {"knn_codes": 1, "s_decode": 1, "s_onehot": 1, "reverse_table": 1,
+          "window_matmul_t": mp, "fused_tail_bwd": mp}, ("window_matmul", "fused_tail")),
+        ("gather", "f32, no fused tail", dict(compute_dtype=None, fused_tail=False),
+         {"knn_select": 1}, ()),
+    )
+    for aggregation, label, tc_kw, fixed, recomputed in remat_paths:
+        runs = {}
+        for name, model_kw, forwards in (
+                ("none", {}, mp), ("remat", {"remat": True}, 2 * mp),
+                (f"remat_chunk={chunk}", {"remat_chunk": chunk},
+                 2 * mp + (mp // chunk) * (chunk - 1))):
+            rcfg = cfg._replace(**model_kw)
+            tc = TrainConfig(aggregation=aggregation, num_neighbors=K, noise_std=0.0,
+                             augment_prob=0.0, **tc_kw)
+            sgd = Optimizer(lambda leaves: torch.optim.SGD(leaves, lr=1.0))
+            rparams = init_encode_process_decode(rcfg, torch.Generator().manual_seed(args.seed),
+                                                 device=dev)
+            before = [t.detach().clone() for t in tree_leaves(rparams)]
+            step = make_train_step(rcfg, stats, tc, sgd)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            rparams, _, m = step(rparams, sgd.init(rparams), rbatch, torch.Generator(device=dev))
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            expected = {**fixed, **dict.fromkeys(recomputed, forwards)}
+            if launches != {**zero, **expected}:
+                fail(f"remat {aggregation} {name}: launches {launches}, expected {expected}")
+            grads = [b - a.detach() for b, a in zip(before, tree_leaves(rparams))]
+            runs[name] = (float(m["loss"]), grads, peak, forwards)
+            del rparams, before, step, sgd
+        loss, grads = runs["none"][:2]
+        for name, (rloss, rgrads, _, _) in runs.items():
+            err = max(float((a - b).abs().max()) for a, b in zip(rgrads, grads))
+            if rloss != loss or err > REMAT_GRAD_TOL:
+                fail(f"remat {aggregation} {name}: loss {rloss} vs {loss}, largest gradient "
+                     f"difference {err}")
+        peaks = ", ".join(f"{name} {run[2]:.3f} GiB" for name, run in runs.items())
+        counts = (f"; K4 and K5 launches {', '.join(str(run[3]) for run in runs.values())}"
+                  if recomputed else "")
+        print(f"remat {aggregation} {label}: N={N}, loss and every gradient leaf bit-equal to "
+              f"the run without remat; peak memory {peaks}{counts}")
+    print(f"phase 12c remat: {time.perf_counter() - t0:.1f} s")
 
     # ---- 12. kernels line ------------------------------------------------
     kernels_line = []

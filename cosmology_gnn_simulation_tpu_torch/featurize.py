@@ -2,7 +2,8 @@
 positions, minimum-image finite-difference velocities, node features of
 normalized velocity + temperature history, the certified k-NN search, the
 raw (non-minimum-image) edge features when the model reads them, and the
-training targets and sender-sorted edge stream."""
+training targets and sender-sorted edge stream; and the one-frame
+exactness check of the cell-list search (``verify_neighbor_exactness``)."""
 
 from __future__ import annotations
 
@@ -98,6 +99,67 @@ def neighbor_search_certified(
         positions, k, box_size, grid, return_diagnostics=True
     )
     return idx, (overflow == 0) & (max_excess <= 0.0)
+
+
+def verify_neighbor_exactness(
+    positions,
+    k: int,
+    box_size,
+    *,
+    method: str = "auto",
+    strict: bool = True,
+):
+    """Exactness check of the cell-list k-NN on one frame.
+
+    The cell-list searches are exact only when (a) no cell overflows its
+    capacity and (b) every query's k-th neighbor lies within its 3x3x3
+    window's margin (``ops.cell_list.window_margin_sq``). Both hold for
+    near-uniform boxes at the default grid; strongly clustered data can
+    break them and silently degrade the graphs. Run this once, outside the
+    step loop, on representative positions (the Trainer does, on its first
+    batch): the plain cell list (``ops.cell_list.cell_list_knn``) runs on
+    the positions' device and its diagnostics are read back once.
+
+    Returns a dict of diagnostics; raises ``ValueError`` (``strict``) or
+    warns when the certificate fails, naming the remedy.
+    """
+    import warnings
+
+    positions = torch.as_tensor(positions, dtype=torch.float32)
+    n = positions.shape[0]
+    if method == "bruteforce" or n < _CELL_LIST_MIN_N:
+        return {"method": "bruteforce", "exact": True}
+    grid = choose_cell_grid(n, k)
+    if grid.grid_size < 3:
+        return {"method": "bruteforce", "exact": True}
+    _, diagnostics = cell_list_knn(positions, k, box_size, grid, return_diagnostics=True)
+    overflow, max_d2, max_excess = torch.stack([d.double() for d in diagnostics]).tolist()
+    overflow = int(overflow)
+    cell_edge_sq = (float(box_size) / grid.grid_size) ** 2
+    exact = overflow == 0 and max_excess <= 0.0
+    result = {
+        "method": "celllist",
+        "grid": grid,
+        "overflow": overflow,
+        "max_kth_distance_sq": max_d2,
+        "max_excess_sq": max_excess,
+        "cell_edge_sq": cell_edge_sq,
+        "exact": exact,
+    }
+    if not exact:
+        msg = (
+            f"Cell-list k-NN exactness certificate FAILED for this particle "
+            f"distribution: overflow={overflow} particles dropped from "
+            f"candidate tables, max k-th-neighbor distance^2 {max_d2:.3e} "
+            f"exceeds its query's window margin^2 by {max_excess:.3e} "
+            f"(cell edge^2 {cell_edge_sq:.3e}). Neighbor graphs may be "
+            f"approximate. Remedies: choose_cell_grid(capacity_multiplier=...)"
+            f" larger / safety smaller, or neighbor_method='bruteforce'."
+        )
+        if strict:
+            raise ValueError(msg)
+        warnings.warn(msg)
+    return result
 
 
 def featurize(

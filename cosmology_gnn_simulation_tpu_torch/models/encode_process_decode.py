@@ -26,9 +26,11 @@ the CUDA kernel K5, with K6 as its backward (``ops/fused_step.py``).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from cosmology_gnn_simulation_tpu_torch.featurize import node_feature_size
 from cosmology_gnn_simulation_tpu_torch.models.mlp import (
@@ -50,7 +52,7 @@ Params = Dict[str, Any]
 
 
 class EncodeProcessDecodeConfig(NamedTuple):
-    """Hyperparameters (the JAX config's forward-pass fields)."""
+    """Hyperparameters (the JAX config's fields, in its order)."""
 
     node_input_size: int  # 3*(window-1) + window = 17 at window 5
     edge_input_size: int = 4
@@ -61,11 +63,18 @@ class EncodeProcessDecodeConfig(NamedTuple):
     output_size: int = 3
     aggregate: str = "sender_latents"  # or "edge_messages"
     prune_dead_edge_stream: bool = True
-    fused_tail: bool = False
-    # Activation checkpointing (the JAX config's remat / remat_chunk): not
-    # ported; any other value than the default raises.
+    # The residual carry's dtype: None or "float32" (the same). The JAX
+    # package's "bfloat16" carry is not ported (ROADMAP queue 1 item 4: K5
+    # and K6 would take a bf16 carry) and raises.
+    carry_dtype: Optional[str] = None
+    # Activation checkpointing: ``remat`` recomputes each message-passing
+    # step in the backward pass instead of keeping its activations;
+    # ``remat_chunk=c`` (dividing the step count) checkpoints each run of c
+    # steps and each step inside it, and the encoder and decoder MLPs, so
+    # the backward holds M/c + c carries instead of M.
     remat: bool = False
     remat_chunk: Optional[int] = None
+    fused_tail: bool = False
 
 
 def default_model_config(
@@ -77,6 +86,9 @@ def default_model_config(
     output_size: int = 3,
     aggregate: str = "sender_latents",
     prune_dead_edge_stream: bool = True,
+    remat: bool = False,
+    remat_chunk: Optional[int] = None,
+    carry_dtype: Optional[str] = None,
 ) -> EncodeProcessDecodeConfig:
     """The default model (the JAX ``training.trainer.default_model_config``)."""
     return EncodeProcessDecodeConfig(
@@ -89,6 +101,9 @@ def default_model_config(
         output_size=output_size,
         aggregate=aggregate,
         prune_dead_edge_stream=prune_dead_edge_stream,
+        remat=remat,
+        remat_chunk=remat_chunk,
+        carry_dtype=carry_dtype,
     )
 
 
@@ -217,6 +232,11 @@ def apply_encode_process_decode(
     plan. ``cellblock_mode="hybrid"`` keeps the carry on the N particle
     rows and pays expand -> K4 -> compact each step; the JAX package's
     slot-space carry (``"slots"``) is not ported and raises.
+
+    ``config.remat`` / ``config.remat_chunk`` checkpoint the steps
+    (non-reentrant ``torch.utils.checkpoint``, as the JAX package's
+    ``jax.checkpoint``): the backward recomputes each checkpointed region's
+    forward, its kernels included, before that region's backward.
     """
     if cellblock_mode not in ("slots", "hybrid"):
         raise ValueError(f"unknown cellblock_mode: {cellblock_mode}")
@@ -240,27 +260,59 @@ def apply_encode_process_decode(
             "fused_tail requires the pruned sender_latents mode (the edge "
             "stream's tail is not fused)"
         )
-    if config.remat or (config.remat_chunk or 0) > 1:
-        raise NotImplementedError("remat / remat_chunk (activation checkpointing) "
-                                  "is not ported")
-    x = apply_mlp(params["encoder"]["node"], graph.nodes, dtype)
+    if config.carry_dtype not in (None, "float32"):
+        raise NotImplementedError(
+            f"carry_dtype={config.carry_dtype!r} is not ported (only None / 'float32'; "
+            "the bf16 carry through K5 and K6 is ROADMAP queue 1 item 4)")
+    chunk = config.remat_chunk
     m = config.num_message_passing_steps
+    two_level = chunk is not None and chunk > 1
+    if two_level and m % chunk:
+        raise ValueError(
+            f"remat_chunk={chunk} must divide num_message_passing_steps={m}"
+        )
+    mlp_fn = functools.partial(_checkpoint, apply_mlp) if two_level else apply_mlp
+
     if prune:
-        for i in range(m):
+        def step(i, x):
             x_new = _pruned_processor_step(
                 x, graph.neighbors, step_params(params, i), dtype, config.fused_tail,
                 graph.cellblock, cellblock_spec, graph.sorted_edges,
             )
-            x = x_new if config.fused_tail else x + x_new
+            return (x_new if config.fused_tail else x + x_new,)
     else:
-        e = apply_mlp(params["encoder"]["edge"], graph.edges, dtype)
-        for i in range(m):
+        def step(i, x, e):
             x_new, e_new = _processor_step(
                 x, e, graph.neighbors, step_params(params, i), config.aggregate, dtype,
                 graph.sorted_edges,
             )
-            x, e = x + x_new, e + e_new
+            return x + x_new, e + e_new
+
+    if config.remat or two_level:
+        step = functools.partial(_checkpoint, step)
+
+    def run_steps(first, last, *carry):
+        for i in range(first, last):
+            carry = step(i, *carry)
+        return carry
+
+    x = mlp_fn(params["encoder"]["node"], graph.nodes, dtype)
+    carry = (x,) if prune else (x, mlp_fn(params["encoder"]["edge"], graph.edges, dtype))
+    if two_level:
+        for first in range(0, m, chunk):
+            carry = _checkpoint(run_steps, first, first + chunk, *carry)
+    else:
+        carry = run_steps(0, m, *carry)
+    x = carry[0]
     return {
-        "acceleration": apply_mlp(params["decoder_acc"], x, dtype),
-        "temp_rate": apply_mlp(params["decoder_temp_rate"], x, dtype),
+        "acceleration": mlp_fn(params["decoder_acc"], x, dtype),
+        "temp_rate": mlp_fn(params["decoder_temp_rate"], x, dtype),
     }
+
+
+def _checkpoint(fn, *args):
+    """``fn(*args)`` whose activations are recomputed in the backward pass
+    (non-reentrant ``torch.utils.checkpoint``; the steps draw no random
+    numbers, so no RNG state is kept)."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)

@@ -1,6 +1,7 @@
-"""The train and eval steps and their optimizer (counterpart of
-``training/trainer.py``: ``TrainConfig``, ``_augment_axes``,
-``make_train_step``, ``make_eval_step``, ``make_optimizer``).
+"""The train and eval steps, their optimizer and the epoch-driven
+``Trainer`` (counterpart of ``training/trainer.py``: ``TrainConfig``,
+``_augment_axes``, ``make_train_step``, ``make_eval_step``,
+``make_optimizer``, ``Trainer``, ``default_model_config``).
 
 One train step does what the JAX package's jitted, vmapped step does, in
 eager PyTorch: per sample of the batch (a Python loop in place of ``vmap``)
@@ -26,22 +27,36 @@ is ``optax.add_decayed_weights`` placed before it, with the learning rate
 ``lr * gamma ** (step // steps_per_epoch)``. The parameter tree's leaves
 are updated in place.
 
+``Trainer`` runs epochs of train steps with per-epoch validation over the
+whole validation set, the best, periodic and final checkpoints
+(``utils/checkpoint.py``), ``training_history.json`` and the loss plots,
+and a full resume (``restore``). Metrics stay tensors on the device until
+the epoch's average, so the loop adds no host sync per step.
+
 Not ported: the slot-space ``"cellblock"`` aggregation, variable cell-block
 capacities, per-particle noise keying (``partition_invariant_noise``) and
-activation checkpointing; each raises ``NotImplementedError``.
+the sharded trainers (``mesh``, ``halo``); each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+import json
+import math
+import os
+import time
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from cosmology_gnn_simulation_tpu_torch.featurize import featurize
+from cosmology_gnn_simulation_tpu_torch.featurize import featurize, verify_neighbor_exactness
 from cosmology_gnn_simulation_tpu_torch.models.encode_process_decode import (
     EncodeProcessDecodeConfig,
     apply_encode_process_decode,
+    default_model_config,
+    init_encode_process_decode,
 )
 from cosmology_gnn_simulation_tpu_torch.ops.cellblock import (
     build_cellblock,
@@ -49,7 +64,17 @@ from cosmology_gnn_simulation_tpu_torch.ops.cellblock import (
 )
 from cosmology_gnn_simulation_tpu_torch.ops.fused_step import resolve_fused_tail
 from cosmology_gnn_simulation_tpu_torch.training.losses import combined_loss
-from cosmology_gnn_simulation_tpu_torch.types import NormalizationStats, tree_leaves
+from cosmology_gnn_simulation_tpu_torch.types import (
+    NormalizationStats,
+    resolve_device,
+    tree_leaves,
+    tree_map,
+)
+from cosmology_gnn_simulation_tpu_torch.utils import checkpoint as ckpt_lib
+from cosmology_gnn_simulation_tpu_torch.utils.profiling import StepTimer, block_until_ready, trace
+
+# default_model_config is imported here too: the JAX package defines it in
+# this module, and its callers (cli/train.py) import it from here.
 
 # All 6 permutations of the xyz axes (the reference draws torch.randperm(3)).
 AXIS_PERMS = ((0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0))
@@ -58,9 +83,10 @@ AXIS_PERMS = ((0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0))
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (the JAX ``TrainConfig``: same fields and
-    defaults; ``output_dir``, ``save_every``, ``halt_on_nonfinite``,
-    ``profile_epoch`` and ``strict_neighbor_check`` belong to the
-    epoch-driven trainer, which is not ported yet)."""
+    defaults). ``output_dir``, ``save_every``, ``halt_on_nonfinite``,
+    ``profile_epoch`` (an epoch traced by ``utils.profiling.trace`` under
+    ``output_dir/profile``) and ``strict_neighbor_check`` are the
+    ``Trainer``'s."""
 
     num_neighbors: int = 16
     batch_size: int = 1
@@ -295,3 +321,291 @@ def make_eval_step(
         return {"loss": loss, **components}
 
     return eval_step
+
+
+def mean_metrics(metrics) -> Dict[str, float]:
+    """Each metric's mean over a list of step metrics (dicts of 0-d tensors
+    on the device), read back to the host in one transfer: the loop's one
+    read an epoch."""
+    keys = list(metrics[0])
+    means = torch.stack([torch.stack([m[k] for m in metrics]).double().mean() for k in keys])
+    return dict(zip(keys, means.tolist()))
+
+
+class Trainer:
+    """Epoch-driven trainer: per-epoch prints, best / periodic / final
+    checkpoints, loss plots and ``training_history.json`` (the JAX
+    ``Trainer``'s single-device branch).
+
+    ``device`` is where the steps run (``"cuda"`` unless the caller asks for
+    the CPU; no fallback). The initial params are ``init_params`` (a tree of
+    arrays or tensors, copied to ``device``) or
+    ``init_encode_process_decode`` drawn from
+    ``torch.Generator().manual_seed(seed)``. The train generator,
+    ``torch.Generator(device).manual_seed(seed)``, draws the augmentation
+    and the noise. ``mesh`` / ``halo`` (the sharded trainers) are not
+    ported (ROADMAP queue 1 item 5) and raise.
+    """
+
+    def __init__(
+        self,
+        model_config: EncodeProcessDecodeConfig,
+        stats: NormalizationStats,
+        train_config: TrainConfig,
+        steps_per_epoch: int,
+        init_params: Any = None,
+        mesh=None,
+        halo=None,
+        device="cuda",
+    ):
+        if mesh is not None or halo is not None:
+            raise NotImplementedError("the sharded trainers (mesh, halo) are not ported "
+                                      "(ROADMAP queue 1 item 5)")
+        self.device = resolve_device(device)
+        self.model_config = model_config
+        self.stats = stats.to(self.device)
+        self.tc = train_config
+        self.generator = torch.Generator(device=self.device).manual_seed(train_config.seed)
+        if init_params is None:
+            self.params = init_encode_process_decode(
+                model_config, torch.Generator().manual_seed(train_config.seed), self.device)
+        else:
+            self.params = tree_map(
+                lambda t: torch.as_tensor(t).detach().to(self.device, torch.float32).clone(),
+                init_params)
+        self.optimizer = make_optimizer(train_config, steps_per_epoch)
+        self.opt_state = self.optimizer.init(self.params)
+        self.train_step = make_train_step(model_config, self.stats, train_config,
+                                          self.optimizer)
+        self.eval_step = make_eval_step(model_config, self.stats, train_config)
+        self.history: Dict[str, Any] = {
+            "train_loss": [],
+            "val_loss": [],
+            "learning_rates": [],
+            "component_losses": {
+                "acc_train": [], "acc_val": [],
+                "temp_rate_train": [], "temp_rate_val": [],
+                "momentum_train": [], "momentum_val": [],
+            },
+            "best_epoch": -1,
+            "best_val_loss": float("inf"),
+        }
+
+    def _config_dict(self) -> Dict:
+        return {
+            "model": self.model_config._asdict(),
+            "train": dataclasses.asdict(self.tc),
+        }
+
+    def fit(self, train_dataset, val_dataset, *, verbose: bool = True, start_epoch: int = 0):
+        """Train epochs ``start_epoch`` to ``num_epochs - 1``; returns the
+        final (best) params. The datasets need ``len`` and
+        ``SequenceDataset.batches``' contract."""
+        tc = self.tc
+        os.makedirs(tc.output_dir, exist_ok=True)
+        plots_dir = os.path.join(tc.output_dir, "plots")
+        os.makedirs(plots_dir, exist_ok=True)
+        gamma = (tc.final_learning_rate / tc.learning_rate) ** (1.0 / tc.num_epochs)
+        h = self.history
+
+        self.step_timer = StepTimer()
+        self._check_neighbor_exactness(train_dataset, verbose)
+        dropped = len(train_dataset) % tc.batch_size
+        if dropped and verbose:
+            # The reference's train loader keeps the tail; fixed batch
+            # shapes drop it. It rotates with the shuffle seed, so no window
+            # is left out in every epoch.
+            print(
+                f"NOTE: {dropped} tail training sample(s) per epoch are "
+                f"dropped to keep batch shapes static "
+                f"(dataset {len(train_dataset)} % batch_size {tc.batch_size})."
+            )
+
+        for epoch in range(start_epoch, tc.num_epochs):
+            profiling = tc.profile_epoch == epoch
+            current_lr = tc.learning_rate * gamma**epoch
+            h["learning_rates"].append(current_lr)
+            epoch_metrics = []
+            t0 = time.perf_counter()
+            batch_iter = train_dataset.batches(tc.batch_size, shuffle=True, seed=tc.seed + epoch)
+            bar = None
+            if verbose:
+                try:  # per-batch progress, as the reference shows
+                    from tqdm import tqdm
+
+                    bar = tqdm(batch_iter, desc=f"Epoch {epoch}", leave=False)
+                    batch_iter = bar
+                except ImportError:
+                    pass
+            with (trace(os.path.join(tc.output_dir, "profile")) if profiling
+                  else contextlib.nullcontext()):
+                for count, batch in enumerate(batch_iter, start=1):
+                    self.params, self.opt_state, metrics = self.train_step(
+                        self.params, self.opt_state, batch, self.generator)
+                    epoch_metrics.append(metrics)
+                    if bar is not None and count % 10 == 0:
+                        # Reading a metric waits for the device: only every
+                        # 10 steps.
+                        bar.set_postfix({
+                            "loss": float(metrics["loss"]),
+                            "acc_loss": float(metrics["acceleration"]),
+                            "temp_rate_loss": float(metrics["temp_rate"]),
+                        })
+                if profiling:
+                    block_until_ready(self.params)
+            self.step_timer.record("train_epoch", time.perf_counter() - t0)
+            if not epoch_metrics:
+                raise ValueError(
+                    f"Epoch {epoch} produced zero batches: the dataset has "
+                    f"{len(train_dataset)} windows but batch_size="
+                    f"{tc.batch_size} (the remainder is dropped). Reduce "
+                    "batch_size or add data."
+                )
+            train_avg = mean_metrics(epoch_metrics)
+            if tc.halt_on_nonfinite and not math.isfinite(train_avg["loss"]):
+                raise FloatingPointError(
+                    f"Non-finite training loss at epoch {epoch}: "
+                    f"{train_avg} — inspect data/LR; rerun with "
+                    "utils.profiling.enable_nan_debugging() to localize."
+                )
+            if train_avg.get("cellblock_violations", 0.0) > 0:
+                msg = (
+                    f"Cell-block aggregation certificate failed during epoch "
+                    f"{epoch} (column overflow / dropped edges / reverse "
+                    f"mismatch > 0): gradients are approximate on this "
+                    f"particle distribution. Remedies: aggregation='gather', "
+                    f"or a CellBlockSpec with more capacity/window headroom."
+                )
+                if tc.strict_neighbor_check:
+                    raise ValueError(msg)
+                print(f"WARNING: {msg}")
+
+            val_avg = self.evaluate(val_dataset)
+
+            h["train_loss"].append(train_avg["loss"])
+            h["val_loss"].append(val_avg["loss"])
+            cl = h["component_losses"]
+            cl["acc_train"].append(train_avg["acceleration"])
+            cl["acc_val"].append(val_avg["acceleration"])
+            cl["temp_rate_train"].append(train_avg["temp_rate"])
+            cl["temp_rate_val"].append(val_avg["temp_rate"])
+            cl["momentum_train"].append(train_avg["momentum"])
+            cl["momentum_val"].append(val_avg["momentum"])
+
+            if verbose:
+                print(
+                    f"Epoch {epoch}: training loss = {train_avg['loss']:.6f}, "
+                    f"validation loss = {val_avg['loss']:.6f}, "
+                    f"learning rate = {current_lr:.2e}, "
+                    f"epoch time = {time.perf_counter() - t0:.1f}s"
+                )
+
+            if val_avg["loss"] < h["best_val_loss"]:
+                h["best_val_loss"] = val_avg["loss"]
+                h["best_epoch"] = epoch
+                self.save("model_best", epoch)
+                if verbose:
+                    print(f"New best model saved with validation loss: {val_avg['loss']:.6f}")
+
+            if epoch % 5 == 0:
+                self._plot(os.path.join(plots_dir, f"losses_epoch_{epoch}.png"))
+            if (epoch + 1) % tc.save_every == 0 or epoch == tc.num_epochs - 1:
+                self.save(f"model_epoch_{epoch}", epoch)
+
+        self._plot(os.path.join(plots_dir, "losses_final.png"))
+        # Reload the best params and save them as the final model.
+        best_path = os.path.join(tc.output_dir, "model_best")
+        if os.path.exists(best_path):
+            self._load_params(ckpt_lib.load_state(best_path)["params"])
+        self.save("model_final", tc.num_epochs - 1)
+        with open(os.path.join(tc.output_dir, "training_history.json"), "w") as f:
+            json.dump(h, f, indent=4)
+        return self.params
+
+    def _check_neighbor_exactness(self, dataset, verbose: bool) -> None:
+        """The cell-list search's exactness certificate on the first
+        window's last frame, once (``featurize.verify_neighbor_exactness``:
+        raises under ``strict_neighbor_check``, else warns)."""
+        tc = self.tc
+        if tc.neighbor_method == "bruteforce":
+            return
+        batch = next(iter(dataset.batches(1, shuffle=False)), None)
+        if batch is None:
+            return
+        positions = torch.as_tensor(batch["positions"][0, -1], dtype=torch.float32)
+        result = verify_neighbor_exactness(
+            positions.to(self.device), tc.num_neighbors, self.stats.box_size,
+            method=tc.neighbor_method, strict=tc.strict_neighbor_check,
+        )
+        if verbose and not result.get("exact", True):
+            print("WARNING: neighbor-search exactness certificate failed "
+                  f"({result}); see featurize.verify_neighbor_exactness")
+
+    def evaluate(self, dataset) -> Dict[str, float]:
+        """Average metrics over the whole validation set, the tail batch
+        included (the reference's validation loader keeps it): the mean of
+        the batches' means."""
+        metrics = [self.eval_step(self.params, batch)
+                   for batch in dataset.batches(self.tc.batch_size, shuffle=False,
+                                                drop_remainder=False)]
+        if not metrics:
+            raise ValueError(
+                f"Validation produced zero batches: dataset has "
+                f"{len(dataset)} windows, batch_size={self.tc.batch_size}."
+            )
+        return mean_metrics(metrics)
+
+    def save(self, name: str, epoch: int = 0) -> str:
+        path = ckpt_lib.save_checkpoint(
+            self.tc.output_dir, name, self.params, self.opt_state, epoch=epoch,
+            generator_state=self.generator.get_state(), config=self._config_dict(),
+        )
+        with open(os.path.join(path, "history.json"), "w") as f:
+            json.dump(self.history, f)
+        return path
+
+    def _load_params(self, saved) -> None:
+        """Copy a saved param tree into the live leaves (the optimizer holds
+        them)."""
+        with torch.no_grad():
+            for leaf, value in zip(tree_leaves(self.params), tree_leaves(saved), strict=True):
+                leaf.copy_(value)
+
+    def restore(self, path: str) -> int:
+        """Full resume: params, the optimizer's moments and step count, the
+        LR schedule's position, the train generator, the epoch and the
+        history (cut to the epochs before the resumed one). Returns the
+        epoch to resume from (the saved one + 1)."""
+        state = ckpt_lib.load_state(path)
+        self._load_params(state["params"])
+        self.opt_state.optimizer.load_state_dict(state["optimizer"])
+        if self.opt_state.schedule is not None:
+            self.opt_state.schedule.load_state_dict(state["schedule"])
+        self.generator.set_state(state["generator"])
+        start_epoch = state["epoch"] + 1
+        history_path = os.path.join(path, "history.json")
+        if os.path.exists(history_path):
+            with open(history_path) as f:
+                self.history = json.load(f)
+            # The checkpoint may be older than the last recorded epoch
+            # (model_best): cut each per-epoch series to start_epoch entries.
+            for series in ("train_loss", "val_loss", "learning_rates"):
+                self.history[series] = self.history[series][:start_epoch]
+            cl = self.history.get("component_losses", {})
+            for name in cl:
+                cl[name] = cl[name][:start_epoch]
+        return start_epoch
+
+    def _plot(self, path: str) -> None:
+        try:
+            from cosmology_gnn_simulation_tpu_torch.training.plots import plot_losses
+
+            plot_losses(
+                self.history["train_loss"],
+                self.history["val_loss"],
+                path,
+                self.history["component_losses"],
+                self.history["learning_rates"],
+            )
+        except Exception as exc:  # plotting is best-effort observability
+            print(f"plotting skipped: {exc}")

@@ -116,3 +116,8 @@ class NormalizationStats(NamedTuple):
             box_size=float(box[0] if isinstance(box, (list, tuple)) else box),
             dt=float(metadata["dt"]),
         )
+
+    def to(self, device) -> "NormalizationStats":
+        """The same statistics with their tensors on ``device``."""
+        return self._replace(**{name: value.to(device) for name, value in self._asdict().items()
+                                if isinstance(value, torch.Tensor)})

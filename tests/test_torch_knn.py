@@ -270,10 +270,18 @@ def test_knn_select_wrapper_takes_plain_version_on_cpu():
 def test_port_imports_no_jax():
     code = (
         "import sys, pkgutil, importlib\n"
+        # The card's machine may lack h5py, matplotlib and tqdm: importing
+        # the port must not need them (torch imports tqdm only if present).
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('h5py', 'matplotlib', 'tqdm'):\n"
+        "            raise ImportError(name + ' is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import cosmology_gnn_simulation_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for m in ('training.trainer', 'training.losses', 'ops.aggregation', 'ops.noise'):\n"
+        "for m in ('training.trainer', 'training.losses', 'ops.aggregation', 'ops.noise',\n"
+        "          'cli.train', 'data.dataset', 'utils.checkpoint', 'metadata'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         # Run this slice's routes on the CPU too: the dense search, the plain
         # cell list, the dual-mode k-NN and the plans from neighbor ids.
@@ -292,8 +300,10 @@ def test_port_imports_no_jax():
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m.split('.')[0] == 'cosmology_gnn_simulation_tpu']\n"
+        "       or m.split('.')[0] in ('cosmology_gnn_simulation_tpu', 'orbax')]\n"
         "assert not bad, bad\n"
+        "lazy = [m for m in sys.modules if m.split('.')[0] in ('h5py', 'matplotlib', 'tqdm')]\n"
+        "assert not lazy, lazy\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
