@@ -11,7 +11,10 @@ dense-query search, and the plan from neighbor ids on a spec of another
 grid), each re-neighboring every step with the exactness certificate; then
 the gather and the hybrid train step (batch 1, noise 3e-4, Adam, the fused
 tail); then ``Trainer.fit`` on the hybrid path (epochs, validation,
-checkpoints, a resume) and activation checkpointing.
+checkpoints, a resume) and activation checkpointing; then the rollout's
+brute-force fallback (K9 gated on the device), its cell-sorted state, and
+the evaluation entry points (``validate_one_step``, ``render_rollout``'s
+body).
 Before that it builds every CUDA kernel from ``csrc/`` and holds each
 against its plain PyTorch version at the shapes the paths give it. Phases,
 each timed on its own line:
@@ -106,6 +109,28 @@ each timed on its own line:
      loss and every gradient bit-equal to the run without remat, launches
      as the recomputation implies (K4 and K5 M, 2M and 2M + (M/c)(c-1)
      times; the rest once a step), peak memory of each;
+ 13a. K9 (the brute-force k-NN gated on the device) against its plain
+     version at N = 65,536, k = 16 and 48, on the uniform, clustered30 and
+     lattice frames and 10,000 separate queries: ids equal, d2 bit-equal; a
+     set gate leaves the output buffers bit for bit, a clear one gives the
+     plain version's; timed active, gated (events and CUDA graph) and plain;
+ 13b. exactness_guard="fallback" on gather, 4 steps at N = 65,536 (bf16,
+     fused tail): on a clustered window (certificate false every step) K1,
+     K9 once and K5 ten times a step, the trajectory equal to the
+     brute-force rollout's (K9 once, K1 never) and unlike the flag guard's;
+     on the uniform window K9 gated every step and the trajectory bit-equal
+     to the flag guard's; synchronizing calls per step under CUDA's sync
+     debug mode, flag against fallback (the fallback adds none); a 2-step
+     N = 8,192 clustered fallback rollout against the CPU plain path;
+ 13c. sorted_state="on": 8 gather steps at N = 65,536 bit-equal to "off",
+     at reneighbor_every 1 and 2, ms per step of each;
+ 13d. evaluation at N = 65,536 on an in-memory synthetic simulation:
+     validate_one_step on gather and hybrid (bf16, 4 windows, exact
+     launches, each error bit-equal to the MSE of a direct
+     one_step_prediction), then render_rollout's body (the CLI after its
+     HDF5 read) for 6 steps with --exactness_guard fallback: K1 and K9
+     each step, both .npy trajectories, the summary with the JAX CLI's
+     lines, finite errors, the plot or the "plotting skipped" line;
  12. one JSON line of every ported kernel: launches on its path, time, bound,
      plain version's time, library yardstick's time.
 
@@ -118,7 +143,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -170,6 +197,13 @@ COMPONENT_KEYS = ["acc_train", "acc_val", "momentum_train", "momentum_val",
 # Remat: the recomputed forward runs the same kernels on the same inputs, so
 # the loss and every gradient leaf must be bit-equal to the run without it.
 REMAT_GRAD_TOL = 0.0
+# K9's separate-query frame; the fallback's steps at N; the fallback's
+# trajectory against the brute-force rollout's: both run K9's ids through
+# the same operations, so 0 is expected, and the JAX test's 1e-6 allowed.
+BRUTE_QUERIES, FALLBACK_STEPS, FALLBACK_TOL = 10000, 4, 1e-6
+# Evaluation: an in-memory synthetic simulation of 12 snapshots (6 start
+# indices), 4 one-step windows, a 6-step render.
+EVAL_SNAPSHOTS, EVAL_WINDOWS, RENDER_STEPS = 12, 4, 6
 
 METADATA = {
     "temp_mean": 1.0, "temp_std": 0.3, "temp_rate_mean": 0.0,
@@ -282,6 +316,17 @@ def clustered_frame(n: int, share: float, sigma: float, seed: int):
     return np.remainder(pos, 1.0).astype(np.float32)
 
 
+def clustered_window(n: int, seed: int):
+    """seed_window's drift and temperatures about the clustered30 frame (30 %
+    of the particles in a sigma 0.05 ball), where the certificate fails."""
+    rng = np.random.default_rng(seed)
+    base = clustered_frame(n, 0.30, 0.05, seed)[None]
+    drift = rng.normal(0, 5e-4, (WINDOW, n, 3)).cumsum(axis=0)
+    pos = np.remainder(base + drift, 1.0).astype(np.float32)
+    temp = np.abs(rng.normal(1.0, 0.3, (WINDOW, n, 1))).astype(np.float32)
+    return pos, temp
+
+
 def seed_window(n: int, seed: int):
     """bench.py's seed frames: uniform base + a small random-walk drift."""
     rng = np.random.default_rng(seed)
@@ -367,8 +412,13 @@ def main() -> None:
         fused_step_tail_bwd_reference,
         fused_step_tail_reference,
     )
-    from cosmology_gnn_simulation_tpu_torch.ops.neighbors import knn_periodic
+    from cosmology_gnn_simulation_tpu_torch.ops.neighbors import (
+        knn_periodic,
+        knn_periodic_reference,
+    )
     from cosmology_gnn_simulation_tpu_torch.rollout import one_step_prediction, rollout
+    from cosmology_gnn_simulation_tpu_torch.cli import render_rollout
+    from cosmology_gnn_simulation_tpu_torch.evaluation import validate_one_step
     from cosmology_gnn_simulation_tpu_torch.data.synthetic import generate_synthetic_simulation
     from cosmology_gnn_simulation_tpu_torch.training import (
         TrainConfig,
@@ -459,7 +509,7 @@ def main() -> None:
         nbr, (ovf, max_d2, excess) = pallas_knn.pallas_cell_list_knn(
             pos, K, 1.0, grid, return_diagnostics=True)
         exact = bool((ovf == 0) & (excess <= 0))
-        brute = knn_periodic(pos, K, 1.0, query_tile=1024)
+        brute = knn_periodic_reference(pos, K, 1.0, query_tile=1024)
         same = (torch.sort(nbr, 1).values == torch.sort(brute, 1).values).all(1)
         if not exact or not bool(same.all()):
             fail(f"K1 {label}: certificate {exact}, {int((~same).sum())} rows differ "
@@ -1478,6 +1528,327 @@ def main() -> None:
         print(f"remat {aggregation} {label}: N={N}, loss and every gradient leaf bit-equal to "
               f"the run without remat; peak memory {peaks}{counts}")
     print(f"phase 12c remat: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13a. K9 against its plain version --------------------------------
+    # K9 (the brute-force k-NN that reads its gate on the device) against
+    # knn_periodic_reference (512 queries a tile) on the uniform frame, the
+    # clustered frame where the certificate fails (30 % in a sigma 0.05
+    # ball), the lattice frame (ties) and 10,000 separate queries against
+    # the uniform frame, at k = 16 and 48: ids equal, d2 bit-equal. The
+    # plain version's stable sort of all N distances is computed once per
+    # frame at k = 48; its first 16 columns are the k = 16 answer.
+    t0 = time.perf_counter()
+    clustered30 = torch.as_tensor(clustered_frame(N, 0.30, 0.05, args.seed + 21), device=dev)
+    queries = torch.rand(BRUTE_QUERIES, 3,
+                         generator=torch.Generator().manual_seed(args.seed + 5)).to(dev)
+    brute_frames = (("uniform", pos0, None), ("clustered30", clustered30, None),
+                    ("lattice", lattice, None), (f"{BRUTE_QUERIES} queries", pos0, queries))
+    for label, pos, qs in brute_frames:
+        ref_ids, ref_d2 = knn_periodic_reference(pos, K1_WIDE_K, 1.0, queries=qs,
+                                                 query_tile=512, return_distances=True)
+        for k in (K, K1_WIDE_K):
+            ids, d2 = knn_periodic(pos, k, 1.0, queries=qs, return_distances=True)
+            if not torch.equal(ids, ref_ids[:, :k]):
+                fail(f"K9 {label} k={k}: ids differ from the plain version in "
+                     f"{int((ids != ref_ids[:, :k]).any(1).sum())} rows")
+            if not torch.equal(d2.view(torch.int32),
+                               ref_d2[:, :k].contiguous().view(torch.int32)):
+                fail(f"K9 {label} k={k}: d2 not bit-equal to the plain version")
+        ties = int((ref_d2[:, 1:] == ref_d2[:, :-1]).sum())
+        print(f"K9 {label}: ids equal and d2 bit-equal to the plain version at k = {K} and "
+              f"{K1_WIDE_K} ({ties} tied neighbor pairs in the k = {K1_WIDE_K} rows)")
+    # The gate: set, the buffers keep every bit; clear, they take the search.
+    fill_ids = torch.full((N, K), -7, dtype=torch.int64, device=dev)
+    fill_d2 = torch.full((N, K), -1.5, dtype=torch.float32, device=dev)
+    held = torch.ones((), dtype=torch.bool, device=dev)
+    cleared = torch.zeros((), dtype=torch.bool, device=dev)
+    buf = (fill_ids.clone(), fill_d2.clone())
+    knn_periodic(clustered30, K, 1.0, return_distances=True, skip_if=held, out=buf)
+    if not (torch.equal(buf[0], fill_ids)
+            and torch.equal(buf[1].view(torch.int32), fill_d2.view(torch.int32))):
+        fail("K9 with the gate set changed its output buffer")
+    knn_periodic(clustered30, K, 1.0, return_distances=True, skip_if=cleared, out=buf)
+    ref_ids, ref_d2 = knn_periodic_reference(clustered30, K, 1.0, return_distances=True)
+    if not (torch.equal(buf[0], ref_ids)
+            and torch.equal(buf[1].view(torch.int32), ref_d2.view(torch.int32))):
+        fail("K9 with the gate clear differs from the plain version")
+    print("K9 gate: set, the output buffer is bit-equal to what it held; clear, it holds the "
+          "plain version's ids and d2")
+    k9_out = torch.empty((N, K), dtype=torch.int64, device=dev)
+    k9_ms = time_ms(lambda: knn_periodic(pos0, K, 1.0, out=k9_out), 3)
+    k9_graph_ms = graph_ms(lambda: knn_periodic(pos0, K, 1.0, out=k9_out), 3)
+    k9_gated_ms = time_ms(lambda: knn_periodic(pos0, K, 1.0, skip_if=held, out=k9_out), 100)
+    k9_gated_graph_ms = graph_ms(
+        lambda: knn_periodic(pos0, K, 1.0, skip_if=held, out=k9_out), 100)
+    k9_plain_ms = time_ms(lambda: knn_periodic_reference(pos0, K, 1.0, query_tile=512), 1)
+    k9_48_ms = time_ms(lambda: knn_periodic(pos0, K1_WIDE_K, 1.0), 3)
+    # In: the reference set (12 B a point); out: ids [N, k] int64. Per
+    # (query, point) pair the code does 21 float32 operations: per axis a
+    # subtraction, a division, a rint, a product and a subtraction, then
+    # three squares, two sums and a compare with the k-th.
+    k9_bytes = nbytes(pos0) + N * K * 8
+    k9_ops = 21 * N * N
+    report["knn_brute"] = kernel_entry(
+        "knn_brute.cu", "neighbors.py:48", 0.0, k9_ms, k9_plain_ms, k9_bytes, k9_ops,
+        F32_FLOP_PER_S, None)
+    report["knn_brute"].update(
+        graph_ms=k9_graph_ms, gated_ms=k9_gated_ms, gated_graph_ms=k9_gated_graph_ms,
+        note="no Pallas counterpart: replaces names the JAX package's XLA brute force, "
+             "gated there by lax.cond (rollout.py:295)")
+    print(f"K9 N={N} k={K}: active {k9_ms:.4f} ms (graph {k9_graph_ms:.4f}), gated "
+          f"{k9_gated_ms:.4f} ms (graph {k9_gated_graph_ms:.4f}), plain {k9_plain_ms:.3f} ms, "
+          f"bound {report['knn_brute']['bound_ms']:.4f} ms ({k9_ops} operations); "
+          f"k={K1_WIDE_K} active {k9_48_ms:.4f} ms")
+    print_ptxas(logs, "knn_brute")
+    print(f"phase 13a K9: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13b. the brute-force fallback -----------------------------------
+    # exactness_guard="fallback" on gather: at each step K1 searches and K9,
+    # gated by K1's certificate on the device, overwrites K1's ids where it
+    # fails. On a clustered seed window (the certificate fails every step)
+    # the trajectory must equal the brute-force rollout's and differ from
+    # the flag guard's; on the uniform window K9 runs gated every step and
+    # the trajectory must equal the flag guard's. The fallback must add no
+    # synchronizing call to a step.
+    t0 = time.perf_counter()
+    gather_kw = dict(num_neighbors=K, dtype=torch.bfloat16, aggregation="gather", device=dev)
+    cpos, ctemp = (torch.as_tensor(a, device=dev) for a in clustered_window(N, args.seed + 21))
+    upos, utemp = (torch.as_tensor(a, device=dev) for a in seed_window(N, args.seed))
+
+    def counted_rollout(pos_w, temp_w, steps, **kw):
+        rollout(params, cfg, pos_w, temp_w, stats, 1, **gather_kw, **kw)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = rollout(params, cfg, pos_w, temp_w, stats, steps, **gather_kw, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        return out, dict(kernels.launches), start.elapsed_time(end) / steps
+
+    fallback_runs = (
+        ("clustered fallback", cpos, ctemp, dict(exactness_guard="fallback"),
+         {"knn_select": 1, "knn_brute": 1}),
+        ("clustered bruteforce", cpos, ctemp, dict(neighbor_method="bruteforce"),
+         {"knn_brute": 1}),
+        ("clustered flag", cpos, ctemp, {}, {"knn_select": 1}),
+        ("uniform fallback", upos, utemp, dict(exactness_guard="fallback"),
+         {"knn_select": 1, "knn_brute": 1}),
+        ("uniform flag", upos, utemp, {}, {"knn_select": 1}),
+    )
+    runs = {}
+    for label, pos_w, temp_w, kw, searches in fallback_runs:
+        out, launches, ms = runs[label] = counted_rollout(pos_w, temp_w, FALLBACK_STEPS, **kw)
+        per_step = {**searches, "fused_tail": mp}
+        expected = {name: c * FALLBACK_STEPS for name, c in per_step.items()}
+        if launches != {**zero, **expected}:
+            fail(f"{label}: launches {launches}, expected {expected}")
+        if not (bool(torch.isfinite(out["Coordinates"]).all())
+                and bool(torch.isfinite(out["InternalEnergy"]).all())):
+            fail(f"{label}: trajectory not finite")
+    flags = {label: run[0]["neighbor_exactness"].tolist() for label, run in runs.items()}
+    if any(flags["clustered fallback"]) or flags["clustered fallback"] != flags["clustered flag"]:
+        fail(f"clustered window: certificates {flags['clustered fallback']} (fallback), "
+             f"{flags['clustered flag']} (flag): must be false every step on both")
+    if not (all(flags["uniform fallback"]) and all(flags["uniform flag"])):
+        fail(f"uniform window: certificates {flags['uniform fallback']}, {flags['uniform flag']}")
+
+    def max_diff(a, b):
+        """Largest difference of the two trajectories (coordinates min-imaged,
+        box 1)."""
+        d_pos = runs[a][0]["Coordinates"] - runs[b][0]["Coordinates"]
+        d_temp = runs[a][0]["InternalEnergy"] - runs[b][0]["InternalEnergy"]
+        return max(float((d_pos - torch.round(d_pos)).abs().max()),
+                   float(d_temp.abs().max()))
+
+    def bit_equal(a, b):
+        return all(torch.equal(runs[a][0][key], runs[b][0][key])
+                   for key in ("Coordinates", "InternalEnergy"))
+
+    brute_diff = max_diff("clustered fallback", "clustered bruteforce")
+    if not brute_diff <= FALLBACK_TOL:
+        fail(f"clustered fallback differs from the brute-force rollout by {brute_diff}")
+    flag_diff = min(max_diff("clustered flag", "clustered fallback"),
+                    max_diff("clustered flag", "clustered bruteforce"))
+    if not flag_diff > 0:
+        fail("clustered window: the flag guard's trajectory equals the exact one")
+    if not bit_equal("uniform fallback", "uniform flag"):
+        fail(f"uniform fallback differs from the flag guard by "
+             f"{max_diff('uniform fallback', 'uniform flag')}")
+    brute_equal = bit_equal("clustered fallback", "clustered bruteforce")
+    print(f"fallback clustered: N={N}, {FALLBACK_STEPS} steps, certificate false every step, "
+          f"launches K1, K9 once and K5 {mp} times a step; trajectory "
+          f"{'bit-equal' if brute_equal else f'within {FALLBACK_TOL}'} to "
+          f"neighbor_method='bruteforce' (max diff {brute_diff:.3g}; K9 once, K1 never a "
+          f"step); the flag guard's differs by {flag_diff:.3g}; ms per step fallback "
+          f"{runs['clustered fallback'][2]:.4f}, bruteforce "
+          f"{runs['clustered bruteforce'][2]:.4f}, flag {runs['clustered flag'][2]:.4f}")
+    print(f"fallback uniform: certificate true every step, K9 launched gated every step, "
+          f"trajectory bit-equal to the flag guard's; ms per step fallback "
+          f"{runs['uniform fallback'][2]:.4f}, flag {runs['uniform flag'][2]:.4f}")
+    path_launches["fallback clustered"] = runs["clustered fallback"][1]
+    path_ms["gather fallback clustered"] = runs["clustered fallback"][2]
+    path_ms["gather fallback uniform"] = runs["uniform fallback"][2]
+
+    def sync_warnings(fn):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+
+    syncs = {}
+    for guard in ("flag", "fallback"):
+        counts = [len(sync_warnings(lambda s=steps: rollout(
+            params, cfg, upos, utemp, stats, s, exactness_guard=guard, **gather_kw)))
+            for steps in (2, 4)]
+        syncs[guard] = (counts, (counts[1] - counts[0]) / 2)
+    if syncs["fallback"] != syncs["flag"]:
+        fail(f"synchronizing calls (2-step, 4-step rollouts; per step) flag {syncs['flag']}, "
+             f"fallback {syncs['fallback']}: the fallback must add none")
+    print(f"synchronizing calls in a gather rollout from device tensors (2 and 4 steps; per "
+          f"step): flag {syncs['flag'][0]}, {syncs['flag'][1]:g}; fallback "
+          f"{syncs['fallback'][0]}, {syncs['fallback'][1]:g}")
+    # N = 8,192 on a clustered window: the card against the CPU plain path.
+    spos_c, stemp_c = clustered_window(SMALL_N, args.seed + 22)
+    small_kw = dict(num_neighbors=K, dtype=torch.bfloat16, exactness_guard="fallback")
+    small_gpu = rollout(params, cfg, spos_c, stemp_c, stats, SMALL_STEPS, device=dev, **small_kw)
+    small_cpu = rollout(params_cpu, cfg, spos_c, stemp_c, stats_cpu, SMALL_STEPS, device="cpu",
+                        fused_tail=True, **small_kw)
+    small_err = float((small_gpu["Coordinates"].cpu() - small_cpu["Coordinates"]).abs().max())
+    if not small_err <= SMALL_COORD_TOL or not torch.equal(
+            small_gpu["neighbor_exactness"].cpu(), small_cpu["neighbor_exactness"]):
+        fail(f"N={SMALL_N} clustered fallback: card vs CPU plain path max diff {small_err}, "
+             f"certificates {small_gpu['neighbor_exactness'].tolist()} vs "
+             f"{small_cpu['neighbor_exactness'].tolist()}")
+    print(f"fallback check: N={SMALL_N} clustered, {SMALL_STEPS} steps, certificates "
+          f"{small_cpu['neighbor_exactness'].tolist()} on both, card vs CPU plain path max "
+          f"coordinate diff {small_err:.3g} (tol {SMALL_COORD_TOL})")
+    del runs, cpos, ctemp
+    print(f"phase 13b fallback: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13c. sorted_state="on" -------------------------------------------
+    # The gather rollout with its window in cell-sorted order, re-sorted at
+    # each re-neighboring: bit-equal to the unsorted rollout on the
+    # (tie-free) seed window, at R = 1 and 2.
+    t0 = time.perf_counter()
+    sorted_ms = {}
+    for r in (1, 2):
+        expected = {"knn_select": STEPS // r, "fused_tail": STEPS * mp}
+        pair = {}
+        for state in ("on", "off"):
+            out, launches, sorted_ms[(state, r)] = counted_rollout(
+                upos, utemp, STEPS, sorted_state=state, reneighbor_every=r)
+            if launches != {**zero, **expected}:
+                fail(f"sorted_state={state} R={r}: launches {launches}, expected {expected}")
+            pair[state] = out
+        if not all(torch.equal(pair["on"][key], pair["off"][key]) for key in pair["on"]):
+            fail(f"sorted_state on vs off at R={r}: max diff "
+                 f"{float((pair['on']['Coordinates'] - pair['off']['Coordinates']).abs().max())}")
+    print(f"sorted_state: N={N}, {STEPS} steps, on bit-equal to off at R = 1 and 2 (certificate "
+          f"too); ms per step on {sorted_ms[('on', 1)]:.4f}, off {sorted_ms[('off', 1)]:.4f} "
+          f"(R=1), on {sorted_ms[('on', 2)]:.4f}, off {sorted_ms[('off', 2)]:.4f} (R=2)")
+    print(f"phase 13c sorted_state: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13d. evaluation at full width -----------------------------------
+    # validate_one_step on gather and hybrid over an in-memory synthetic
+    # simulation (bf16, 4 windows): exact launch counts, and every error the
+    # numpy MSE of a direct one_step_prediction of its window, bit for bit.
+    # Then render_rollout's body (the CLI after its HDF5 read) for 6 steps
+    # with --exactness_guard fallback into a temporary directory.
+    t0 = time.perf_counter()
+    eval_sim = generate_synthetic_simulation(num_snapshots=EVAL_SNAPSHOTS, num_particles=N,
+                                             seed=args.seed + 12)
+    eval_paths = (("gather", {"knn_select": 1, "fused_tail": mp}),
+                  ("cellblock_hybrid", {"knn_codes": 1, "s_decode": 1, "s_onehot": 1,
+                                        "window_matmul": mp, "fused_tail": mp}))
+    for aggregation, per_window in eval_paths:
+        kw = dict(num_neighbors=K, dtype=torch.bfloat16, aggregation=aggregation, device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        result = validate_one_step(params, cfg, eval_sim, stats, WINDOW,
+                                   num_timesteps=EVAL_WINDOWS, seed=args.seed, **kw)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        expected = {name: c * EVAL_WINDOWS for name, c in per_window.items()}
+        if launches != {**zero, **expected}:
+            fail(f"validate_one_step {aggregation}: launches {launches}, expected {expected}")
+        for i, t in enumerate(result["tested_timesteps"]):
+            new_pos, new_temp = one_step_prediction(
+                params, cfg, eval_sim["Coordinates"][t - WINDOW:t],
+                eval_sim["InternalEnergy"][t - WINDOW:t], stats, **kw)
+            pos_mse = float(np.mean((new_pos.cpu().numpy() - eval_sim["Coordinates"][t]) ** 2))
+            temp_mse = float(np.mean((new_temp.cpu().numpy()
+                                      - eval_sim["InternalEnergy"][t]) ** 2))
+            if (result["position_errors"][i], result["temperature_errors"][i]) != (pos_mse,
+                                                                                   temp_mse):
+                fail(f"validate_one_step {aggregation}: timestep {t} errors "
+                     f"{result['position_errors'][i]}, {result['temperature_errors'][i]} vs a "
+                     f"direct one_step_prediction's {pos_mse}, {temp_mse}")
+        if not (np.isfinite(result["position_error"])
+                and np.isfinite(result["temperature_error"])):
+            fail(f"validate_one_step {aggregation}: errors not finite: {result}")
+        path_launches[f"validate_one_step {aggregation}"] = launches
+        print(f"validate_one_step {aggregation}: N={N}, timesteps {result['tested_timesteps']}, "
+              f"position MSE {result['position_error']:.6e}, temperature MSE "
+              f"{result['temperature_error']:.6e}, each the MSE of a direct "
+              f"one_step_prediction bit for bit; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_render_") as render_dir:
+        render_args = render_rollout.parse_args([
+            "--model_path", "in-memory", "--test_data", "in-memory", "--metadata_path",
+            "in-memory", "--output_dir", render_dir, "--num_steps", str(RENDER_STEPS),
+            "--num_neighbors", str(K), "--exactness_guard", "fallback", "--device", "cuda"])
+        ground_truth = {key: eval_sim[key] for key in ("Coordinates", "InternalEnergy")}
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with contextlib.redirect_stdout(printed):
+            errors = render_rollout.render(render_args, params, cfg, stats, ground_truth)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        printed = printed.getvalue()
+        files = sorted(os.listdir(render_dir))
+        coords_npy = np.load(os.path.join(render_dir, "rollout_coordinates.npy"))
+        temps_npy = np.load(os.path.join(render_dir, "rollout_temperatures.npy"))
+        with open(os.path.join(render_dir, "rollout_summary.txt")) as f:
+            summary = f.read()
+    # The CLI's own default: float32, so no fused tail (K5 takes bf16 only);
+    # the exactness check of the seed frame runs the plain cell list. The
+    # random weights bunch the particles within a few steps, so the
+    # certificate may fail: the fallback's K9 runs, gated or not, every step.
+    expected = {"knn_select": RENDER_STEPS, "knn_brute": RENDER_STEPS}
+    if launches != {**zero, **expected}:
+        fail(f"render_rollout: launches {launches}, expected {expected}")
+    frames = WINDOW + RENDER_STEPS
+    plotted = "errors.png" in files
+    summary_lines = ("Rollout Summary", "Model: in-memory", f"Number of particles: {N}",
+                     f"Window size: {WINDOW}", f"Time steps simulated: {RENDER_STEPS}",
+                     "Mean position MSE: ", "Mean temperature MSE: ")
+    if (coords_npy.shape != (frames, N, 3) or temps_npy.shape != (frames, N, 1)
+            or not np.isfinite(coords_npy).all() or not np.isfinite(temps_npy).all()
+            or not all(line in summary for line in summary_lines)
+            or not np.isfinite(errors["position_errors"]).all()
+            or len(errors["position_errors"]) != frames
+            or not re.search(r"kNN exactness certificate held for every rollout step|"
+                             r"NOTE: \d+/\d+ steps failed the bucketed-kNN certificate and "
+                             r"were rerun with exact brute force", printed)
+            or (not plotted and "plotting skipped" not in printed)):
+        fail(f"render_rollout: files {files}, shapes {coords_npy.shape}, {temps_npy.shape}, "
+             f"summary {summary!r}, printed {printed!r}")
+    guard_line = next(line for line in printed.splitlines()
+                      if "certificate" in line)
+    print(f"render_rollout body: N={N}, {RENDER_STEPS} steps, --exactness_guard fallback "
+          f"('{guard_line}'), files {files}, trajectories "
+          f"{coords_npy.shape} and {temps_npy.shape} finite, summary with the JAX CLI's lines, "
+          f"mean position MSE {errors['mean_position_error']:.6e}, "
+          f"{'errors.png written' if plotted else 'plotting skipped (no matplotlib)'}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    path_launches["render_rollout"] = launches
+    print(f"phase 13d evaluation: {time.perf_counter() - t0:.1f} s")
 
     # ---- 12. kernels line ------------------------------------------------
     kernels_line = []

@@ -124,19 +124,23 @@ def build_train_parser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for a flag whose path the port does not
-    have yet, naming the ROADMAP queue 1 item that ports it."""
+    have yet, naming the ROADMAP queue 1 item that ports it. A flag the
+    parser lacks (the eval CLIs have fewer) counts as not given."""
+    def flag(name, default=None):
+        return getattr(args, name, default)
+
     unported = [
-        (args.aggregation == "cellblock", "--aggregation cellblock (the slot-space carry)", 4),
-        (args.cellblock_variable, "--cellblock_variable", 4),
-        (args.carry_dtype == "bfloat16", "--carry_dtype bfloat16", 4),
-        (args.data_parallel, "--data_parallel", 5),
-        ((args.spatial_shards or 0) > 1, "--spatial_shards > 1", 5),
-        (args.distributed, "--distributed", 5),
-        (args.native_loader, "--native_loader", 6),
+        (flag("aggregation") == "cellblock", "--aggregation cellblock (the slot-space carry)", 4),
+        (flag("cellblock_variable"), "--cellblock_variable", 4),
+        (flag("carry_dtype") == "bfloat16", "--carry_dtype bfloat16", 4),
+        (flag("data_parallel"), "--data_parallel", 5),
+        ((flag("spatial_shards") or 0) > 1, "--spatial_shards > 1", 5),
+        (flag("distributed"), "--distributed", 5),
+        (flag("native_loader"), "--native_loader", 6),
     ]
-    for given, flag, item in unported:
+    for given, name, item in unported:
         if given:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP queue 1 item {item})")
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1 item {item})")
 
 
 def get_config(argv=None):

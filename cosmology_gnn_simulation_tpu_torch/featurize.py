@@ -39,6 +39,68 @@ def node_feature_size(window_size: int) -> int:
 _CELL_LIST_MIN_N = 8192
 
 
+def resolve_neighbor_method(n: int, k: int, method: str = "auto", *,
+                            self_query: bool = True) -> str:
+    """The search that serves ``method`` for ``n`` reference particles:
+    ``"pallas"`` (the cell-list kernel K1, self-queries only), ``"celllist"``
+    (the plain PyTorch cell list) or ``"bruteforce"``. ``"auto"`` picks brute
+    force below 8192 particles, else K1 for self-queries and the cell list
+    for separate queries (the JAX package picks its XLA cell list off the
+    TPU for both); brute force also serves when no grid of >= 3 cells per
+    edge exists."""
+    if method not in ("auto", "pallas", "celllist", "bruteforce"):
+        raise ValueError(f"unknown neighbor method: {method}")
+    if method == "auto":
+        if n < _CELL_LIST_MIN_N:
+            return "bruteforce"
+        method = "pallas"
+    if method == "pallas" and not self_query:
+        method = "celllist"
+    if method != "bruteforce" and choose_cell_grid(n, k).grid_size < 3:
+        method = "bruteforce"
+    return method
+
+
+def neighbor_search(
+    positions: torch.Tensor,
+    k: int,
+    box_size,
+    *,
+    queries: Optional[torch.Tensor] = None,
+    method: str = "auto",
+    query_tile: int = 512,
+    with_codes: bool = False,
+    codes_only: bool = False,
+):
+    """k-NN search without its certificate: ``[Q, k]`` int64 indices into
+    ``positions`` of the k nearest of each of ``queries`` (default: the
+    particles themselves). ``method`` as ``resolve_neighbor_method``:
+    separate queries go to the plain cell list (``"auto"`` and
+    ``"pallas"``) or to brute force.
+
+    ``with_codes=True`` returns ``(neighbors, codes, codes_cap, spill)``:
+    K1's candidate codes for the cell-block plan build where K1 serves (in
+    its dual mode, or with ``codes_only`` its codes mode, ``neighbors``
+    then ``None``), else the neighbors and three ``None``.
+    """
+    n = positions.shape[0]
+    self_query = queries is None or queries is positions
+    method = resolve_neighbor_method(n, k, method, self_query=self_query)
+    grid = choose_cell_grid(n, k)
+    if method == "pallas":
+        if with_codes:
+            idx, codes, spill = pallas_cell_list_knn(positions, k, box_size, grid,
+                                                     with_codes=True, codes_only=codes_only)
+            return idx, codes, codes_packing_cap(n, k, grid), spill
+        return pallas_cell_list_knn(positions, k, box_size, grid)
+    if method == "celllist":
+        idx = cell_list_knn(positions, k, box_size, grid, queries=queries,
+                            query_tile=max(query_tile, 4096))
+    else:
+        idx = knn_periodic(positions, k, box_size, queries=queries, query_tile=query_tile)
+    return (idx, None, None, None) if with_codes else idx
+
+
 def neighbor_search_certified(
     positions: torch.Tensor,
     k: int,
@@ -59,10 +121,10 @@ def neighbor_search_certified(
     ``method``: ``"pallas"`` is the cell-list kernel K1 (the JAX package's
     name for its fused cell-list kernel); ``"celllist"`` the plain PyTorch
     cell list (``ops.cell_list.cell_list_knn``, the JAX package's XLA
-    search); ``"bruteforce"`` the exact tiled search; ``"auto"`` picks brute
-    force below 8192 particles, else K1 (the JAX package picks its XLA cell
-    list off the TPU). Brute force also serves when no grid of >= 3 cells
-    per edge exists.
+    search); ``"bruteforce"`` the exact search (K9 on the card); ``"auto"``
+    picks brute force below 8192 particles, else K1 (the JAX package picks
+    its XLA cell list off the TPU). Brute force also serves when no grid of
+    >= 3 cells per edge exists (``resolve_neighbor_method``).
 
     ``with_codes=True`` returns ``(neighbors, codes, codes_cap, spill,
     exact)``: the cell-list kernel's candidate codes, their packing
@@ -71,13 +133,10 @@ def neighbor_search_certified(
     dual mode K1'' (ids and codes); with ``codes_only`` in its codes mode
     K1', and ``neighbors`` is ``None``.
     """
-    if method not in ("auto", "pallas", "celllist", "bruteforce"):
-        raise ValueError(f"unknown neighbor method: {method}")
     n = positions.shape[0]
-    if method == "auto":
-        method = "bruteforce" if n < _CELL_LIST_MIN_N else "pallas"
+    method = resolve_neighbor_method(n, k, method)
     grid = choose_cell_grid(n, k)
-    if method == "bruteforce" or grid.grid_size < 3:
+    if method == "bruteforce":
         idx = knn_periodic(positions, k, box_size, query_tile=query_tile)
         exact = torch.ones((), dtype=torch.bool, device=positions.device)
         return (idx, None, None, None, exact) if with_codes else (idx, exact)

@@ -34,10 +34,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 SOURCES = ("knn_select", "fused_tail", "fused_tail_bwd", "s_decode", "s_onehot",
-           "window_matmul", "reverse_table", "dense_select")
+           "window_matmul", "reverse_table", "dense_select", "knn_brute")
 KERNELS = ("knn_select", "knn_codes", "knn_dual", "s_decode", "dense_select", "s_onehot",
            "reverse_table", "window_matmul", "window_matmul_t", "fused_tail",
-           "fused_tail_bwd")
+           "fused_tail_bwd", "knn_brute")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -123,25 +123,43 @@ def window_margin_sq(queries: torch.Tensor, box: torch.Tensor, grid: CellGrid) -
 
 
 
+def cell_sort_order(positions: torch.Tensor, k: int, box_size) -> torch.Tensor:
+    """Stable cell-sort permutation of ``positions`` on the exactness grid
+    (``choose_cell_grid(N, k)``): int64 ``[N]``, particles ordered by cell
+    id ``(cx * G + cy) * G + cz``, ties in index order. The identity when no
+    grid of >= 3 cells per edge exists. The ``sorted_state`` rollout carries
+    its state in this order."""
+    n = positions.shape[0]
+    g = choose_cell_grid(n, k).grid_size
+    if g < 3:
+        return torch.arange(n, device=positions.device)
+    c = cell_coords(positions.float(), g, f32(box_size, positions.device))
+    cell_id = (c[:, 0] * g + c[:, 1]) * g + c[:, 2]
+    return torch.sort(cell_id, stable=True)[1]
+
+
 def cell_list_knn(
     positions: torch.Tensor,
     k: int,
     box_size,
     grid: CellGrid,
     *,
+    queries: Optional[torch.Tensor] = None,
     query_tile: int = 8192,
     return_diagnostics: bool = False,
 ):
-    """Periodic self-query k-NN through the cell list (the JAX package's
-    XLA ``cell_list_knn``): per query, the ``[27 * C]`` candidate ids of its
+    """Periodic k-NN through the cell list (the JAX package's XLA
+    ``cell_list_knn``): per query, the ``[27 * C]`` candidate ids of its
     3x3x3 cells (``C = grid.cell_capacity``; particles past it are dropped
     and counted), min-image ``d^2 = (dx^2 + dy^2) + dz^2``, and the k
     smallest by a stable sort (the smallest lane wins exact ties, as
     ``lax.top_k``). Missing picks repeat the row's first pick.
 
-    Returns ``[N, k]`` int64 neighbor indices (ascending distance), plus
-    ``(overflow, max_d2, max_excess)`` if requested: exact iff
-    ``overflow == 0`` and ``max_excess <= 0`` (``window_margin_sq``).
+    ``queries`` ``[Q, 3]`` are searched against the reference set
+    ``positions`` ``[N, 3]`` (default: the particles themselves). Returns
+    ``[Q, k]`` int64 indices into ``positions`` (ascending distance), plus
+    ``(overflow, max_d2, max_excess)`` over the queries if requested: exact
+    iff ``overflow == 0`` and ``max_excess <= 0`` (``window_margin_sq``).
     ``query_tile`` queries are searched at a time.
     """
     g, cap = grid.grid_size, grid.cell_capacity
@@ -151,6 +169,7 @@ def cell_list_knn(
     dev = positions.device
     box = f32(box_size, dev)
     positions = positions.float()
+    queries = positions if queries is None else queries.float()
     coords = cell_coords(positions, g, box)
     cell_id = (coords[:, 0] * g + coords[:, 1]) * g + coords[:, 2]
     b = bin_by_key(cell_id, g**3, cap)
@@ -158,8 +177,8 @@ def cell_list_knn(
     planes = [torch.cat([positions[:, d], positions.new_zeros(1)]) for d in range(3)]
     offsets = neighbor_offsets(dev)
     idx_tiles, d2_tiles = [], []
-    for start in range(0, n, query_tile):
-        q = positions[start:start + query_tile]
+    for start in range(0, queries.shape[0], query_tile):
+        q = queries[start:start + query_tile]
         ncells = torch.remainder(cell_coords(q, g, box)[:, None, :] + offsets, g)
         ncell_id = (ncells[..., 0] * g + ncells[..., 1]) * g + ncells[..., 2]
         cand = table[ncell_id].reshape(q.shape[0], -1)
@@ -178,5 +197,5 @@ def cell_list_knn(
     if not return_diagnostics:
         return idx
     d2 = torch.cat(d2_tiles)
-    excess = d2.max(dim=1).values - window_margin_sq(positions, box, grid)
+    excess = d2.max(dim=1).values - window_margin_sq(queries, box, grid)
     return idx, (b.overflow, d2.max(), excess.max())

@@ -22,18 +22,20 @@ import torch
 from cosmology_gnn_simulation_tpu_torch.featurize import (
     featurize,
     neighbor_search_certified,
+    resolve_neighbor_method,
 )
 from cosmology_gnn_simulation_tpu_torch.models.encode_process_decode import (
     EncodeProcessDecodeConfig,
     apply_encode_process_decode,
 )
-from cosmology_gnn_simulation_tpu_torch.ops.cell_list import choose_cell_grid
+from cosmology_gnn_simulation_tpu_torch.ops.cell_list import cell_sort_order, choose_cell_grid
 from cosmology_gnn_simulation_tpu_torch.ops.cellblock import (
     build_cellblock,
     choose_cellblock_spec,
     choose_dense_search_spec,
 )
 from cosmology_gnn_simulation_tpu_torch.ops.fused_step import resolve_fused_tail
+from cosmology_gnn_simulation_tpu_torch.ops.neighbors import knn_periodic
 from cosmology_gnn_simulation_tpu_torch.ops.periodic import (
     min_image_displacement,
     wrap_positions,
@@ -100,6 +102,7 @@ def rollout(
     fused_tail: Optional[bool] = None,
     cellblock_search: str = "auto",
     dense_search_spec=None,
+    sorted_state: str = "auto",
     device="cuda",
 ) -> Dict[str, torch.Tensor]:
     """Roll the learned simulator forward ``num_steps`` steps.
@@ -111,9 +114,13 @@ def rollout(
         reference semantics, re-neighbors every step); reused steps inherit
         the certificate of the search that built their table.
       exactness_guard: ``"flag"`` returns the per-step certificate as
-        ``neighbor_exactness [num_steps]``; ``"off"`` skips it.
-        ``"fallback"`` (brute-force rerun of failing steps) is not ported
-        yet and raises ``NotImplementedError``.
+        ``neighbor_exactness [num_steps]``; ``"off"`` skips it;
+        ``"fallback"`` also reruns the search by exact brute force at each
+        re-neighboring whose certificate fails (gather only), overwriting
+        the search's ids in place: on the card K9 reads the certificate
+        itself and returns at once where it holds, so no step waits for
+        the host. ``neighbor_exactness`` still reports the search's own
+        certificate, as in the JAX package.
       aggregation: ``"gather"``, or ``"cellblock_hybrid"``: the selection-
         matrix aggregation (a plan each re-neighboring, K4 each
         message-passing step) with the carry on the N particle rows, the
@@ -129,6 +136,11 @@ def rollout(
         served (brute force below 8192 particles with ``"auto"``), it is
         built from neighbor ids (the aux path; K1'' when the kernel
         searches). ``cellblock_variable`` is not ported.
+      sorted_state: ``"on"`` carries the gather rollout's window in
+        cell-sorted order (``ops.cell_list.cell_sort_order``), re-sorted at
+        each re-neighboring, with outputs in the original order: the same
+        numbers on tie-free data. ``"auto"`` resolves to ``"off"``, as in
+        the JAX package. The cell-block path always rides sorted.
       cellblock_search: ``"auto"`` and ``"codes"``: the search round above;
         ``"dense"``: the fused dense-query search K8 inside the plan build
         (uniform cubic specs only), whose certificate also requires no
@@ -167,8 +179,8 @@ def rollout(
                 "the slot-space aggregation='cellblock' and cellblock_variable "
                 "are not ported; use aggregation='cellblock_hybrid'"
             )
-    if exactness_guard == "fallback":
-        raise NotImplementedError("exactness_guard='fallback' is not ported yet")
+    if sorted_state not in ("auto", "on", "off"):
+        raise ValueError(f"unknown sorted_state: {sorted_state}")
     if cellblock_search not in ("auto", "dense", "codes"):
         raise ValueError(f"unknown cellblock_search: {cellblock_search}")
     pruned = (
@@ -192,12 +204,18 @@ def rollout(
                 raise ValueError("cellblock_search='dense' requires the uniform cubic "
                                  "periodic layout")
             dspec = dense_search_spec or choose_dense_search_spec(n, spec)
+    sort_gather = spec is None and sorted_state == "on"
+    # Brute force is exact by construction: a fallback behind it reruns
+    # nothing.
+    fallback = exactness_guard == "fallback" and resolve_neighbor_method(
+        pos_window.shape[1], num_neighbors, neighbor_method) != "bruteforce"
     positions, temperatures, exactness = [], [], []
     neighbors = plan = exact = None
-    # On the cell-block path the window rides in cell-sorted order, re-sorted
-    # at each re-neighboring (the plan and the window order must agree);
-    # inv_ids maps each original particle to its current row, so outputs
-    # stay in original order. None: the window keeps the original order.
+    # On the cell-block path (and the gather path with sorted_state="on")
+    # the window rides in cell-sorted order, re-sorted at each
+    # re-neighboring (the plan and the window order must agree); inv_ids
+    # maps each original particle to its current row, so outputs stay in
+    # original order. None: the window keeps the original order.
     inv_ids = None
     for step in range(num_steps):
         if step % reneighbor_every == 0:
@@ -205,17 +223,26 @@ def rollout(
             # unwrapped coordinates.
             wrapped = wrap_positions(pos_window[-1], box)
             if spec is None:
+                if sort_gather:
+                    order = cell_sort_order(wrapped, num_neighbors, box)
+                    wrapped = wrapped[order]
+                    pos_window, temp_window, inv_ids = _resort(pos_window, temp_window,
+                                                               inv_ids, order)
                 neighbors, exact = neighbor_search_certified(
                     wrapped, num_neighbors, box,
                     method=neighbor_method, query_tile=neighbor_query_tile,
                 )
+                if fallback:
+                    # Overwritten in place by exact brute force where the
+                    # certificate fails; read on the device, not here.
+                    neighbors = knn_periodic(wrapped, num_neighbors, box,
+                                             query_tile=neighbor_query_tile,
+                                             skip_if=exact, out=neighbors)
             else:
                 plan, exact = _cellblock_plan(wrapped, num_neighbors, box, spec, dspec,
                                               neighbor_method, neighbor_query_tile)
-                pos_window = _permute_window(pos_window, plan.order)
-                temp_window = _permute_window(temp_window, plan.order)
-                inv_order = _inverse(plan.order)
-                inv_ids = inv_order if inv_ids is None else inv_order[inv_ids]
+                pos_window, temp_window, inv_ids = _resort(pos_window, temp_window, inv_ids,
+                                                           plan.order)
         graph = featurize(pos_window, temp_window, stats, neighbors,
                           build_edges=not pruned)._replace(cellblock=plan)
         acceleration, temp_rate = _predict_physical(
@@ -273,10 +300,13 @@ def _cellblock_plan(wrapped, k, box, spec, dspec, method, tile):
     return plan, exact & (plan.overflow == 0) & (plan.dropped_edges == 0)
 
 
-def _inverse(order: torch.Tensor) -> torch.Tensor:
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.shape[0], device=order.device)
-    return inv
+def _resort(pos_window, temp_window, inv_ids, order):
+    """Permute the windows' rows by ``order`` and fold it into ``inv_ids``
+    (original particle -> current row; ``None`` = the identity)."""
+    inv_order = torch.empty_like(order)
+    inv_order[order] = torch.arange(order.shape[0], device=order.device)
+    return (_permute_window(pos_window, order), _permute_window(temp_window, order),
+            inv_order if inv_ids is None else inv_order[inv_ids])
 
 
 def one_step_prediction(

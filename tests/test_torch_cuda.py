@@ -21,7 +21,9 @@ false, on the aux spec, two small edge specs and two wide ones (rev_lanes
 frames too.
 K1'' (ids and codes together) and K8 (the dense-query search) are exact:
 equal ids, codes and lanes, bit-equal k-th distances, equal plans and
-certificates.
+certificates. K9 (the brute-force k-NN gated on the device) is exact too:
+equal ids and bit-equal squared distances, and a set gate leaves its
+output buffers bit for bit.
 K6 rounds its operands to bf16 where its plain version does, and sums in
 another order (its weight gradients over 65,536 rows). A last-bit
 difference can also flip a ReLU mask where a pre-activation is within
@@ -55,7 +57,10 @@ from cosmology_gnn_simulation_tpu_torch.ops.fused_step import (
     fused_step_tail_bwd_reference,
     fused_step_tail_reference,
 )
-from cosmology_gnn_simulation_tpu_torch.ops.neighbors import knn_periodic
+from cosmology_gnn_simulation_tpu_torch.ops.neighbors import (
+    knn_periodic,
+    knn_periodic_reference,
+)
 from cosmology_gnn_simulation_tpu_torch.ops.pallas_knn import (
     codes_packing_cap,
     pallas_cell_list_knn,
@@ -105,7 +110,7 @@ def test_knn_kernel_matches_plain_version(cuda_device, case):
     if case in CLUSTERED:  # uncertified: the spill block overflows
         assert int(diag[0]) > 0
     elif case != "lattice":  # ties: brute force may pick another equal-distance set
-        ref = knn_periodic(pos.to(cuda_device), k, 1.0)
+        ref = knn_periodic_reference(pos.to(cuda_device), k, 1.0)
         assert all(set(a) == set(b) for a, b in zip(idx.tolist(), ref.tolist()))
 
 
@@ -892,3 +897,119 @@ def test_one_step_prediction_on_the_card_is_the_first_rollout_frame(cuda_device,
                                atol=1e-6, rtol=0)
     np.testing.assert_allclose(new_temp.cpu().numpy(),
                                ref["InternalEnergy"][-1].cpu().numpy(), atol=1e-6, rtol=0)
+
+
+_BRUTE_CASES = ["uniform", "clustered30", "lattice", "queries"]
+
+
+def _brute_case(case, n=65536):
+    """(reference set, queries or None): a uniform frame; the clustered30
+    frame (the certificate fails there); the uniform frame on the 2^-10
+    lattice (exactly equal distances: the tie order); 10,000 separate
+    queries against the uniform frame."""
+    if case == "clustered30":
+        return torch.from_numpy(clustered_positions(n, case)), None
+    pos = torch.rand(n, 3, generator=torch.Generator().manual_seed(7))
+    if case == "lattice":
+        return torch.remainder(torch.round(pos * 1024) / 1024, 1.0), None
+    if case == "queries":
+        return pos, torch.rand(10000, 3, generator=torch.Generator().manual_seed(8))
+    return pos, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _BRUTE_CASES)
+def test_knn_brute_kernel_matches_plain_version(cuda_device, case):
+    pos, queries = (None if t is None else t.to(cuda_device) for t in _brute_case(case))
+    ref_ids, ref_d2 = knn_periodic_reference(pos, 48, 1.0, queries=queries,
+                                             return_distances=True)
+    for k in (16, 48):
+        kernels.reset_launches()
+        ids, d2 = knn_periodic(pos, k, 1.0, queries=queries, return_distances=True)
+        torch.cuda.synchronize()
+        assert kernels.launches["knn_brute"] == 1
+        assert torch.equal(ids, ref_ids[:, :k])
+        assert torch.equal(d2.view(torch.int32), ref_d2[:, :k].contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_knn_brute_gate_keeps_or_overwrites_the_buffer(cuda_device):
+    pos = torch.from_numpy(clustered_positions(8192, "clustered30")).to(cuda_device)
+    ids = torch.full((8192, 16), -7, dtype=torch.int64, device=cuda_device)
+    d2 = torch.full((8192, 16), -1.5, device=cuda_device)
+    before = (ids.clone(), d2.clone())
+    gate = torch.ones((), dtype=torch.bool, device=cuda_device)
+    out = knn_periodic(pos, 16, 1.0, return_distances=True, skip_if=gate, out=(ids, d2))
+    torch.cuda.synchronize()
+    assert out[0] is ids and out[1] is d2
+    assert torch.equal(ids, before[0]) and torch.equal(d2.view(torch.int32),
+                                                       before[1].view(torch.int32))
+    gate.fill_(False)
+    knn_periodic(pos, 16, 1.0, return_distances=True, skip_if=gate, out=(ids, d2))
+    ref_ids, ref_d2 = knn_periodic_reference(pos, 16, 1.0, return_distances=True)
+    assert torch.equal(ids, ref_ids) and torch.equal(d2.view(torch.int32),
+                                                     ref_d2.view(torch.int32))
+    with pytest.raises(ValueError, match="skip_if needs the buffer"):
+        knn_periodic(pos, 16, 1.0, skip_if=gate)
+    with pytest.raises(ValueError, match="contiguous"):
+        knn_periodic(pos, 16, 1.0, skip_if=gate, out=torch.empty((8192, 16), dtype=torch.int32,
+                                                                  device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_fallback_rollout_on_the_card_goes_through_its_kernels(cuda_device):
+    """On a clustered window (certificate false every step) the fallback
+    runs K1, K9 and K5 each step, equals the brute-force rollout and the
+    CPU plain path; on a uniform one K9 runs gated and changes nothing."""
+    cfg = default_model_config(num_message_passing_steps=2)
+    n = 8192
+    rng = np.random.default_rng(9)
+    base = clustered_positions(n, "clustered30")[None]
+    pos = np.remainder(base + rng.normal(0, 5e-4, (5, n, 3)).cumsum(0), 1.0).astype(np.float32)
+    temp = np.abs(rng.normal(1.0, 0.3, (5, n, 1))).astype(np.float32)
+    upos, utemp = _route_inputs(6)
+    kw = dict(num_neighbors=16, dtype=torch.bfloat16)
+    runs, launches = {}, {}
+    for label, dev, p, t, extra in (
+            ("cpu", "cpu", pos, temp, dict(exactness_guard="fallback", fused_tail=True)),
+            ("fallback", cuda_device, pos, temp, dict(exactness_guard="fallback")),
+            ("bruteforce", cuda_device, pos, temp, dict(neighbor_method="bruteforce")),
+            ("uniform fallback", cuda_device, upos, utemp, dict(exactness_guard="fallback")),
+            ("uniform flag", cuda_device, upos, utemp, {})):
+        params = init_encode_process_decode(cfg, torch.Generator().manual_seed(0), device=dev)
+        kernels.reset_launches()
+        runs[label] = rollout(params, cfg, p, t,
+                              NormalizationStats.from_metadata(METADATA, device=dev), 2,
+                              device=dev, **kw, **extra)
+        torch.cuda.synchronize()
+        launches[label] = dict(kernels.launches)
+    zero = dict.fromkeys(kernels.KERNELS, 0)
+    assert launches["fallback"] == {**zero, "knn_select": 2, "knn_brute": 2, "fused_tail": 4}
+    assert launches["bruteforce"] == {**zero, "knn_brute": 2, "fused_tail": 4}
+    assert launches["uniform fallback"] == launches["fallback"]
+    assert not runs["fallback"]["neighbor_exactness"].any()
+    np.testing.assert_array_equal(runs["fallback"]["neighbor_exactness"].cpu().numpy(),
+                                  runs["cpu"]["neighbor_exactness"].numpy())
+    np.testing.assert_allclose(runs["fallback"]["Coordinates"].cpu().numpy(),
+                               runs["bruteforce"]["Coordinates"].cpu().numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(runs["fallback"]["Coordinates"].cpu().numpy(),
+                               runs["cpu"]["Coordinates"].numpy(), atol=1e-5, rtol=0)
+    assert runs["uniform fallback"]["neighbor_exactness"].all()
+    for key in ("Coordinates", "InternalEnergy", "neighbor_exactness"):
+        assert torch.equal(runs["uniform fallback"][key], runs["uniform flag"][key])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reneighbor_every", [1, 2])
+def test_sorted_state_rollout_on_the_card_is_bit_equal(cuda_device, reneighbor_every):
+    cfg = default_model_config(num_message_passing_steps=2)
+    pos, temp = _route_inputs(7)
+    params = init_encode_process_decode(cfg, torch.Generator().manual_seed(0),
+                                        device=cuda_device)
+    stats = NormalizationStats.from_metadata(METADATA, device=cuda_device)
+    runs = {state: rollout(params, cfg, pos, temp, stats, 4, num_neighbors=16,
+                           dtype=torch.bfloat16, sorted_state=state,
+                           reneighbor_every=reneighbor_every, device=cuda_device)
+            for state in ("on", "off")}
+    for key in runs["off"]:
+        assert torch.equal(runs["on"][key], runs["off"][key]), key

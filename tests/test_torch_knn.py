@@ -281,7 +281,8 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('training.trainer', 'training.losses', 'ops.aggregation', 'ops.noise',\n"
-        "          'cli.train', 'data.dataset', 'utils.checkpoint', 'metadata'):\n"
+        "          'cli.train', 'data.dataset', 'utils.checkpoint', 'metadata', 'evaluation',\n"
+        "          'cli.one_step_test', 'cli.render_rollout', 'cli.rollout_conversion'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         # Run this slice's routes on the CPU too: the dense search, the plain
         # cell list, the dual-mode k-NN and the plans from neighbor ids.

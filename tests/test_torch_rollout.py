@@ -204,9 +204,13 @@ def test_unported_options_raise():
     _, tparams = _params(jcfg)
     pos, temp = _seed_window(64)
     stats = NormalizationStats.from_metadata(METADATA, device="cpu")
-    with pytest.raises(NotImplementedError):
-        rollout(tparams, tcfg, pos, temp, stats, 1, exactness_guard="fallback",
-                device="cpu")
+    # The brute-force fallback is ported: it runs on the CPU (brute force
+    # serves below 8,192 particles, so it equals the flag guard here).
+    guarded = rollout(tparams, tcfg, pos, temp, stats, 1, exactness_guard="fallback",
+                      device="cpu")
+    flagged = rollout(tparams, tcfg, pos, temp, stats, 1, device="cpu")
+    for key in flagged:
+        assert torch.equal(guarded[key], flagged[key]), key
     with pytest.raises(NotImplementedError):
         rollout(tparams, tcfg, pos, temp, stats, 1, aggregation="cellblock",
                 device="cpu")
