@@ -131,6 +131,37 @@ each timed on its own line:
      HDF5 read) for 6 steps with --exactness_guard fallback: K1 and K9
      each step, both .npy trajectories, the summary with the JAX CLI's
      lines, finite errors, the plot or the "plotting skipped" line;
+ 14a. K5 and K6 at width 256 (f32 and bf16 carry) and at width 128 with a
+     bf16 carry (the width-general variants) against their plain versions
+     at the config-4 slot count (606,368 rows, f32 agg), with phase 3's
+     tolerances (a bf16 carry's output: one more bf16 rounding); events,
+     graph_ms and bounds; their -Xptxas -v lines are phase 1's;
+ 14b. the config-4 variable plan at N = 500,000, k = 32 (the chooser's
+     variable spec, printed) on the seed frame: K1' codes and kth, K2's
+     offsets and dropped count and K7's table and total bit-equal to their
+     plain versions on the card, and the plan build's S, S_rev, overflow and
+     reverse_mismatch equal to the plain plan's (every step of the build in
+     its plain version); K4 and K4^T at H = 256 on that plan against their
+     plain versions with phase 4's tolerances; K2, K7, K4 and K4^T timed
+     (events and CUDA graph);
+ 14c. the config-4 rollout (latent = hidden = 256, 15 message-passing
+     steps, bf16, k = 32, aggregation="cellblock"), variable and uniform: 1
+     warm-up and 4 timed steps, exact launches (per step K1', K2, K3 once,
+     K4 and K5 15 times), the certificate true on the 2 steps the JAX
+     benchmark asserts (every step's printed; on a step where it is false,
+     that frame's K1' codes bit-equal to their plain version and its plan's
+     overflow, dropped edges and window_overflow equal to the plain plan's),
+     trajectory finite, ms per
+     step and peak memory; at N = 65,536 (k = 16) a 2-step slots rollout
+     within 2e-4 of the hybrid rollout on the same spec, variable and
+     uniform;
+ 14d. the config-4 train step (slots, variable, fused tail, remat_chunk=5,
+     carry_dtype="bfloat16", batch 1, noise 3e-4, Adam): 1 warm-up and 2
+     timed steps, losses finite, exact launches (K4 and K5 42 times a step
+     under the recomputation), cellblock_violations of a noise-free step
+     equal to the plain plan's count on its frame, ms per step and peak
+     memory; at N = 8,192 one step (noise 0, SGD lr 1) on the card against
+     the CPU plain path: loss within 1e-3, each gradient leaf within 5e-2;
  12. one JSON line of every ported kernel: launches on its path, time, bound,
      plain version's time, library yardstick's time.
 
@@ -204,6 +235,24 @@ BRUTE_QUERIES, FALLBACK_STEPS, FALLBACK_TOL = 10000, 4, 1e-6
 # Evaluation: an in-memory synthetic simulation of 12 snapshots (6 start
 # indices), 4 one-step windows, a 6-step render.
 EVAL_SNAPSHOTS, EVAL_WINDOWS, RENDER_STEPS = 12, 4, 6
+# Config 4 (the JAX package's BASELINE config 4, benchmarks/bench_config4.py):
+# N = 500,000, k = 32, latent = hidden = 256, 15 message-passing steps.
+C4_N, C4_K, C4_WIDTH, C4_MP = 500000, 32, 256, 15
+C4_ROLLOUT_STEPS, C4_TRAIN_STEPS, C4_REMAT_CHUNK = 4, 2, 5
+# The steps from the seed window whose certificate the JAX benchmark asserts
+# (bench_config4.py:97-100: a 2-step rollout). Later steps of the random-
+# weight dynamics can drop an edge in the variable spec, whose windows (W 384
+# at QB 224, the TPU-tuned chooser's) are tighter than the uniform spec's (QB
+# 192): the certificate flags it, and the script prints each step's.
+C4_CERTIFIED_STEPS = 2
+# A bf16 carry's output is rounded to bf16 on both sides from f32 values
+# that differ in the last bits: one bf16 ulp at |v| in [4, 8) is 2^-5.
+K5_BF16_MAX_ABS_TOL, K5_BF16_MEAN_ABS_TOL = 1e-1, 4e-3
+# At width 256 twice the terms meet each ReLU and more masks flip than at
+# 128 (1.2e-5 of dagg's entries at 65,536 rows in the cuda tests): the
+# share of K6's entries allowed off.
+K6_WIDE_OFF_SHARE = 5e-5
+C4_SLOTS_TOL = 2e-4  # slots against hybrid (JAX tests/test_cellblock_rollout.py)
 
 METADATA = {
     "temp_mean": 1.0, "temp_std": 0.3, "temp_rate_mean": 0.0,
@@ -387,6 +436,436 @@ def mostly_close(a, b, rel, mean_rel):
     off = int((err > rel * float(b.abs().max())).sum())
     ok = off <= 1e-5 * b.numel() and float(err.mean()) <= mean_rel * float(b.abs().mean())
     return ok, float(err.max())
+
+
+def config4_phases(args, dev, report, path_launches, zero):
+    """Phases 14a-14d (the config-4 path; see the module docstring)."""
+    from cosmology_gnn_simulation_tpu_torch import kernels
+    from cosmology_gnn_simulation_tpu_torch.models.encode_process_decode import (
+        default_model_config,
+        init_encode_process_decode,
+        step_params,
+    )
+    from cosmology_gnn_simulation_tpu_torch.ops import cellblock, pallas_knn
+    from cosmology_gnn_simulation_tpu_torch.ops.cell_list import choose_cell_grid, f32
+    from cosmology_gnn_simulation_tpu_torch.ops.fused_step import (
+        fused_step_tail,
+        fused_step_tail_bwd,
+        fused_step_tail_bwd_reference,
+        fused_step_tail_reference,
+    )
+    from cosmology_gnn_simulation_tpu_torch.rollout import rollout
+    from cosmology_gnn_simulation_tpu_torch.training import (
+        TrainConfig,
+        make_optimizer,
+        make_train_step,
+    )
+    from cosmology_gnn_simulation_tpu_torch.training.trainer import Optimizer
+    from cosmology_gnn_simulation_tpu_torch.types import NormalizationStats, tree_leaves
+
+    c4_spec = cellblock.choose_cellblock_spec(C4_N, C4_K, variable=True)
+    c4_uniform = cellblock.choose_cellblock_spec(C4_N, C4_K)
+    rows = c4_spec.num_slots
+    grid = choose_cell_grid(C4_N, C4_K)
+    cap = pallas_knn.codes_packing_cap(C4_N, C4_K, grid)
+
+    def check_k1_codes(frame, label):
+        """K1' (codes, k = 32) on ``frame`` bit-equal to its plain version."""
+        tcap, _, spill_cap = pallas_knn.spill_layout(C4_N, C4_K, grid)
+        g = grid.grid_size
+        t = pallas_knn.build_table(frame, g, tcap, f32(1.0, dev))
+        planes = (t.x, t.y, t.z, t.ids)
+        spill = pallas_knn.build_spill(frame, t.particle_rank, tcap, spill_cap)
+        args_ = dict(k=C4_K, n=C4_N, g=g, box=1.0,
+                     mi_start=pallas_knn.min_image_start(tcap, spill_cap))
+        codes_, kth = pallas_knn.knn_codes(planes, spill, **args_)
+        ref_codes, ref_kth = pallas_knn.knn_codes_reference(
+            planes, spill, **{**args_, "box": f32(1.0, dev)})
+        if not (torch.equal(codes_, ref_codes)
+                and torch.equal(kth.view(torch.int32), ref_kth.view(torch.int32))):
+            fail(f"K1' config 4 {label}: codes differ from the plain version in "
+                 f"{int((codes_ != ref_codes).any(1).sum())} rows, or kth not bit-equal")
+
+    def plain_plan_counts(frame, codes_, spill_, spec_):
+        """The frame's plan counts with every step in its plain version (the
+        layout is torch code; K2's plain version decodes K1''s codes, which
+        ``check_k1_codes`` holds bit-equal to theirs): ``(overflow,
+        dropped_edges, window_overflow)``."""
+        lay = cellblock.cellblock_layout(frame, 1.0, spec_)
+        off = cellblock.s_decode_reference(
+            *cellblock.s_decode_inputs(lay, codes_, cap, spill_, spec_), spec=spec_,
+            codes_cap=cap)
+        return (int(lay.overflow), int((off == spec_.s_width + 1).sum()),
+                int(lay.window_overflow))
+
+    # ---- 14a. K5 and K6 at width 256 and with a bf16 carry ----------------
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(args.seed + 40)
+    timings = {}
+    for width, carry in ((256, torch.float32), (256, torch.bfloat16), (128, torch.bfloat16)):
+        cfg = default_model_config(latent_size=width, mlp_hidden_size=width)
+        node = step_params(init_encode_process_decode(cfg, gen, device=dev), 0)["node"]
+        x = torch.randn(rows, width, generator=gen).to(dev).to(carry)
+        agg = torch.randn(rows, width, generator=gen).mul(3.0).to(dev)  # K4's f32 sums
+        g_out = torch.randn(rows, width, generator=gen).to(dev).to(carry)
+        label = f"width {width}, {str(carry).split('.')[-1]} carry, f32 agg, {rows} rows"
+        kernels.reset_launches()
+        out = fused_step_tail(x, agg, node)
+        dx, dagg, grads = fused_step_tail_bwd(x, agg, g_out, node)
+        if kernels.launches["fused_tail_wide"] != 1 or kernels.launches["fused_tail_wide_bwd"] != 1:
+            fail(f"K5/K6 {label}: launches {dict(kernels.launches)}")
+        ref = fused_step_tail_reference(x, agg, node)
+        err = (out.float() - ref.float()).abs()
+        e_max, e_mean = float(err.max()), float(err.mean())
+        tol = ((K5_MAX_ABS_TOL, K5_MEAN_ABS_TOL) if carry == torch.float32
+               else (K5_BF16_MAX_ABS_TOL, K5_BF16_MEAN_ABS_TOL))
+        if out.dtype != carry or not (e_max <= tol[0] and e_mean <= tol[1]):
+            fail(f"K5 {label}: dtype {out.dtype}, max abs err {e_max} (tol {tol[0]}), mean "
+                 f"{e_mean} (tol {tol[1]})")
+        del ref, err
+        rdx, rdagg, rgrads = fused_step_tail_bwd_reference(x, agg, g_out, node)
+        errs = []
+        names = ["dx", "dagg", "dw_self", "db0", "dw1", "db1", "dwf", "dbf", "dscale", "dbias"]
+        off_share = K6_WIDE_OFF_SHARE if width == 256 else 1e-5
+        for name, a, b in zip(names, [dx, dagg, *grads], [rdx, rdagg, *rgrads]):
+            a, b = a.detach().float(), b.detach().float()
+            diff = (a - b).abs()
+            off = int((diff > K6_REL * float(b.abs().max())).sum())
+            ok = (off <= off_share * b.numel()
+                  and float(diff.mean()) <= K6_MEAN * float(b.abs().mean()))
+            if not ok or (name == "dx" and dx.dtype != carry):
+                fail(f"K6 {label} {name}: {off} entries off, max abs err {float(diff.max())}, "
+                     f"mean {float(diff.mean())}")
+            errs.append(float(diff.max()))
+        del rdx, rdagg, rgrads
+        k5 = lambda: fused_step_tail(x, agg, node)  # noqa: E731
+        k6 = lambda: fused_step_tail_bwd(x, agg, g_out, node)  # noqa: E731
+        t = dict(k5=time_ms(k5, 20), k5_graph=graph_ms(k5, 10),
+                 k5_plain=time_ms(lambda: fused_step_tail_reference(x, agg, node), 3),
+                 k6=time_ms(k6, 10), k6_graph=graph_ms(k6, 5),
+                 k6_plain=time_ms(lambda: fused_step_tail_bwd_reference(x, agg, g_out, node), 2))
+        eb = x.element_size()
+        # K5 in: x, agg, the weights; out: the new carry. Three width^2
+        # products a row. K6 in: x, agg, g, the weights; out: dx, dagg and
+        # the gradients; nine products a row (three recomputed).
+        w_bytes = (3 * width * width + 5 * width) * 4
+        k5_bytes = rows * width * (2 * eb + 4) + w_bytes
+        k6_bytes = rows * width * (3 * eb + 8) + 2 * w_bytes
+        k5_ops, k6_ops = 3 * 2 * rows * width * width, 9 * 2 * rows * width * width
+        t["k5_bound"] = max(k5_bytes / HBM_BYTES_PER_S, k5_ops / BF16_TENSOR_FLOP_PER_S) * 1e3
+        t["k6_bound"] = max(k6_bytes / HBM_BYTES_PER_S, k6_ops / BF16_TENSOR_FLOP_PER_S) * 1e3
+        timings[(width, carry)] = t
+        if (width, carry) == (C4_WIDTH, torch.bfloat16):  # the config-4 path's variant
+            report["fused_tail_wide"] = kernel_entry(
+                "fused_tail.cu", "fused_step.py:66", e_max, t["k5"], t["k5_plain"], k5_bytes,
+                k5_ops, BF16_TENSOR_FLOP_PER_S, None)
+            report["fused_tail_wide"]["graph_ms"] = t["k5_graph"]
+            report["fused_tail_wide_bwd"] = kernel_entry(
+                "fused_tail_bwd.cu", "fused_step.py:113", max(errs), t["k6"], t["k6_plain"],
+                k6_bytes, k6_ops, BF16_TENSOR_FLOP_PER_S, None)
+            report["fused_tail_wide_bwd"]["graph_ms"] = t["k6_graph"]
+        print(f"K5 {label}: max abs err {e_max:.3g} (tol {tol[0]}), mean {e_mean:.3g} "
+              f"(tol {tol[1]}); {t['k5']:.4f} ms (graph {t['k5_graph']:.4f}; bound "
+              f"{t['k5_bound']:.4f}); plain {t['k5_plain']:.4f} ms")
+        print(f"K6 {label}: dx, dagg and the 8 gradients within tolerance (at most "
+              f"{off_share:g} of the entries off by {K6_REL} of the largest, mean within "
+              f"{K6_MEAN}); max abs err per output {[float(f'{e:.3g}') for e in errs]}; "
+              f"{t['k6']:.4f} ms (graph {t['k6_graph']:.4f}; bound {t['k6_bound']:.4f}); plain "
+              f"{t['k6_plain']:.4f} ms")
+        del x, agg, g_out, out, dx, dagg, grads, node
+    torch.cuda.empty_cache()
+    print(f"phase 14a K5, K6 wide: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 14b. the config-4 variable plan -------------------------------------
+    t0 = time.perf_counter()
+    print(f"config-4 variable spec (choose_cellblock_spec({C4_N}, {C4_K}, variable=True)): "
+          f"{c4_spec}; {c4_spec.num_slots} slots ({c4_uniform.num_slots} uniform), "
+          f"{c4_spec.num_tiles} tiles, {c4_spec.num_padded} padded rows")
+    c4_pos, c4_temp = seed_window(C4_N, args.seed + 41)
+    frame = torch.from_numpy(c4_pos[-1]).to(dev)
+    check_k1_codes(frame, "seed frame")
+    _, codes, spill = pallas_knn.pallas_cell_list_knn(frame, C4_K, 1.0, grid, codes_only=True)
+    layout = cellblock.cellblock_layout(frame, 1.0, c4_spec)
+    width = c4_spec.s_width
+    kernels.reset_launches()
+    offsets, dropped = cellblock.s_decode(codes, spill, layout, c4_spec, cap)
+    ref_off = cellblock.s_decode_reference(
+        *cellblock.s_decode_inputs(layout, codes, cap, spill, c4_spec), spec=c4_spec,
+        codes_cap=cap)
+    if not torch.equal(offsets, ref_off) or int(dropped) != int((ref_off == width + 1).sum()):
+        fail(f"K2 config 4: offsets differ in {int((offsets != ref_off).sum())} entries, "
+             f"dropped {int(dropped)}")
+    packs = cellblock.sender_packs(cellblock.slot_codes(layout, codes, cap, spill, c4_spec),
+                                   layout, cap, c4_spec)
+    s_rev, rev_total = cellblock.reverse_table(packs, layout, c4_spec)
+    ref_rev = cellblock.reverse_table_reference(
+        cellblock.reverse_candidates(packs, layout, c4_spec), layout.window_starts,
+        layout.tile_pack_base, layout.window_lims, spec=c4_spec)
+    ref_rev_total = int(ref_rev.sum(dtype=torch.int64))
+    if not (torch.equal(s_rev, ref_rev) and int(rev_total) == ref_rev_total):
+        fail(f"K7 config 4: reverse table or its total ({int(rev_total)}, plain "
+             f"{ref_rev_total}) differs")
+    if kernels.launches["s_decode"] != 1 or kernels.launches["reverse_table"] != 1:
+        fail(f"config-4 plan kernels: launches {dict(kernels.launches)}")
+    # The plan build (kernels) against the plain plan (every kernel's plain
+    # version on the same layout).
+    ref_s = cellblock.s_onehot_reference(ref_off, width=width)
+    ref_mismatch = int(ref_s.sum(dtype=torch.int64)) - ref_rev_total
+    plan = cellblock.build_cellblock(frame, None, 1.0, c4_spec, with_reverse=True,
+                                     neighbor_codes=codes, codes_cap=cap, codes_spill=spill)
+    if not (torch.equal(plan.s_table, ref_s) and torch.equal(plan.s_rev_table, ref_rev)
+            and int(plan.overflow) == int(layout.overflow)
+            and int(plan.reverse_mismatch) == ref_mismatch
+            and int(plan.dropped_edges) == int((ref_off == width + 1).sum())):
+        fail(f"config-4 plan: tables or counts differ from the plain plan's (overflow "
+             f"{int(plan.overflow)}, reverse_mismatch {int(plan.reverse_mismatch)} vs "
+             f"{ref_mismatch})")
+    plain_violations = int(layout.overflow) + int((ref_off == width + 1).sum()) + abs(ref_mismatch)
+    s_table = plan.s_table
+    del ref_s, ref_rev, plan
+    k2 = lambda: cellblock.s_decode(codes, spill, layout, c4_spec, cap)  # noqa: E731
+    k7 = lambda: cellblock.reverse_table(packs, layout, c4_spec)  # noqa: E731
+    k2_ms, k2_graph = time_ms(k2, 50), graph_ms(k2, 20)
+    k7_ms, k7_graph = time_ms(k7, 10), graph_ms(k7, 5)
+    k2_bytes = nbytes(codes, layout.particle_of_slot, layout.order, layout.sorted_cz,
+                      layout.cstart_rel, layout.tile_const, layout.tile_col, offsets) + 4
+    k7_bytes = nbytes(packs, layout.pad_src, layout.window_starts, layout.tile_pack_base,
+                      layout.window_lims, layout.main_base, s_rev) + 4
+    k2_bound = max(k2_bytes / HBM_BYTES_PER_S, 30 * offsets.numel() / F32_FLOP_PER_S) * 1e3
+    k7_bound = k7_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"config-4 variable plan (N={C4_N}, k={C4_K}, seed frame): K1' codes and kth "
+          f"bit-equal; K2 offsets and dropped "
+          f"({int(dropped)}) bit-equal, K7 S_rev and its total ({int(rev_total)}) bit-equal; "
+          f"plan S, S_rev, overflow ({int(layout.overflow)}) and reverse_mismatch "
+          f"({ref_mismatch}) equal to the plain plan's; K2 {k2_ms:.4f} ms (graph "
+          f"{k2_graph:.4f}; bound {k2_bound:.4f}); K7 {k7_ms:.4f} ms (graph {k7_graph:.4f}; "
+          f"bound {k7_bound:.4f}); S {c4_spec.num_slots * width / 1e9:.3f} GB, S_rev "
+          f"{s_rev.numel() / 1e9:.3f} GB")
+    # K4 and K4^T at config 4 (H = 256, the bf16 candidates of a message-
+    # passing step), timed as phase 4 times them at the flagship.
+    z_pad = torch.randn(c4_spec.num_padded, C4_WIDTH, generator=gen).bfloat16().to(dev)
+    k4 = lambda: cellblock.window_matmul(s_table, z_pad, layout.window_starts,  # noqa: E731
+                                         spec=c4_spec)
+    k4t = lambda: cellblock.window_matmul_t(s_rev, z_pad, layout.window_starts,  # noqa: E731
+                                            spec=c4_spec)
+    k4_errs = {}
+    for label, fn, ref_fn, table in (
+            ("K4", k4, cellblock.window_matmul_reference, s_table),
+            ("K4^T", k4t, cellblock.window_matmul_t_reference, s_rev)):
+        err = (fn() - ref_fn(table, z_pad, layout.window_starts, spec=c4_spec)).abs()
+        k4_errs[label] = (float(err.max()), float(err.mean()))
+        del err
+        if not (k4_errs[label][0] <= K4_MAX_ABS_TOL and k4_errs[label][1] <= K4_MEAN_ABS_TOL):
+            fail(f"{label} config 4: max abs err {k4_errs[label][0]} (tol {K4_MAX_ABS_TOL}), "
+                 f"mean {k4_errs[label][1]} (tol {K4_MEAN_ABS_TOL})")
+    k4_ms, k4_graph, k4t_ms, k4t_graph = time_ms(k4, 10), graph_ms(k4, 5), time_ms(k4t, 10), \
+        graph_ms(k4t, 5)
+    out_bytes = c4_spec.num_slots * C4_WIDTH * 4
+    k4_bound = (nbytes(s_table, z_pad, layout.window_starts) + out_bytes) / HBM_BYTES_PER_S * 1e3
+    k4t_bound = (nbytes(s_rev, z_pad, layout.window_starts) + out_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"config-4 K4 (H {C4_WIDTH}, variable plan): max abs err {k4_errs['K4'][0]:.3g}, mean "
+          f"{k4_errs['K4'][1]:.3g}; K4^T max abs err {k4_errs['K4^T'][0]:.3g}, mean "
+          f"{k4_errs['K4^T'][1]:.3g} (tol {K4_MAX_ABS_TOL}, {K4_MEAN_ABS_TOL}); K4 {k4_ms:.4f} ms "
+          f"(graph {k4_graph:.4f}; bytes bound {k4_bound:.4f}); K4^T {k4t_ms:.4f} ms (graph "
+          f"{k4t_graph:.4f}; bytes bound {k4t_bound:.4f})")
+    del z_pad, s_table, table
+    del codes, spill, layout, offsets, ref_off, packs, s_rev
+    torch.cuda.empty_cache()
+    print(f"phase 14b config-4 plan: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 14c. the config-4 rollout -------------------------------------------
+    t0 = time.perf_counter()
+    cfg = default_model_config(latent_size=C4_WIDTH, mlp_hidden_size=C4_WIDTH,
+                               num_message_passing_steps=C4_MP)
+    params = init_encode_process_decode(cfg, torch.Generator().manual_seed(args.seed), device=dev)
+    stats = NormalizationStats.from_metadata(METADATA, device=dev)
+    per_step = {"knn_codes": 1, "s_decode": 1, "s_onehot": 1, "window_matmul": C4_MP,
+                "fused_tail_wide": C4_MP}
+    c4_ms = {}
+    for variable in (True, False):
+        label = "variable" if variable else "uniform"
+        kw = dict(num_neighbors=C4_K, dtype=torch.bfloat16, aggregation="cellblock",
+                  cellblock_variable=variable, exactness_guard="flag", device=dev)
+        rollout(params, cfg, c4_pos, c4_temp, stats, 1, **kw)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = rollout(params, cfg, c4_pos, c4_temp, stats, C4_ROLLOUT_STEPS, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        step_ms = start.elapsed_time(end) / C4_ROLLOUT_STEPS
+        coords, energy = result["Coordinates"], result["InternalEnergy"]
+        if coords.shape != (WINDOW + C4_ROLLOUT_STEPS, C4_N, 3) or not (
+                bool(torch.isfinite(coords).all()) and bool(torch.isfinite(energy).all())):
+            fail(f"config-4 rollout {label}: trajectory {tuple(coords.shape)} not finite")
+        certificate = result["neighbor_exactness"].tolist()
+        if not all(certificate[:C4_CERTIFIED_STEPS]):
+            fail(f"config-4 rollout {label}: certificate false on steps {certificate}")
+        expected = {name: c * C4_ROLLOUT_STEPS for name, c in per_step.items()}
+        if launches != {**zero, **expected}:
+            fail(f"config-4 rollout {label}: launches {launches}, expected {expected}")
+        spec_used = c4_spec if variable else c4_uniform
+        for step, ok in enumerate(certificate):
+            if ok:
+                continue
+            # What the certificate saw: the step's search and plan, rebuilt
+            # from the frame it started from, and the same plan with every
+            # step in its plain version, whose counts must be the kernels'.
+            sframe = torch.remainder(coords[WINDOW - 1 + step], 1.0)
+            _, sdiag = pallas_knn.pallas_cell_list_knn(sframe, C4_K, 1.0, grid,
+                                                       return_diagnostics=True)
+            _, scodes, sspill = pallas_knn.pallas_cell_list_knn(sframe, C4_K, 1.0, grid,
+                                                                codes_only=True)
+            splan = cellblock.build_cellblock(sframe, None, 1.0, spec_used,
+                                              neighbor_codes=scodes, codes_cap=cap,
+                                              codes_spill=sspill)
+            counts = (int(splan.overflow), int(splan.dropped_edges), int(splan.window_overflow))
+            check_k1_codes(sframe, f"rollout {label} step {step + 1}")
+            plain_counts = plain_plan_counts(sframe, scodes, sspill, spec_used)
+            if counts != plain_counts:
+                fail(f"config-4 rollout {label} step {step + 1}: plan (overflow, dropped, "
+                     f"window_overflow) {counts}, the plain plan's {plain_counts}")
+            print(f"config-4 rollout {label} step {step + 1}: certificate false: k-NN overflow "
+                  f"{int(sdiag[0])}, max excess {float(sdiag[2]):.6g} (exact if <= 0); plan "
+                  f"overflow {counts[0]}, dropped edges {counts[1]}, window_overflow "
+                  f"{counts[2]}, equal to the plain plan's (K1' codes bit-equal on the frame)")
+            del scodes, sspill, splan
+        path_launches[f"config-4 rollout {label}"], c4_ms[label] = launches, step_ms
+        print(f"config-4 rollout {label}: N={C4_N} k={C4_K} latent {C4_WIDTH}, {C4_MP} MP, bf16, "
+              f"slots, {C4_ROLLOUT_STEPS} steps, {step_ms:.3f} ms/step "
+              f"({C4_N / step_ms * 1e3:.0f} particle-steps/s), launches "
+              f"{ {k: v for k, v in launches.items() if v} }, certificate by step {certificate} "
+              f"(the first {C4_CERTIFIED_STEPS} required), peak memory {peak_gib:.3f} GiB")
+        del result, coords, energy
+    torch.cuda.empty_cache()
+    # Slots against hybrid on one spec at N = 65,536 and the flagship's k
+    # (at k = 32 the chooser's variable spec for this N drops edges from the
+    # first step, and the two carries then part where a particle has no
+    # slot): the same sums, so within 2e-4, and the certificate true.
+    spos, stemp = seed_window(N, args.seed + 42)
+    kw = dict(num_neighbors=K, dtype=torch.bfloat16, exactness_guard="flag", device=dev)
+    for variable in (True, False):
+        runs = [rollout(params, cfg, spos, stemp, stats, 2, aggregation=aggregation,
+                        cellblock_variable=variable, **kw)
+                for aggregation in ("cellblock", "cellblock_hybrid")]
+        cross = float((runs[0]["Coordinates"] - runs[1]["Coordinates"]).abs().max())
+        certified = all(bool(r["neighbor_exactness"].all()) for r in runs)
+        label = "variable" if variable else "uniform"
+        if not (cross <= C4_SLOTS_TOL and certified):
+            fail(f"N={N} {label} slots and hybrid config-4 rollouts differ by {cross} "
+                 f"(certified: {certified})")
+        print(f"config-4 slots check: N={N}, k={K}, 2 steps, {label} slots vs hybrid on the card "
+              f"max coordinate diff {cross:.3g} (tol {C4_SLOTS_TOL}), certificate true")
+        del runs
+    print(f"phase 14c config-4 rollout: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 14d. the config-4 train step ------------------------------------------
+    t0 = time.perf_counter()
+    tcfg = cfg._replace(remat_chunk=C4_REMAT_CHUNK, carry_dtype="bfloat16")
+    base_tc = dict(aggregation="cellblock", cellblock_variable=True, fused_tail=True,
+                   num_neighbors=C4_K, compute_dtype="bfloat16")
+    tbatch = train_batch(C4_N, args.seed + 43)
+    tc = TrainConfig(noise_std=TRAIN_NOISE, **base_tc)
+    tparams = init_encode_process_decode(tcfg, torch.Generator().manual_seed(args.seed),
+                                         device=dev)
+    optimizer = make_optimizer(tc, steps_per_epoch=C4_TRAIN_STEPS + 1)
+    state = optimizer.init(tparams)
+    train_step = make_train_step(tcfg, stats, tc, optimizer)
+    tgen = torch.Generator(device=dev).manual_seed(args.seed)
+    train_step(tparams, state, tbatch, tgen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    metrics = [train_step(tparams, state, tbatch, tgen)[2] for _ in range(C4_TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    train_ms = start.elapsed_time(end) / C4_TRAIN_STEPS
+    losses = [float(m["loss"]) for m in metrics]
+    violations = [float(m["cellblock_violations"]) for m in metrics]
+    if not all(np.isfinite(losses)):
+        fail(f"config-4 train: loss not finite: {losses}")
+    # Each chunk's forward again up to its last step's input (as phase 12c).
+    forwards = 2 * C4_MP + (C4_MP // C4_REMAT_CHUNK) * (C4_REMAT_CHUNK - 1)
+    per_train = {"knn_codes": 1, "s_decode": 1, "s_onehot": 1, "reverse_table": 1,
+                 "window_matmul": forwards, "window_matmul_t": C4_MP,
+                 "fused_tail_wide": forwards, "fused_tail_wide_bwd": C4_MP}
+    expected = {name: c * C4_TRAIN_STEPS for name, c in per_train.items()}
+    if launches != {**zero, **expected}:
+        fail(f"config-4 train: launches {launches}, expected {expected}")
+    path_launches["config-4 train"] = launches
+    print(f"config-4 train: N={C4_N} k={C4_K} latent {C4_WIDTH}, {C4_MP} MP, slots, variable, "
+          f"fused tail, remat_chunk={C4_REMAT_CHUNK}, bf16 carry, noise {TRAIN_NOISE}, batch 1, "
+          f"Adam, {C4_TRAIN_STEPS} steps, {train_ms:.3f} ms/step, losses "
+          f"{[float(f'{v:.6g}') for v in losses]}, cellblock_violations {violations}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, peak memory {peak_gib:.3f} GiB")
+    del tparams, state, optimizer, train_step, metrics
+    torch.cuda.empty_cache()
+    # cellblock_violations against the plain plan's count on the step's own
+    # frame: noise 0 and no augmentation, so the plan's frame is the batch's
+    # last input frame, wrapped.
+    quiet = TrainConfig(noise_std=0.0, augment_prob=0.0, **base_tc)
+    sgd = Optimizer(lambda leaves: torch.optim.SGD(leaves, lr=1.0))
+    qparams = init_encode_process_decode(tcfg, torch.Generator().manual_seed(args.seed),
+                                         device=dev)
+    _, _, qm = make_train_step(tcfg, stats, quiet, sgd)(qparams, sgd.init(qparams), tbatch,
+                                                        torch.Generator(device=dev))
+    qframe = torch.remainder(torch.from_numpy(tbatch["positions"][0, -1]).to(dev), 1.0)
+    _, qcodes, qspill = pallas_knn.pallas_cell_list_knn(qframe, C4_K, 1.0, grid, codes_only=True)
+    qlayout = cellblock.cellblock_layout(qframe, 1.0, c4_spec)
+    qoff = cellblock.s_decode_reference(
+        *cellblock.s_decode_inputs(qlayout, qcodes, cap, qspill, c4_spec), spec=c4_spec,
+        codes_cap=cap)
+    qpacks = cellblock.sender_packs(cellblock.slot_codes(qlayout, qcodes, cap, qspill, c4_spec),
+                                    qlayout, cap, c4_spec)
+    qrev = cellblock.reverse_table_reference(
+        cellblock.reverse_candidates(qpacks, qlayout, c4_spec), qlayout.window_starts,
+        qlayout.tile_pack_base, qlayout.window_lims, spec=c4_spec)
+    qmismatch = (int(((qoff >= 0) & (qoff < c4_spec.s_width)).sum())
+                 - int(qrev.sum(dtype=torch.int64)))
+    qplain = int(qlayout.overflow) + int((qoff == c4_spec.s_width + 1).sum()) + abs(qmismatch)
+    if float(qm["cellblock_violations"]) != qplain or not np.isfinite(float(qm["loss"])):
+        fail(f"config-4 train: cellblock_violations {float(qm['cellblock_violations'])} vs the "
+             f"plain plan's {qplain} on the same frame")
+    print(f"config-4 train (noise 0, no augmentation): cellblock_violations "
+          f"{float(qm['cellblock_violations'])} equal to the plain plan's count on its frame "
+          f"(overflow {int(qlayout.overflow)}, reverse_mismatch {qmismatch}); the seed frame's "
+          f"{plain_violations}")
+    del qparams, qcodes, qspill, qlayout, qoff, qpacks, qrev
+    torch.cuda.empty_cache()
+    # One step at N = 8,192 on the card against the CPU plain path.
+    sbatch = train_batch(SMALL_N, args.seed + 44)
+    stats_cpu = NormalizationStats.from_metadata(METADATA, device="cpu")
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        sgd = Optimizer(lambda leaves: torch.optim.SGD(leaves, lr=1.0))
+        stc = TrainConfig(noise_std=0.0, augment_prob=0.0, **base_tc)
+        sparams = init_encode_process_decode(tcfg, torch.Generator().manual_seed(args.seed),
+                                             device=device)
+        before = [t.detach().clone() for t in tree_leaves(sparams)]
+        step = make_train_step(tcfg, stats if device.type == "cuda" else stats_cpu, stc, sgd)
+        sparams, _, m = step(sparams, sgd.init(sparams), sbatch, torch.Generator(device=device))
+        runs[device.type] = (float(m["loss"]),
+                             [(b - a.detach()).cpu() for b, a in zip(before, tree_leaves(sparams))])
+    (loss, grads), (cpu_loss, cpu_grads) = runs["cuda"], runs["cpu"]
+    grad_err = max(float((a - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(grads, cpu_grads) if float(b.abs().max()))
+    loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL):
+        fail(f"config-4 train: N={SMALL_N} card vs CPU plain path: loss rel err {loss_err}, "
+             f"worst gradient rel err {grad_err}")
+    print(f"config-4 train check: N={SMALL_N}, card vs CPU plain path: loss {loss:.6g} vs "
+          f"{cpu_loss:.6g} (rel err {loss_err:.3g}, tol {TRAIN_LOSS_RTOL}), worst gradient leaf "
+          f"rel err {grad_err:.3g} (tol {TRAIN_GRAD_TOL})")
+    print(f"phase 14d config-4 train: {time.perf_counter() - t0:.1f} s")
+    return c4_ms, train_ms
 
 
 def main() -> None:
@@ -729,7 +1208,8 @@ def main() -> None:
                                        layout, codes_cap, spec)
         s_rev, rev_total = cellblock.reverse_table(packs, layout, spec)
         ref_rev = cellblock.reverse_table_reference(
-            cellblock.reverse_candidates(packs, layout, spec), layout.window_starts, spec=spec)
+            cellblock.reverse_candidates(packs, layout, spec), layout.window_starts,
+            layout.tile_pack_base, layout.window_lims, spec=spec)
         if not (torch.equal(s_rev, ref_rev)
                 and int(rev_total) == int(ref_rev.sum(dtype=torch.int64))):
             fail(f"K7 {label}: reverse table or its total ({int(rev_total)}) differs from the "
@@ -856,7 +1336,7 @@ def main() -> None:
         del table
         plain_ms = time_ms(lambda: cellblock.reverse_table_reference(
             cellblock.reverse_candidates(packs, layout, pspec), layout.window_starts,
-            spec=pspec).sum(dtype=torch.int32), 5)
+            layout.tile_pack_base, layout.window_lims, spec=pspec).sum(dtype=torch.int32), 5)
         lanes, w_ = pspec.rev_lanes, pspec.window
         rows_ = (layout.window_starts.long()[:, :, None]
                  + torch.arange(w_, device=dev)).reshape(pspec.num_tiles, -1)  # [T, 9W]
@@ -873,9 +1353,11 @@ def main() -> None:
         lib_ms = time_ms(lambda: torch.zeros((idx.shape[0], lanes + 1), dtype=torch.int8,
                                              device=dev).scatter_add_(1, idx, ones_), 20)
         del cand, win, local, ok, idx, ones_
-        # In: the packs, pad_src, c_pre, the window starts; out: S_rev and
-        # its total. Per (row, sender): a subtraction and two compares.
-        nb = nbytes(packs, layout.pad_src, layout.c_pre, layout.window_starts) + 4 + (
+        # In: the packs, pad_src, the window starts, the tile bases, the
+        # window limits and main bases; out: S_rev and its total. Per (row,
+        # sender): a subtraction and two compares.
+        nb = nbytes(packs, layout.pad_src, layout.window_starts, layout.tile_pack_base,
+                    layout.window_lims, layout.main_base) + 4 + (
             pspec.num_tiles * pspec.s_width * lanes)
         ops = 3 * pspec.num_tiles * pspec.s_width * packs.shape[1]
         return ms, gms, plain_ms, lib_ms, nb, ops, fill_ms
@@ -936,7 +1418,7 @@ def main() -> None:
     a_rev, a_total = cellblock.reverse_table(aux_packs, aux_layout, aux_spec)
     a_ref = cellblock.reverse_table_reference(
         cellblock.reverse_candidates(aux_packs, aux_layout, aux_spec), aux_layout.window_starts,
-        spec=aux_spec)
+        aux_layout.tile_pack_base, aux_layout.window_lims, spec=aux_spec)
     if not (torch.equal(a_rev, a_ref) and torch.equal(a_rev, aux_plan.s_rev_table)
             and int(a_total) == int(a_ref.sum(dtype=torch.int64))):
         fail("K7 aux spec: reverse table or its total differs from the plain version")
@@ -1850,6 +2332,8 @@ def main() -> None:
     path_launches["render_rollout"] = launches
     print(f"phase 13d evaluation: {time.perf_counter() - t0:.1f} s")
 
+    c4_rollout_ms, c4_train_ms = config4_phases(args, dev, report, path_launches, zero)
+
     # ---- 12. kernels line ------------------------------------------------
     kernels_line = []
     for name, entry in report.items():
@@ -1858,7 +2342,9 @@ def main() -> None:
     rollout_ms = ", ".join(f"{label} {ms:.4f}" for label, ms in path_ms.items())
     print(f"total: {time.perf_counter() - t_all:.1f} s, ms per rollout step {rollout_ms}; ms "
           f"per train step gather {train_ms['gather']:.4f}, cellblock_hybrid "
-          f"{train_ms['cellblock_hybrid']:.4f}")
+          f"{train_ms['cellblock_hybrid']:.4f}; config 4 ms per rollout step "
+          + ", ".join(f"{label} {ms:.4f}" for label, ms in c4_rollout_ms.items())
+          + f", per train step {c4_train_ms:.4f}")
     print(smi)
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,9 +6,9 @@ the JAX CLI's flags and report, plus ``--device`` (default ``cuda``, as
 The model flags stay accepted, but the checkpoint's embedded
 ``config["model"]`` wins over them. Checkpoints are the port's own
 (``state.pt``, ``utils/checkpoint.py``); a JAX Orbax checkpoint is refused,
-since its importer is not ported (ROADMAP queue 1 item 2). Flags whose paths
-the port lacks (``--aggregation cellblock``, ``--cellblock_variable``)
-raise ``NotImplementedError`` naming their ROADMAP item.
+since its importer is not ported (ROADMAP queue 1 item 2). The flags of the
+training CLI whose paths the port lacks raise ``NotImplementedError``
+naming their ROADMAP item (``config.check_ported``).
 """
 
 from __future__ import annotations
@@ -82,12 +82,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Start-index sampling seed (the reference is "
                              "unseeded here; we default to deterministic)")
     parser.add_argument("--cellblock_variable", action="store_true",
-                        help="variable per-column slot capacities (not ported: raises)")
+                        help="variable per-column slot capacities for the cellblock "
+                             "layouts")
     parser.add_argument("--aggregation", type=str, default="auto",
                         choices=["auto", "gather", "cellblock", "cellblock_hybrid"],
                         help="message-passing aggregation (same surface as "
                              "render_rollout): 'gather' (auto) or the selection-matrix "
-                             "path 'cellblock_hybrid' ('cellblock' is not ported: raises)")
+                             "paths 'cellblock_hybrid' (particle-space carry) and "
+                             "'cellblock' (slot-space carry)")
     parser.add_argument("--reneighbor_every", type=int, default=1,
                         help="accepted for flag parity with render_rollout; "
                              "one-step evaluation performs exactly one "
@@ -125,6 +127,7 @@ def main(argv=None):
         seed=args.seed,
         neighbor_method=args.neighbor_method,
         aggregation=args.aggregation,
+        cellblock_variable=args.cellblock_variable,
         device=device,
     )
 

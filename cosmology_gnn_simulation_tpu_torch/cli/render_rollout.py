@@ -6,8 +6,7 @@ plus ``--device`` (default ``cuda``).
 
 ``main`` parses, loads the metadata, the checkpoint and the HDF5 ground
 truth, and hands the arrays to ``render``, the CLI's body on arrays in
-memory. Flags whose paths the port lacks (``--aggregation cellblock``,
-``--cellblock_variable``, ``--spatial_shards`` > 1) raise
+memory. Flags whose paths the port lacks (``--spatial_shards`` > 1) raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -56,12 +55,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num_steps", type=int, default=None,
                         help="Steps to simulate (default: full trajectory)")
     parser.add_argument("--cellblock_variable", action="store_true",
-                        help="variable per-column slot capacities (not ported: raises)")
+                        help="variable per-column slot capacities for the cellblock "
+                             "layouts")
     parser.add_argument("--aggregation", type=str, default="auto",
                         choices=["auto", "gather", "cellblock", "cellblock_hybrid"],
-                        help="message-passing aggregation: 'gather' (auto) or "
+                        help="message-passing aggregation: 'gather' (auto), "
                              "'cellblock_hybrid' (the selection-matrix kernel with the "
-                             "particle-space carry); 'cellblock' is not ported: raises")
+                             "particle-space carry) or 'cellblock' (slot-space carry)")
     parser.add_argument("--reneighbor_every", type=int, default=1,
                         help="Rebuild the k-NN graph every R steps (R=1 = "
                              "reference semantics; R>1 trades exactness for speed)")
@@ -129,6 +129,7 @@ def render(args, params, model_config, stats, ground_truth):
         reneighbor_every=args.reneighbor_every,
         exactness_guard=args.exactness_guard,
         aggregation=args.aggregation,
+        cellblock_variable=args.cellblock_variable,
         fused_tail=False if args.no_fused_tail else None,
         sorted_state=args.sorted_state,
         device=device,

@@ -5,11 +5,10 @@ package's flags and defaults, plus ``--device``.
   CUDA device ``cuda`` raises, nothing falls back to the CPU;
 * ``--num_workers`` is accepted for CLI compatibility but unused (graphs
   are built on the device inside the step);
-* flags whose paths the port does not have yet (``--aggregation
-  cellblock``, ``--cellblock_variable``, ``--carry_dtype bfloat16``,
-  ``--data_parallel``, ``--spatial_shards`` > 1, ``--distributed``,
-  ``--native_loader``) raise ``NotImplementedError`` naming the ROADMAP
-  item that ports them (``check_ported``).
+* flags whose paths the port does not have yet (``--data_parallel``,
+  ``--spatial_shards`` > 1, ``--distributed``, ``--native_loader``) raise
+  ``NotImplementedError`` naming the ROADMAP item that ports them
+  (``check_ported``).
 """
 
 from __future__ import annotations
@@ -82,15 +81,13 @@ def build_train_parser() -> argparse.ArgumentParser:
                              "(gather + sum, sorted-edge backward), "
                              "'cellblock_hybrid' (the window matmul K4 over the "
                              "cell-block plan, particle-space carry) or "
-                             "'cellblock' (slot-space carry; not ported); "
-                             "'auto' is 'gather'")
+                             "'cellblock' (slot-space carry); 'auto' is 'gather'")
     parser.add_argument("--cellblock_variable", action="store_true",
                         help="Variable per-column slot capacities for the "
-                             "cellblock layouts (not ported)")
+                             "cellblock layouts")
     parser.add_argument("--carry_dtype", type=str, default=None,
                         choices=[None, "bfloat16", "float32"],
-                        help="Residual-stream carry dtype (default float32; "
-                             "bfloat16 is not ported)")
+                        help="Residual-stream carry dtype (default float32)")
     parser.add_argument("--remat", action="store_true",
                         help="Recompute each message-passing step in the "
                              "backward pass instead of keeping its "
@@ -130,9 +127,6 @@ def check_ported(args) -> None:
         return getattr(args, name, default)
 
     unported = [
-        (flag("aggregation") == "cellblock", "--aggregation cellblock (the slot-space carry)", 4),
-        (flag("cellblock_variable"), "--cellblock_variable", 4),
-        (flag("carry_dtype") == "bfloat16", "--carry_dtype bfloat16", 4),
         (flag("data_parallel"), "--data_parallel", 5),
         ((flag("spatial_shards") or 0) > 1, "--spatial_shards > 1", 5),
         (flag("distributed"), "--distributed", 5),

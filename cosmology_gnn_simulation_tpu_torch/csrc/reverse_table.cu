@@ -8,8 +8,9 @@
 //   S_rev[t, j*W + p, q] = #{kk < k : packs[s, kk] == t*QB + q}
 // if the row speaks for its particle, else 0. A row speaks for its particle
 // iff it IS the particle's main image or the main image lies outside this
-// window (a particle counts once per window). The main image of slot s in
-// column col is col * ccp + c_pre[col] + s - col * CC; pad_src == num_slots
+// window (a particle counts once per window). The main image of pack s of
+// the window's column is main_base[t, j] + s, the tile's first pack is
+// tile_base[t], and rows p >= lims[t, j] never speak; pad_src == num_slots
 // marks an unused row (no senders). Lanes q in [QB, rev_lanes) are never
 // set. int8 counts: k <= 127. `total` (zeroed by the caller) gains the
 // number of counted edges, the sum of the table, for the transpose
@@ -24,8 +25,7 @@
 // of output at the flagship; a window is W / 64 items). The block loads the
 // item's pad_src entries, then every sender of every row, as flat coalesced
 // loads independent of each other, into a shared [64, k] table of tile
-// ranks (-1 where the edge does not count); the column, and so the
-// main-image base, is one division a block. Then ROW_LANES lanes own a row,
+// ranks (-1 where the edge does not count). Then ROW_LANES lanes own a row,
 // 16 output bytes each: they vote (ballot) on which of the row's senders
 // count, walk the few set bits, and each lane adds the ones in its 16 bytes
 // in registers; no shared atomics, no zero pass. rev_lanes 128, 256 and 512
@@ -33,7 +33,13 @@
 // not a multiple of 128) takes the generic instantiation: a warp a row, in
 // as many 512-byte passes as the row needs, lanes past its end idle. Rows leave by 16-byte
 // streaming stores (__stcs: S_rev is larger than L2 and not read back here).
-// The total is a warp reduce and one atomicAdd a block. Small items on many
+// The total is a warp reduce and one atomicAdd a block.
+//
+// The per-window main_base and lims and the per-tile tile_base come from the
+// layout, uniform or variable: in the variable one, columns pack their
+// padded rows at data-dependent 16-aligned prefixes, so none of them follows
+// from strides; a window can reach into the next column's rows, which never
+// speak, and reserve tiles get a base past every sender. Small items on many
 // small blocks let the block scheduler keep stores in flight while other
 // blocks wait on their loads; whole windows a block, and a persistent grid
 // that pipelines the next item's loads under the current one's stores, both
@@ -52,9 +58,10 @@ constexpr int kChunk = 64;  // rows a block
 template <int ROW_LANES>
 __global__ void __launch_bounds__(kThreads)
     reverse_table_kernel(const int* __restrict__ packs, const long long* __restrict__ pad_src,
-                         const long long* __restrict__ c_pre, const int* __restrict__ starts,
+                         const int* __restrict__ starts, const int* __restrict__ tile_base,
+                         const int* __restrict__ lims, const int* __restrict__ main_bases,
                          uint8_t* __restrict__ out, int* __restrict__ total, int num_slots,
-                         int cc, int ccp, int qb, int w, int k, int per_win, int row_chunks) {
+                         int qb, int w, int k, int per_win, int row_chunks) {
   constexpr int kLanes = ROW_LANES ? ROW_LANES : 32;  // lanes a row
   constexpr int kGroups = 32 / kLanes;                // rows a warp writes at once
   const int chunks = ROW_LANES ? ROW_LANES : row_chunks;
@@ -67,17 +74,16 @@ __global__ void __launch_bounds__(kThreads)
   const int win = blockIdx.x / per_win;  // t * 9 + j
   const int r0 = (blockIdx.x - win * per_win) * kChunk;
   const int rows = min(kChunk, w - r0);
-  const int base = (win / 9) * qb;
   const int start = starts[win];
-  const int col = start / ccp;  // a window lies inside one padded column
-  const int main_base = col * ccp + (int)c_pre[col] - col * cc;
+  const int base = tile_base[win / 9], main_base = main_bases[win], lim = lims[win];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   for (int p = threadIdx.x; p < rows; p += kThreads) {
     const int row = start + r0 + p;
     const int s = (int)pad_src[row];
     const int main_row = main_base + s;
-    const bool speaks = main_row == row || main_row < start || main_row >= start + w;
+    const bool speaks = (main_row == row || main_row < start || main_row >= start + w) &&
+                        r0 + p < lim;
     src[p] = (s < num_slots && speaks) ? s : -1;
   }
   __syncthreads();
@@ -155,14 +161,15 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int ROW_LANES>
-int launch(const int* packs, const long long* pad_src, const long long* c_pre,
-           const int* starts, void* out, int* total, int num_tiles, int num_slots, int cc,
-           int ccp, int qb, int w, int k, int row_chunks, cudaStream_t stream) {
+int launch(const int* packs, const long long* pad_src, const int* starts,
+           const int* tile_base, const int* lims, const int* main_bases, void* out, int* total,
+           int num_tiles, int num_slots, int qb, int w, int k, int row_chunks,
+           cudaStream_t stream) {
   const int per_win = (w + kChunk - 1) / kChunk;
   const size_t smem = (size_t)kChunk * (4 + 2 * k);  // <= 16.5 KB at k = 127
   reverse_table_kernel<ROW_LANES><<<(unsigned)num_tiles * 9 * per_win, kThreads, smem, stream>>>(
-      packs, pad_src, c_pre, starts, static_cast<uint8_t*>(out), total, num_slots, cc, ccp,
-      qb, w, k, per_win, row_chunks);
+      packs, pad_src, starts, tile_base, lims, main_bases, static_cast<uint8_t*>(out), total,
+      num_slots, qb, w, k, per_win, row_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -170,35 +177,37 @@ int launch(const int* packs, const long long* pad_src, const long long* c_pre,
 
 // Plain C entry point (loaded with ctypes). packs [num_slots, k] int32;
 // pad_src [num_padded] int64 (the layout's padded-image map, num_slots for
-// unused rows); c_pre [num_columns] int64; starts
-// [num_tiles, 9] int32 (each window inside one padded column of ccp rows);
-// out [num_tiles, 9 * w, rev_lanes] int8; total one int32, zeroed by the
+// unused rows); starts [num_tiles, 9] int32 (each window starting in its
+// ring column's span); tile_base [num_tiles], lims and main_bases
+// [num_tiles, 9] int32 (the layout's tile_pack_base, window_lims and
+// main_base); out
+// [num_tiles, 9 * w, rev_lanes] int8; total one int32, zeroed by the
 // caller; all contiguous. rev_lanes % 16 == 0, qb <= rev_lanes,
 // 1 <= k <= 127. Launches on `stream`, does not synchronize, returns the
 // cudaError_t.
 extern "C" int reverse_table_launch(const int* packs, const long long* pad_src,
-                                    const long long* c_pre, const int* starts, void* out,
-                                    int* total, int num_tiles, int num_slots, int cc,
-                                    int ccp, int qb, int w, int k, int rev_lanes,
-                                    void* stream) {
+                                    const int* starts, const int* tile_base, const int* lims,
+                                    const int* main_bases, void* out, int* total,
+                                    int num_tiles, int num_slots, int qb, int w, int k,
+                                    int rev_lanes, void* stream) {
   if (qb <= 0 || qb > rev_lanes || rev_lanes % 16 || w <= 0 || k < 1 || k > 127 ||
-      total == nullptr)
+      total == nullptr || tile_base == nullptr || lims == nullptr || main_bases == nullptr)
     return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int chunks = rev_lanes / 16;
+#define REVERSE_TABLE_ARGS                                                                   \
+  packs, pad_src, starts, tile_base, lims, main_bases, out, total, num_tiles, num_slots, \
+      qb, w, k, chunks, s
   switch (rev_lanes) {
     case 128:
-      return launch<8>(packs, pad_src, c_pre, starts, out, total, num_tiles, num_slots, cc,
-                       ccp, qb, w, k, chunks, s);
+      return launch<8>(REVERSE_TABLE_ARGS);
     case 256:
-      return launch<16>(packs, pad_src, c_pre, starts, out, total, num_tiles, num_slots, cc,
-                        ccp, qb, w, k, chunks, s);
+      return launch<16>(REVERSE_TABLE_ARGS);
     case 512:
-      return launch<32>(packs, pad_src, c_pre, starts, out, total, num_tiles, num_slots, cc,
-                        ccp, qb, w, k, chunks, s);
+      return launch<32>(REVERSE_TABLE_ARGS);
     default:
-      return launch<0>(packs, pad_src, c_pre, starts, out, total, num_tiles, num_slots, cc,
-                       ccp, qb, w, k, chunks, s);
+      return launch<0>(REVERSE_TABLE_ARGS);
   }
+#undef REVERSE_TABLE_ARGS
 }

@@ -39,6 +39,15 @@
 // vector of offsets (k = 8, 16, 32, 64; other k one pick a thread). 32-bit
 // index arithmetic; the one runtime division a ring pick needs is by cap.
 // Dropped edges: a warp reduce and one atomicAdd a block.
+//
+// Each tile's column comes from tile_col: in the variable layout
+// (per-column capacities at data-dependent QB-aligned prefixes) a tile still
+// lies in one column, but its column does not follow from slot0 / CC
+// (reserve tiles past the last prefix hold empty slots and decode to no
+// edge). Senders keep their pack
+// ranks (compact rank within the column), and a rank at or past the ring
+// column's used rows m names a slot the column does not own: no edge, as in
+// the uniform layout, where ranks past m cannot occur.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -110,7 +119,8 @@ __global__ void __launch_bounds__(kMaxThreads)
                     const int* __restrict__ spill_ranks, const long long* __restrict__ pos_slot,
                     const long long* __restrict__ order, const long long* __restrict__ sorted_cz,
                     const long long* __restrict__ cstart_rel, const int* __restrict__ tile_const,
-                    int16_t* __restrict__ out, int* __restrict__ dropped, int n, int k_rt,
+                    const int* __restrict__ tile_col, int16_t* __restrict__ out,
+                    int* __restrict__ dropped, int n, int k_rt,
                     int spill_len, int g, int cc, int qb, int w_cap, int cap) {
   const int k = K ? K : k_rt;
   extern __shared__ int smem[];
@@ -122,7 +132,9 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   const int tile = blockIdx.x;
   const int slot0 = tile * qb;
-  const int col = slot0 / cc;  // CC % QB == 0: a tile lies in one column
+  // CC % QB == 0 (uniform) or QB-aligned prefixes (variable): a tile lies
+  // in one column.
+  const int col = tile_col[tile];
   const int cx = col / g, cy = col - cx * g;
   for (int i = threadIdx.x; i < 45; i += blockDim.x) s_const[i] = tile_const[tile * 45 + i];
   for (int jr = 0; jr < 9; ++jr) {
@@ -187,7 +199,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 template <int K>
 int launch(const int* codes, const int* spill_cells, const int* spill_ranks,
            const long long* pos_slot, const long long* order, const long long* sorted_cz,
-           const long long* cstart_rel, const int* tile_const, void* out, int* dropped,
+           const long long* cstart_rel, const int* tile_const, const int* tile_col, void* out,
+           int* dropped,
            int num_tiles, int n, int k, int spill_len, int g, int cc, int qb, int w_cap,
            int cap, cudaStream_t stream) {
   const int items = qb * (K ? K / 8 : k);
@@ -201,7 +214,7 @@ int launch(const int* codes, const int* spill_cells, const int* spill_ranks,
   }
   s_decode_kernel<K><<<(unsigned)num_tiles, threads, smem, stream>>>(
       codes, spill_cells, spill_ranks, pos_slot, order, sorted_cz, cstart_rel, tile_const,
-      static_cast<int16_t*>(out), dropped, n, k, spill_len, g, cc, qb, w_cap, cap);
+      tile_col, static_cast<int16_t*>(out), dropped, n, k, spill_len, g, cc, qb, w_cap, cap);
   return (int)cudaGetLastError();
 }
 
@@ -211,17 +224,20 @@ int launch(const int* codes, const int* spill_cells, const int* spill_ranks,
 // order; spill_cells, spill_ranks [spill_len] int32 (null when spill_len is
 // 0); particle_of_slot [num_tiles * qb] int64 (a sorted particle, n for an
 // empty slot); order, sorted_cz [n] int64; cstart_rel [g^2, g] int64;
-// tile_const [num_tiles, 45] int32; out [num_tiles * qb, k] int16; dropped
+// tile_const [num_tiles, 45] int32; tile_col [num_tiles] int32, each
+// tile's column; out [num_tiles * qb, k] int16; dropped
 // one int32, zeroed by the caller; all contiguous. cc % qb == 0,
 // 9 * w_cap + 1 < 2^15. Launches on `stream`, does not synchronize, returns
 // the cudaError_t.
 extern "C" int s_decode_launch(const int* codes, const int* spill_cells, const int* spill_ranks,
                                const long long* particle_of_slot, const long long* order,
                                const long long* sorted_cz, const long long* cstart_rel,
-                               const int* tile_const, void* out, int* dropped, int num_tiles,
+                               const int* tile_const, const int* tile_col, void* out,
+                               int* dropped, int num_tiles,
                                int n, int k, int spill_len, int g, int cc, int qb, int w_cap,
                                int cap, void* stream) {
-  if (9 * w_cap + 2 >= 32768 || k < 1 || qb <= 0 || cc % qb || cap <= 0 || dropped == nullptr)
+  if (9 * w_cap + 2 >= 32768 || k < 1 || qb <= 0 || cc % qb || cap <= 0 || dropped == nullptr ||
+      tile_col == nullptr)
     return (int)cudaErrorInvalidValue;
   if ((size_t)(9 * g + 2 * qb) * sizeof(int) > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return (int)cudaSuccess;
@@ -229,7 +245,7 @@ extern "C" int s_decode_launch(const int* codes, const int* spill_cells, const i
   const bool aligned = ((uintptr_t)codes % 16 == 0) && ((uintptr_t)out % 16 == 0);
 #define S_DECODE_ARGS                                                                   \
   codes, spill_cells, spill_ranks, particle_of_slot, order, sorted_cz, cstart_rel,     \
-      tile_const, out, dropped, num_tiles, n, k, spill_len, g, cc, qb, w_cap, cap, s
+      tile_const, tile_col, out, dropped, num_tiles, n, k, spill_len, g, cc, qb, w_cap, cap, s
   if (aligned) {
     switch (k) {
       case 8: return launch<8>(S_DECODE_ARGS);

@@ -56,9 +56,10 @@ def validate_one_step(
     replacement from ``range(T - window_size - 1)`` by
     ``np.random.default_rng(seed)`` (``seed=None``: numpy's global
     generator). ``dtype``, ``neighbor_method``, ``aggregation`` (``"auto"`` /
-    ``"gather"`` or ``"cellblock_hybrid"``) and ``device`` are
-    ``one_step_prediction``'s. Returns the mean errors, the per-window
-    errors and the tested (predicted) timesteps."""
+    ``"gather"``, ``"cellblock_hybrid"`` or ``"cellblock"``),
+    ``cellblock_variable`` and ``device`` are ``one_step_prediction``'s.
+    Returns the mean errors, the per-window errors and the tested
+    (predicted) timesteps."""
     coords = np.asarray(data["Coordinates"], dtype=np.float32)
     temps = np.asarray(data["InternalEnergy"], dtype=np.float32)
     if temps.ndim == 2:

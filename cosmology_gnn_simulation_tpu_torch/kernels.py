@@ -11,7 +11,8 @@ never loaded.
 ``launches[name]`` counts the launches of kernel ``name`` (one source may
 host several: ``knn_select.cu`` has ``knn_select``, ``knn_codes`` and
 ``knn_dual``, ``window_matmul.cu`` has ``window_matmul`` and its S^T mode
-``window_matmul_t``): each
+``window_matmul_t``, ``fused_tail.cu`` the tuned ``fused_tail`` and its
+width-general variant ``fused_tail_wide``): each
 wrapper adds one where it launches its kernel and nowhere else, so a caller
 can zero the counts, drive a path, and see which kernels it went through.
 """
@@ -37,7 +38,7 @@ SOURCES = ("knn_select", "fused_tail", "fused_tail_bwd", "s_decode", "s_onehot",
            "window_matmul", "reverse_table", "dense_select", "knn_brute")
 KERNELS = ("knn_select", "knn_codes", "knn_dual", "s_decode", "dense_select", "s_onehot",
            "reverse_table", "window_matmul", "window_matmul_t", "fused_tail",
-           "fused_tail_bwd", "knn_brute")
+           "fused_tail_bwd", "fused_tail_wide", "fused_tail_wide_bwd", "knn_brute")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

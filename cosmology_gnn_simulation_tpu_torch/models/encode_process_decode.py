@@ -17,11 +17,15 @@ Semantics of the JAX package, kept exactly:
 The gather-sum stays plain PyTorch (``index_select`` + ``sum``): in the JAX
 package it is XLA, not a Pallas kernel; with ``graph.sorted_edges`` its
 backward is the sorted-edge segment sum (``ops/aggregation.py``). When the
-graph carries a cell-block plan (``cellblock_mode="hybrid"``) the
-aggregation is instead the window matmul K4 (``ops/cellblock.py``) on the
-cell-sorted rows, whose backward is its S^T mode K4^T over the plan's
-reverse table. With ``fused_tail`` the step's tail after the aggregation is
-the CUDA kernel K5, with K6 as its backward (``ops/fused_step.py``).
+graph carries a cell-block plan the aggregation is instead the window
+matmul K4 (``ops/cellblock.py``), whose backward is its S^T mode K4^T over
+the plan's reverse table: on the cell-sorted particle rows
+(``cellblock_mode="hybrid"``, expand -> K4 -> compact each step) or with
+the carry in slot space (``"slots"``, expanded once after the encoder and
+compacted once before the decoders). With ``fused_tail`` the step's tail
+after the aggregation is the CUDA kernel K5, with K6 as its backward
+(``ops/fused_step.py``). ``carry_dtype="bfloat16"`` carries the residual
+stream in bf16, as the JAX package's scan carry.
 """
 
 from __future__ import annotations
@@ -44,7 +48,12 @@ from cosmology_gnn_simulation_tpu_torch.ops.aggregation import (
     aggregate_sender_latents,
     gather_sum,
 )
-from cosmology_gnn_simulation_tpu_torch.ops.cellblock import cellblock_aggregate
+from cosmology_gnn_simulation_tpu_torch.ops.cellblock import (
+    cellblock_aggregate,
+    cellblock_aggregate_slots,
+    compact_from_slots,
+    expand_to_slots,
+)
 from cosmology_gnn_simulation_tpu_torch.ops.fused_step import fused_step_tail
 from cosmology_gnn_simulation_tpu_torch.types import ParticleGraph, resolve_device, tree_map
 
@@ -63,9 +72,9 @@ class EncodeProcessDecodeConfig(NamedTuple):
     output_size: int = 3
     aggregate: str = "sender_latents"  # or "edge_messages"
     prune_dead_edge_stream: bool = True
-    # The residual carry's dtype: None or "float32" (the same). The JAX
-    # package's "bfloat16" carry is not ported (ROADMAP queue 1 item 4: K5
-    # and K6 would take a bf16 carry) and raises.
+    # The residual carry's dtype: None or "float32" (the same), or
+    # "bfloat16": the carried [N, L] state, its residual adds and the edge
+    # stream's are rounded to bf16 (K5 and K6 take a bf16 carry).
     carry_dtype: Optional[str] = None
     # Activation checkpointing: ``remat`` recomputes each message-passing
     # step in the backward pass instead of keeping its activations;
@@ -187,21 +196,22 @@ def _processor_step(x, e, neighbors, params: Params, aggregate: str, dtype,
 
 
 def _pruned_processor_step(x, neighbors, params: Params, dtype, fused_tail: bool,
-                           cellblock=None, cellblock_spec=None, sorted_edges=None):
+                           cellblock=None, cellblock_spec=None, sorted_edges=None,
+                           cellblock_mode: str = "slots"):
     """Node-stream-only step under ``sender_latents`` aggregation. With
     ``fused_tail`` it returns the full new carry (residual included, kernel
     K5); otherwise the pre-residual step output. With a ``cellblock`` plan
-    the aggregation is the hybrid cell-block one: expand the projected
-    latents to slots, K4, compact back (float32 result)."""
+    the aggregation is the cell-block one (float32 result): ``"hybrid"``
+    expands the projected latents to slots, runs K4 and compacts back;
+    ``"slots"`` has ``x`` on slot rows already and runs K4 on them."""
     latent = x.shape[-1]
     node_first = params["node"]["layers"][0]
     w_self, w_agg = node_first["w"][:latent], node_first["w"][latent:]
     z = matmul(x, w_agg, dtype)
     if cellblock is not None:
-        agg_h = cellblock_aggregate(
-            z, cellblock, cellblock_spec,
-            carry_dtype=torch.float32 if dtype is None else dtype,
-        )
+        aggregate = cellblock_aggregate if cellblock_mode == "hybrid" else cellblock_aggregate_slots
+        agg_h = aggregate(z, cellblock, cellblock_spec,
+                          carry_dtype=torch.float32 if dtype is None else dtype)
     else:
         if dtype is not None:
             # The gather-sum is the bandwidth-dominant op of the step; carry
@@ -230,8 +240,10 @@ def apply_encode_process_decode(
     When ``graph.cellblock`` is set (rows cell-sorted; ``cellblock_spec``
     the plan's spec) the pruned path aggregates through the cell-block
     plan. ``cellblock_mode="hybrid"`` keeps the carry on the N particle
-    rows and pays expand -> K4 -> compact each step; the JAX package's
-    slot-space carry (``"slots"``) is not ported and raises.
+    rows and pays expand -> K4 -> compact each step; ``"slots"`` expands
+    the carry to the plan's slot rows once after the encoder, runs every
+    step there (empty and reserve slot rows carry zeros through, which stay
+    finite) and compacts once before the decoders.
 
     ``config.remat`` / ``config.remat_chunk`` checkpoint the steps
     (non-reentrant ``torch.utils.checkpoint``, as the JAX package's
@@ -251,19 +263,18 @@ def apply_encode_process_decode(
                 "cellblock aggregation requires the pruned sender_latents mode "
                 "(the edge_messages gather is not a segment sum)"
             )
-        if cellblock_mode != "hybrid":
-            raise NotImplementedError(
-                "cellblock_mode='slots' (slot-space carry) is not ported; use 'hybrid'"
-            )
     if config.fused_tail and not prune:
         raise ValueError(
             "fused_tail requires the pruned sender_latents mode (the edge "
             "stream's tail is not fused)"
         )
-    if config.carry_dtype not in (None, "float32"):
-        raise NotImplementedError(
-            f"carry_dtype={config.carry_dtype!r} is not ported (only None / 'float32'; "
-            "the bf16 carry through K5 and K6 is ROADMAP queue 1 item 4)")
+    if config.carry_dtype not in (None, "float32", "bfloat16"):
+        raise ValueError(f"unknown carry_dtype: {config.carry_dtype!r}")
+    carry_dt = getattr(torch, config.carry_dtype) if config.carry_dtype else None
+
+    def residual_add(carry, new):
+        return carry + new if carry_dt is None else carry + new.to(carry_dt)
+
     chunk = config.remat_chunk
     m = config.num_message_passing_steps
     two_level = chunk is not None and chunk > 1
@@ -277,16 +288,16 @@ def apply_encode_process_decode(
         def step(i, x):
             x_new = _pruned_processor_step(
                 x, graph.neighbors, step_params(params, i), dtype, config.fused_tail,
-                graph.cellblock, cellblock_spec, graph.sorted_edges,
+                graph.cellblock, cellblock_spec, graph.sorted_edges, cellblock_mode,
             )
-            return (x_new if config.fused_tail else x + x_new,)
+            return (x_new if config.fused_tail else residual_add(x, x_new),)
     else:
         def step(i, x, e):
             x_new, e_new = _processor_step(
                 x, e, graph.neighbors, step_params(params, i), config.aggregate, dtype,
                 graph.sorted_edges,
             )
-            return x + x_new, e + e_new
+            return residual_add(x, x_new), residual_add(e, e_new)
 
     if config.remat or two_level:
         step = functools.partial(_checkpoint, step)
@@ -296,14 +307,23 @@ def apply_encode_process_decode(
             carry = step(i, *carry)
         return carry
 
-    x = mlp_fn(params["encoder"]["node"], graph.nodes, dtype)
-    carry = (x,) if prune else (x, mlp_fn(params["encoder"]["edge"], graph.edges, dtype))
+    def carried(t):
+        return t if carry_dt is None else t.to(carry_dt)
+
+    x = carried(mlp_fn(params["encoder"]["node"], graph.nodes, dtype))
+    slots_mode = graph.cellblock is not None and cellblock_mode == "slots"
+    if slots_mode:
+        x = expand_to_slots(x, graph.cellblock)
+    carry = (x,) if prune else (x, carried(mlp_fn(params["encoder"]["edge"], graph.edges,
+                                                  dtype)))
     if two_level:
         for first in range(0, m, chunk):
             carry = _checkpoint(run_steps, first, first + chunk, *carry)
     else:
         carry = run_steps(0, m, *carry)
     x = carry[0]
+    if slots_mode:
+        x = compact_from_slots(x, graph.cellblock)
     return {
         "acceleration": mlp_fn(params["decoder_acc"], x, dtype),
         "temp_rate": mlp_fn(params["decoder_temp_rate"], x, dtype),

@@ -34,12 +34,21 @@ Exact (gather-sum up to summation order) whenever ``overflow == 0`` and
 exact when ``reverse_mismatch == 0`` too. The dense search adds
 ``search_window_overflow == 0`` and ``search_excess <= 0``.
 
-Ported: the uniform cubic layout; the plan build from the k-NN codes in the
-particle codes layout, from neighbor ids (the aux path) and by the dense
-search, each with the reverse table; the hybrid aggregation with its
-backward (expand and compact as monotone gathers both ways). Variable
-capacities, the table codes layout, non-cubic grids and validity masks
-raise ``NotImplementedError``.
+Variable capacities (``slot_budget > 0``): column ``col`` owns the
+QB-rounded count of its particles (clamped by CC) at a data-dependent
+QB-aligned prefix of the slot rows, within a static ``slot_budget``; its
+padded image spans ``round_up(cP + m + cA, 16)`` rows at a prefix of its
+own. Tiles stay single-column, so every per-tile structure carries over;
+the sender decode keeps the PACK ids ``col * CC + rank`` (``pack_slots``),
+from which slots follow by the prefixes. Exceeding the budget counts in
+``overflow``.
+
+Ported: the uniform and the variable cubic layouts; the plan build from the
+k-NN codes in the particle codes layout, from neighbor ids (the aux path)
+and (uniform only, as in JAX) by the dense search, each with the reverse
+table; the hybrid and slot-space aggregations with their backward (expand
+and compact as monotone gathers both ways). The table codes layout,
+non-cubic grids and validity masks raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -71,8 +80,8 @@ def _round_up(x, m: int) -> int:
 
 
 class CellBlockSpec(NamedTuple):
-    """Static cell-block configuration (the JAX ``CellBlockSpec``; only the
-    uniform cubic periodic layout is ported).
+    """Static cell-block configuration (the JAX ``CellBlockSpec``; the
+    uniform and variable cubic periodic layouts are ported).
 
     Attributes:
       grid_size:    G — cells per box edge (G^2 columns of G z-cells).
@@ -81,8 +90,11 @@ class CellBlockSpec(NamedTuple):
       window:       W — candidate rows per neighbor column per tile.
       wrap_cap:     max rows copied per z-wrap segment.
       h_block:      the TPU kernel's latent tile (kept for spec equality).
-      grid_x, periodic_x, slot_budget: non-cubic / halo / variable layouts
-                    (not ported; must keep their defaults).
+      grid_x, periodic_x: non-cubic / halo layouts (not ported; must keep
+                    their defaults).
+      slot_budget:  0 = the uniform layout (every column owns CC slot rows);
+                    > 0 = variable capacities: the static total of slot rows
+                    (a QB multiple), CC only the per-column clamp.
     """
 
     grid_size: int
@@ -117,14 +129,28 @@ class CellBlockSpec(NamedTuple):
 
     @property
     def num_slots(self) -> int:
+        if self.variable:
+            return self.slot_budget
         return self.num_columns * self.col_capacity
 
     @property
-    def padded_col(self) -> int:  # rows per column in the padded image
+    def pack_slots(self) -> int:
+        """Size of the PACK encoding ``col * CC + rank`` that sender decodes
+        use (``num_slots`` in the uniform layout, where pack ids are slot
+        ids); also the no-sender sentinel of a pack table."""
+        return self.num_columns * self.col_capacity
+
+    @property
+    def padded_col(self) -> int:  # rows per column in the (uniform) padded image
         return self.col_capacity + 2 * self.wrap_cap
 
     @property
     def num_padded(self) -> int:
+        if self.variable:
+            # The budget, each column's worst wrap and 16-rounding, and one
+            # trailing window so the window clamp never reads past the image.
+            return _round_up(self.slot_budget + self.num_columns * (2 * self.wrap_cap + 16)
+                             + max(self.window, 16), 16)
         return self.num_columns * self.padded_col
 
     @property
@@ -139,17 +165,24 @@ class CellBlockSpec(NamedTuple):
         return _round_up(self.query_block, _LANE)
 
     def validate(self) -> None:
-        """The JAX spec checks of the uniform layout (the window and wrap
+        """The JAX spec checks of the cubic layouts (the window and wrap
         alignments also fix the S lane offsets, so they stay)."""
         g, cc, qb, w, ec = (self.grid_size, self.col_capacity,
                             self.query_block, self.window, self.wrap_cap)
-        if self.variable or self.grid_x or not self.periodic_x:
+        if self.grid_x or not self.periodic_x:
             raise NotImplementedError(
-                "only the uniform cubic periodic cell-block layout is ported "
-                "(variable capacities and halo slabs are not)"
+                "only the cubic periodic cell-block layouts are ported (grid_x and "
+                "halo slabs are ROADMAP queue 1 item 5)"
             )
         if g < 3:
             raise ValueError(f"grid_size {g} must be >= 3")
+        if self.variable:
+            if self.slot_budget % qb:
+                raise ValueError(f"slot_budget {self.slot_budget} not a multiple of "
+                                 f"query_block {qb}")
+            if w % 16:
+                raise ValueError(f"window {w} must be a 16-multiple in variable mode (the "
+                                 "padded-image clamp must stay 16-aligned)")
         if cc % qb:
             raise ValueError(f"col_capacity {cc} not a multiple of query_block {qb}")
         if qb % 32:
@@ -162,7 +195,7 @@ class CellBlockSpec(NamedTuple):
             raise ValueError(f"window {w} >= 128 must be a multiple of 128")
         if w > self.padded_col:
             raise ValueError(f"window {w} exceeds padded column {self.padded_col}")
-        if self.num_slots * g >= 2**31:
+        if max(self.num_slots, self.pack_slots) * g >= 2**31:
             raise ValueError("num_slots * grid_size overflows int32 packing")
 
 
@@ -176,19 +209,20 @@ def choose_cellblock_spec(
 ) -> CellBlockSpec:
     """Pick (G, CC, QB, W, wrap_cap) for a roughly uniform distribution —
     the JAX chooser's arithmetic, unchanged (QB, W and CC are still the
-    TPU-tuned choice). G is the k-NN exactness grid when ``k`` is known."""
-    if variable:
-        raise NotImplementedError("variable cell-block capacities are not ported")
+    TPU-tuned choice). G is the k-NN exactness grid when ``k`` is known.
+    ``variable=True``: variable capacities, ``slot_budget`` the QB-rounding
+    floor plus a 6-sigma margin on the total, CC an 8-sigma per-column
+    clamp."""
     if k is not None:
         g = choose_cell_grid(num_particles, k).grid_size
     else:
         g = max(3, int(round((num_particles / 24.0) ** (1.0 / 3.0))))
     mean_col = num_particles / g**2
     mean_cell = num_particles / g**3
-    return _plan_spec(g, mean_col, mean_cell, h_block, query_block)
+    return _plan_spec(g, mean_col, mean_cell, h_block, query_block, variable)
 
 
-def _plan_spec(g, mean_col, mean_cell, h_block, query_block):
+def _plan_spec(g, mean_col, mean_cell, h_block, query_block, variable=False):
     """CC covers the per-column Poisson tail, W a QB tile's z-extent plus one
     cell each side with a 5-sigma margin; QB minimizes the TPU kernel's
     per-step traffic (S table plus re-streamed windows)."""
@@ -196,14 +230,23 @@ def _plan_spec(g, mean_col, mean_cell, h_block, query_block):
     wrap = _round_up(mean_cell + 6.0 * math.sqrt(mean_cell) + 4.0, 16)
 
     def plan(qb):
-        cc = _round_up(max(mean_col + 5.0 * math.sqrt(mean_col), qb), qb)
+        sigmas = 8.0 if variable else 5.0  # variable: CC is only the clamp
+        cc = _round_up(max(mean_col + sigmas * math.sqrt(mean_col), qb), qb)
         need = qb + 3.0 * mean_cell + 5.0 * math.sqrt(qb + 3.0 * mean_cell)
         w = _round_up(need, _LANE)
         padded = cc + 2 * wrap
         if w > padded:
             # Tiny columns: one window covers the whole padded column.
             w = padded if padded < _LANE else padded // _LANE * _LANE
+        if variable and w % 16:
+            w = _round_up(w, 16)
         return cc, w
+
+    def budget(qb):
+        # E[round_up(cnt, QB)] ~ mean + QB / 2 a column, plus 6 sigma on the
+        # total (Poisson counts, rounding jitter ~ QB^2 / 12).
+        sigma = math.sqrt(num_columns * mean_col + num_columns * qb * qb / 12.0)
+        return _round_up(num_columns * (mean_col + qb / 2.0) + 6.0 * sigma, qb)
 
     if query_block is not None:
         qb = query_block
@@ -212,7 +255,7 @@ def _plan_spec(g, mean_col, mean_cell, h_block, query_block):
         best = None
         for qb_c in range(32, 257, 32):
             cc_c, w_c = plan(qb_c)
-            slots_c = num_columns * cc_c
+            slots_c = budget(qb_c) if variable else num_columns * cc_c
             s_bytes = slots_c * 9 * w_c
             win_bytes = (slots_c // qb_c) * 9 * w_c * h_block * 2
             score = (s_bytes + win_bytes, -qb_c)
@@ -220,7 +263,8 @@ def _plan_spec(g, mean_col, mean_cell, h_block, query_block):
                 best = (score, qb_c, cc_c, w_c)
         _, qb, cc, w = best
     return CellBlockSpec(grid_size=g, col_capacity=cc, query_block=qb, window=w,
-                         wrap_cap=wrap, h_block=h_block)
+                         wrap_cap=wrap, h_block=h_block,
+                         slot_budget=budget(qb) if variable else 0)
 
 
 class CellBlockGraph(NamedTuple):
@@ -285,7 +329,20 @@ class CellBlockLayout(NamedTuple):
     (the reverse table's main-image positions) and after them ``c_app
     [C]``, its used rows ``used [C]``, and the sorted stream's cells
     ``sorted_cell [N]`` with their boundaries ``gstart [G^3 + 1]`` (what
-    the dense search reads)."""
+    the dense search reads).
+
+    Both layouts give the slot and tile maps that the variable one cannot
+    derive from the CC and CCp strides: ``slot_col [num_slots]`` int64, each
+    slot's column (the variable layout's reserve slots past the last prefix
+    clamp to the last column); ``pack_of_sorted [N]`` int64, each sorted
+    particle's pack id ``col * CC + rank`` (``pack_slots`` without a slot);
+    per tile ``tile_col [T]`` (clamped) and ``tile_pack_base [T]`` (its
+    first pack id; ``pack_slots + QB`` for reserve tiles, which match no
+    sender), int32; per window ``window_lims [T, 9]`` (its rows inside the
+    ring column's span: a variable window can reach into the next column's
+    rows, which no S entry names) and ``main_base [T, 9]`` (the main-image
+    row of slot s of that column is ``main_base + s``), int32; and
+    ``main_pos [num_slots]`` int64, each slot's main-image row."""
 
     order: torch.Tensor
     slot_of_sorted: torch.Tensor
@@ -302,12 +359,20 @@ class CellBlockLayout(NamedTuple):
     used: torch.Tensor
     sorted_cell: torch.Tensor
     gstart: torch.Tensor
+    slot_col: torch.Tensor
+    pack_of_sorted: torch.Tensor
+    tile_col: torch.Tensor
+    tile_pack_base: torch.Tensor
+    window_lims: torch.Tensor
+    main_base: torch.Tensor
+    main_pos: torch.Tensor
 
 
 def cellblock_layout(positions: torch.Tensor, box_size, spec: CellBlockSpec) -> CellBlockLayout:
     """Bin wrapped ``[N, 3]`` positions into the spec's columns: the sort
     order, slot maps, z-wrap image map, window placement and the overflow
-    counts (the JAX ``build_cellblock`` up to its S build)."""
+    counts (the JAX ``build_cellblock`` up to its S build), in the uniform
+    or the variable layout."""
     spec.validate()
     g = spec.grid_size
     cc, qb, w_cap, wrap = (spec.col_capacity, spec.query_block, spec.window,
@@ -332,41 +397,96 @@ def cellblock_layout(positions: torch.Tensor, box_size, spec: CellBlockSpec) -> 
 
     # Compact per-column rank (z-ordered) and the slot maps.
     r = torch.arange(n, device=dev) - col_start[sorted_col]
-    q_ok = r < cc
-    slot_of_sorted = torch.where(q_ok, sorted_col * cc + r, num_slots)
-    overflow = (~q_ok).sum()
     slot_ids = torch.arange(num_slots, device=dev)
-    slot_col, slot_r = slot_ids // cc, slot_ids % cc
-    particle_of_slot = torch.where(slot_r < col_cnt[slot_col],
-                                   col_start[:-1][slot_col] + slot_r, n)
+    if spec.variable:
+        # Column col owns slots [prefix[col], prefix[col] + cap_col[col]):
+        # its count clamped by CC, rounded up to QB, cut by the budget.
+        used_raw = torch.clamp(col_cnt, max=cc)
+        alloc = -(-used_raw // qb) * qb
+        prefix = torch.clamp(torch.cat([alloc.new_zeros(1), torch.cumsum(alloc, 0)]),
+                             max=num_slots)
+        cap_col = prefix[1:] - prefix[:-1]
+        m = torch.minimum(used_raw, cap_col)  # used main rows
+        q_ok = r < cap_col[sorted_col]
+        slot_of_sorted = torch.where(q_ok, prefix[sorted_col] + r, num_slots)
+        pack_of_sorted = torch.where(q_ok, sorted_col * cc + r, spec.pack_slots)
+        # slot -> column: #{col : prefix[col + 1] <= slot}; reserve slots past
+        # the last prefix get num_cols (clamped where a column is read).
+        col_of_slot = torch.searchsorted(prefix[1:].contiguous(), slot_ids, right=True)
+        slot_col = torch.clamp(col_of_slot, max=num_cols - 1)
+        slot_r = slot_ids - prefix[slot_col]
+        in_use = (col_of_slot < num_cols) & (slot_r < m[slot_col])
+        particle_of_slot = torch.where(in_use, col_start[:-1][slot_col] + slot_r, n)
+    else:
+        q_ok = r < cc
+        slot_of_sorted = pack_of_sorted = torch.where(q_ok, sorted_col * cc + r, num_slots)
+        slot_col, slot_r = slot_ids // cc, slot_ids % cc
+        particle_of_slot = torch.where(slot_r < col_cnt[slot_col],
+                                       col_start[:-1][slot_col] + slot_r, n)
+        m = torch.clamp(col_cnt, max=cc)  # used main rows
+    overflow = (~q_ok).sum()
 
     # Per-column z-wrap layout [cP | main | cA], tightly packed.
-    m = torch.clamp(col_cnt, max=cc)  # used main rows
     c_pre = torch.clamp(counts[:, g - 1], max=wrap)
     c_app = torch.clamp(counts[:, 0], max=wrap)
     # Compact start of each z-cell within its column, clipped by capacity;
     # extended so index G reads the used-row count.
-    cstart_rel = torch.clamp(
-        gstart[:num_cells].reshape(num_cols, g) - col_start[:-1, None], 0, cc)
+    rel = gstart[:num_cells].reshape(num_cols, g) - col_start[:-1, None]
+    cstart_rel = (torch.minimum(torch.clamp(rel, min=0), cap_col[:, None]) if spec.variable
+                  else torch.clamp(rel, 0, cc))
     cstart_ext = torch.cat([cstart_rel, m[:, None]], dim=1)  # [C, G + 1]
     cstart_g1 = cstart_rel[:, g - 1]
 
-    t_pad = torch.arange(ccp, device=dev)[None, :]
-    src = torch.where(
-        t_pad < c_pre[:, None], cstart_g1[:, None] + t_pad,
-        torch.where(t_pad < (c_pre + m)[:, None], t_pad - c_pre[:, None],
-                    torch.where(t_pad < (c_pre + m + c_app)[:, None],
-                                t_pad - (c_pre + m)[:, None], cc)))
-    cols = torch.arange(num_cols, device=dev)[:, None]
-    pad_src = torch.where(src < cc, cols * cc + src, num_slots).reshape(-1)
+    if spec.variable:
+        # Column col spans padded rows [pprefix[col], + span[col]), span
+        # 16-aligned; row -> column as slot -> column above.
+        span = -(-(c_pre + m + c_app) // 16) * 16
+        num_pad = spec.num_padded
+        pprefix = torch.cat([span.new_zeros(1), torch.cumsum(span, 0)])
+        rows_p = torch.arange(num_pad, device=dev)
+        pcol = torch.searchsorted(pprefix[1:].contiguous(), rows_p, right=True)
+        pcsl = torch.clamp(pcol, max=num_cols - 1)
+        t_rel = rows_p - pprefix[pcsl]
+        cpre_r, m_r, capp_r, cap_r = c_pre[pcsl], m[pcsl], c_app[pcsl], cap_col[pcsl]
+        src = torch.where(
+            t_rel < cpre_r, cstart_g1[pcsl] + t_rel,
+            torch.where(t_rel < cpre_r + m_r, t_rel - cpre_r,
+                        torch.where(t_rel < cpre_r + m_r + capp_r, t_rel - cpre_r - m_r,
+                                    cap_r)))
+        ok_src = (pcol < num_cols) & (src < cap_r) & (src >= 0)
+        pad_src = torch.where(ok_src, prefix[pcsl] + src, num_slots)
+        main_pos = pprefix[slot_col] + c_pre[slot_col] + slot_r
+    else:
+        t_pad = torch.arange(ccp, device=dev)[None, :]
+        src = torch.where(
+            t_pad < c_pre[:, None], cstart_g1[:, None] + t_pad,
+            torch.where(t_pad < (c_pre + m)[:, None], t_pad - c_pre[:, None],
+                        torch.where(t_pad < (c_pre + m + c_app)[:, None],
+                                    t_pad - (c_pre + m)[:, None], cc)))
+        cols = torch.arange(num_cols, device=dev)[:, None]
+        pad_src = torch.where(src < cc, cols * cc + src, num_slots).reshape(-1)
+        main_pos = slot_col * ccp + c_pre[slot_col] + slot_r
 
     # Per-tile z extents (first/last valid query row of the tile).
     tiles = torch.arange(num_tiles, device=dev)
-    tile_col, tile_qt = tiles // tpc, tiles % tpc
-    a_row = tile_qt * qb
-    m_tile = m[tile_col]
-    has_rows = a_row < m_tile
-    b_row = torch.maximum(torch.minimum((tile_qt + 1) * qb, m_tile) - 1, a_row)
+    if spec.variable:
+        # Tiles are single-column by the QB-aligned prefixes; reserve tiles
+        # past the used prefix have no rows.
+        tile_col_raw = col_of_slot[::qb]
+        tile_col = torch.clamp(tile_col_raw, max=num_cols - 1)
+        a_row = tiles * qb - prefix[tile_col]
+        m_tile = m[tile_col]
+        has_rows = (tile_col_raw < num_cols) & (a_row < m_tile)
+        b_row = torch.maximum(torch.minimum(a_row + qb, m_tile) - 1, a_row)
+        tile_pack_base = torch.where(tile_col_raw < num_cols, tile_col * cc + a_row,
+                                     spec.pack_slots + qb)
+    else:
+        tile_col, tile_qt = tiles // tpc, tiles % tpc
+        a_row = tile_qt * qb
+        m_tile = m[tile_col]
+        has_rows = a_row < m_tile
+        b_row = torch.maximum(torch.minimum((tile_qt + 1) * qb, m_tile) - 1, a_row)
+        tile_pack_base = tiles * qb
     base = col_start[tile_col]
     z_lo = torch.where(has_rows, sorted_cz[torch.clamp(base + a_row, 0, n - 1)], 0)
     z_hi = torch.where(has_rows, sorted_cz[torch.clamp(base + b_row, 0, n - 1)], 0)
@@ -381,19 +501,33 @@ def cellblock_layout(positions: torch.Tensor, box_size, spec: CellBlockSpec) -> 
     end_hi = cstart_ext[col_j, torch.clamp(z_hi + 2, 0, g)[:, None]]
     end = torch.where(z_hi[:, None] <= g - 2, cp_j + end_hi, cp_j + m_j + ca_j)
     # Starts floored to 16 rows (the TPU sublane tiling; the S offsets
-    # depend on it, so it stays), clamped inside the padded column.
-    w_loc = torch.clamp(w_loc // 16 * 16, 0, ccp - w_cap)
-    window_starts = (col_j * ccp + w_loc).to(torch.int32)
+    # depend on it, so it stays), clamped inside the column's padded rows.
+    if spec.variable:
+        span_j = span[col_j]
+        w_loc = torch.minimum(torch.clamp(w_loc // 16 * 16, min=0),
+                              torch.clamp(span_j - w_cap, min=0))
+        window_starts = pprefix[col_j] + w_loc
+        window_lims = torch.clamp(span_j - w_loc, 0, w_cap)
+        main_base = pprefix[col_j] + c_pre[col_j] - prefix[col_j]
+    else:
+        w_loc = torch.clamp(w_loc // 16 * 16, 0, ccp - w_cap)
+        window_starts = col_j * ccp + w_loc
+        window_lims = torch.full_like(w_loc, w_cap)
+        main_base = col_j * ccp + c_pre[col_j] - col_j * cc
     window_overflow = torch.clamp(
         torch.where(has_rows[:, None], end - w_loc - w_cap, 0).max(), min=0)
     tile_const = torch.stack([w_loc, cp_j, m_j, ca_j, cg1_j], dim=2).reshape(
         num_tiles, 45).to(torch.int32).contiguous()
+    i32 = torch.int32
     return CellBlockLayout(
         order=order, slot_of_sorted=slot_of_sorted, particle_of_slot=particle_of_slot,
-        pad_src=pad_src, window_starts=window_starts, overflow=overflow,
+        pad_src=pad_src, window_starts=window_starts.to(i32), overflow=overflow,
         window_overflow=window_overflow, sorted_cz=sorted_cz, cstart_rel=cstart_rel,
         tile_const=tile_const, c_pre=c_pre, c_app=c_app, used=m, sorted_cell=sorted_cell,
-        gstart=gstart,
+        gstart=gstart, slot_col=slot_col.contiguous(), pack_of_sorted=pack_of_sorted,
+        tile_col=tile_col.to(i32), tile_pack_base=tile_pack_base.to(i32),
+        window_lims=window_lims.to(i32).contiguous(), main_base=main_base.to(i32).contiguous(),
+        main_pos=main_pos,
     )
 
 
@@ -401,9 +535,9 @@ class SlotCodes(NamedTuple):
     """The k-NN codes moved to their query's slot: ``codes [num_slots, k]``
     int32 (empty slots and slotless particles' rows hold an always-invalid
     sentinel), the slot's query z-cell ``qz_slot [num_slots]``, and each
-    spill candidate's packed sender ``slot * G + cz`` (``sp_aux
-    [spill_len]``, the overflow sentinel ``num_slots * G`` past capacity;
-    None without a spill block). The plain path of K2 and the train path's
+    spill candidate's packed sender ``pack * G + cz`` (``sp_aux
+    [spill_len]``, the sentinel ``pack_slots * G`` past capacity; None
+    without a spill block). The plain path of K2 and the train path's
     sender packs read it; K2 on the card gathers its codes itself."""
 
     codes: torch.Tensor
@@ -438,7 +572,7 @@ def slot_codes(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes_cap:
         sp_col, sp_cz = sp_cells // g, sp_cells % g
         sp_rs = layout.cstart_rel.reshape(-1)[sp_cells] + codes_spill[1].long()
         sp_in = sp_rs < cc
-        sp_slot = torch.where(sp_in, sp_col * cc + sp_rs, num_slots)
+        sp_slot = torch.where(sp_in, sp_col * cc + sp_rs, spec.pack_slots)
         sp_aux = sp_slot * g + torch.where(sp_in, sp_cz, 0)
     return SlotCodes(codes=codes_slots[:num_slots], qz_slot=qz_slot[:num_slots], sp_aux=sp_aux)
 
@@ -463,15 +597,14 @@ def neighbor_cell(col: torch.Tensor, qz: torch.Tensor, j27: torch.Tensor, g: int
     return ncol, (qz + j27 % 3 - 1) % g
 
 
-def _normalized_codes(sc: SlotCodes, codes_cap: int, spec: CellBlockSpec) -> torch.Tensor:
+def _normalized_codes(sc: SlotCodes, codes_cap: int, spec: CellBlockSpec,
+                      slot_col: torch.Tensor) -> torch.Tensor:
     """K2's pre-normalized codes (the JAX ``_invalidate`` / ``_resolve``):
     ring picks stay ``j27 * cap + rank``; resolved spill senders become
     ``27 * cap + jring * (CC * G) + r * G + cz``; real spill senders outside
     the 3x3 ring ``DROP_MARK``; everything else ``INVALID``."""
     g, cc = spec.grid_size, spec.col_capacity
-    num_slots = spec.num_slots
     codes_slots = sc.codes
-    dev = codes_slots.device
     res_base = 27 * codes_cap
     ccg = cc * g
     drop_mark = res_base + 9 * ccg
@@ -485,9 +618,9 @@ def _normalized_codes(sc: SlotCodes, codes_cap: int, spec: CellBlockSpec) -> tor
         is_sp = (sp_idx >= 0) & (sp_idx < spill_len)
         aux_sp = sc.sp_aux[torch.clamp(sp_idx, 0, spill_len - 1)]
         slot_sp = aux_sp // g
-        real = is_sp & (slot_sp < num_slots)
+        real = is_sp & (slot_sp < spec.pack_slots)
         col_sp = slot_sp // cc
-        col_q = (torch.arange(num_slots, device=dev) // cc)[:, None]
+        col_q = slot_col[:, None]
         dxm = (col_sp // g - col_q // g + 1 + g) % g
         dym = (col_sp % g - col_q % g + 1 + g) % g
         in3 = real & (dxm < 3) & (dym < 3)
@@ -500,35 +633,35 @@ def _normalized_codes(sc: SlotCodes, codes_cap: int, spec: CellBlockSpec) -> tor
 def s_decode_inputs(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes_cap: int,
                     codes_spill, spec: CellBlockSpec):
     """The plain version's inputs of K2: ``(codes [num_slots, k], qz_slot
-    [num_slots], cstart27 [G^3, 27], tile_const [T, 45])``, all int32 — the
-    k-NN codes moved to their query's slot and pre-normalized
-    (``slot_codes``, ``_normalized_codes``) and the 27-roll start table
-    (``neighbor_starts27``). K2 on the card does all of this itself."""
+    [num_slots], cstart27 [G^3, 27], tile_const [T, 45])``, all int32, and
+    ``layout.slot_col`` — the k-NN codes moved to their query's slot and
+    pre-normalized (``slot_codes``, ``_normalized_codes``) and the 27-roll
+    start table (``neighbor_starts27``). K2 on the card does all of this
+    itself."""
     sc = slot_codes(layout, neighbor_codes, codes_cap, codes_spill, spec)
-    return (_normalized_codes(sc, codes_cap, spec), sc.qz_slot.contiguous(),
-            neighbor_starts27(layout.cstart_rel, spec.grid_size), layout.tile_const)
+    return (_normalized_codes(sc, codes_cap, spec, layout.slot_col), sc.qz_slot.contiguous(),
+            neighbor_starts27(layout.cstart_rel, spec.grid_size), layout.tile_const,
+            layout.slot_col)
 
 
 def sender_packs(sc: SlotCodes, layout: CellBlockLayout, codes_cap: int,
                  spec: CellBlockSpec) -> torch.Tensor:
     """Each slot's k sender PACK ids ``col * CC + rank`` ``[num_slots, k]``
-    int32, ``num_slots`` where there is no sender (the JAX codes path's
+    int32, ``pack_slots`` where there is no sender (the JAX codes path's
     arithmetic decode, which its reverse build reads): a ring code names
     the neighbor cell ``j27`` of the query's cell (``neighbor_cell``) and
     the sender's rank in it; a spill code reads the spill candidate's
     packed sender."""
     g, cc = spec.grid_size, spec.col_capacity
-    num_slots = spec.num_slots
-    dev = sc.codes.device
     codes = sc.codes.long()
-    col_q = (torch.arange(num_slots, device=dev) // cc)[:, None]
+    col_q = layout.slot_col[:, None]
     j27 = codes // codes_cap
     rank = codes - j27 * codes_cap
     valid = j27 < 27
     j27 = torch.where(valid, j27, 0)
     scol, sz = neighbor_cell(col_q, sc.qz_slot.long()[:, None], j27, g)
     sr = layout.cstart_rel[scol, sz] + rank
-    pack = torch.where(valid & (sr < cc), scol * cc + sr, num_slots)
+    pack = torch.where(valid & (sr < cc), scol * cc + sr, spec.pack_slots)
     if sc.sp_aux is not None:
         spill_len = sc.sp_aux.shape[0]
         sp_idx = codes - 27 * codes_cap
@@ -541,15 +674,11 @@ def reverse_candidates(packs: torch.Tensor, layout: CellBlockLayout,
                        spec: CellBlockSpec) -> torch.Tensor:
     """The plain version's input of K7, ``[num_padded, k + 1]`` int32: per
     padded-image row, the sender packs of its particle's neighbor list and,
-    last, the padded row of the particle's main image (``num_slots``
+    last, the padded row of the particle's main image (``pack_slots``
     throughout for unused rows). K7 on the card reads ``packs`` through
     ``pad_src`` and computes the main-image rows itself."""
-    cc = spec.col_capacity
-    num_slots = spec.num_slots
-    slots = torch.arange(num_slots, device=packs.device)
-    main_pos = (slots // cc) * spec.padded_col + layout.c_pre[slots // cc] + slots % cc
-    packed = torch.cat([packs, main_pos.to(torch.int32)[:, None]], dim=1)
-    packed = torch.cat([packed, packed.new_full((1, packed.shape[1]), num_slots)])
+    packed = torch.cat([packs, layout.main_pos.to(torch.int32)[:, None]], dim=1)
+    packed = torch.cat([packed, packed.new_full((1, packed.shape[1]), spec.pack_slots)])
     return packed.index_select(0, layout.pad_src).contiguous()
 
 
@@ -557,22 +686,22 @@ def aux_slot_senders(layout: CellBlockLayout, neighbors: torch.Tensor,
                      spec: CellBlockSpec) -> torch.Tensor:
     """The aux path's senders per slot (JAX ``build_cellblock`` from
     neighbor ids): ``[num_slots, k]`` int64, each the packed ``pack * G +
-    cz`` of the sender's slot (``col * CC + rank``) and z-cell, and the
-    sentinel ``num_slots * G`` where there is no sender (ids >= N, a sender
+    cz`` of the sender's pack id (``col * CC + rank``) and z-cell, and the
+    sentinel ``pack_slots * G`` where there is no sender (ids >= N, a sender
     past its column's capacity, an empty slot). The packed aux of every
     particle in original order, one gather through the ``[N, k]`` table,
     the rows permuted by ``order`` and expanded to slots."""
     g = spec.grid_size
-    num_slots = spec.num_slots
+    pack_slots = spec.pack_slots
     n, k = neighbors.shape
-    pack = torch.empty_like(layout.slot_of_sorted)
-    pack[layout.order] = layout.slot_of_sorted
+    pack = torch.empty_like(layout.pack_of_sorted)
+    pack[layout.order] = layout.pack_of_sorted
     cz = torch.empty_like(layout.sorted_cz)
     cz[layout.order] = layout.sorted_cz
-    aux = pack * g + torch.where(pack < num_slots, cz, 0)
-    aux_ext = torch.cat([aux, aux.new_full((1,), num_slots * g)])
+    aux = pack * g + torch.where(pack < pack_slots, cz, 0)
+    aux_ext = torch.cat([aux, aux.new_full((1,), pack_slots * g)])
     nbr = aux_ext[torch.clamp(neighbors.long(), 0, n)][layout.order]
-    nbr_ext = torch.cat([nbr, nbr.new_full((1, k), num_slots * g)])
+    nbr_ext = torch.cat([nbr, nbr.new_full((1, k), pack_slots * g)])
     return nbr_ext[layout.particle_of_slot]
 
 
@@ -584,13 +713,12 @@ def aux_offsets(senders: torch.Tensor, layout: CellBlockLayout, spec: CellBlockS
     that order of priority; a real sender no image places is a dropped
     edge; no edge, or an empty query slot, is the inert lane ``9W``."""
     g, cc, qb, w_cap = spec.grid_size, spec.col_capacity, spec.query_block, spec.window
-    num_slots = spec.num_slots
     dev = senders.device
-    slots = torch.arange(num_slots, device=dev)
-    col_q = (slots // cc)[:, None]
+    slots = torch.arange(spec.num_slots, device=dev)
+    col_q = layout.slot_col[:, None]
     s_slot = senders // g
     s_cz = senders % g
-    real = s_slot < num_slots
+    real = s_slot < spec.pack_slots
     col_s, r_s = s_slot // cc, s_slot % cc
     dx = (col_s // g - col_q // g + 1 + g) % g
     dy = (col_s % g - col_q % g + 1 + g) % g
@@ -879,17 +1007,20 @@ def build_cellblock(
       own padded columns; the plan then also carries ``search_excess`` and
       ``search_window_overflow``.
 
-    The uniform cubic layout only: variable capacities, validity masks and
-    the table codes layout raise ``NotImplementedError``.
+    The cubic layouts, uniform and variable (the dense search takes the
+    uniform one only, as in JAX); validity masks and the table codes layout
+    raise ``NotImplementedError``.
     """
     if (neighbor_codes is None) != (codes_cap is None):
         raise ValueError("neighbor_codes and codes_cap go together")
     if s_build != "kernel":
         raise NotImplementedError(f"s_build={s_build!r} is not ported (only 'kernel')")
     if valid is not None:
-        raise NotImplementedError("validity masks are not ported")
+        raise NotImplementedError("validity masks are not ported yet (ROADMAP queue 1 "
+                                  "item 5)")
     if codes_layout != "particle":
-        raise NotImplementedError(f"codes_layout={codes_layout!r} is not ported")
+        raise NotImplementedError(f"codes_layout={codes_layout!r} is not ported yet (ROADMAP "
+                                  "queue 1 item 4, the next bring-up)")
     if dense_search is not None:
         dense_search.validate()
         if num_neighbors is None:
@@ -965,13 +1096,14 @@ def build_cellblock(
 # ---------------------------------------------------------------------------
 
 
-def s_decode_reference(codes, qz_slot, cstart27, tile_const, *, spec: CellBlockSpec,
+def s_decode_reference(codes, qz_slot, cstart27, tile_const, slot_col, *, spec: CellBlockSpec,
                        codes_cap: int) -> torch.Tensor:
     """Plain PyTorch version of K2 (the Pallas ``_s_from_codes_fused``'s
     decode). Per slot ``s`` and pick ``p`` of the pre-normalized
     ``codes [num_slots, k]`` int32, with the slot's query z-cell
     ``qz_slot [num_slots]``, the neighbor-cell start table
-    ``cstart27 [G^3, 27]`` and the tile constants ``tile_const [T, 45]``:
+    ``cstart27 [G^3, 27]``, the tile constants ``tile_const [T, 45]`` and
+    each slot's column ``slot_col [num_slots]`` (``layout.slot_col``):
     the S lane ``j * W + off`` of the sender in the query tile's window, or
     the sentinel ``9W + 1`` for a dropped edge (a real sender S cannot
     represent) and ``9W`` for no edge. Returns ``[num_slots, k]`` int16."""
@@ -985,7 +1117,8 @@ def s_decode_reference(codes, qz_slot, cstart27, tile_const, *, spec: CellBlockS
     codes = codes.long()
     slots = torch.arange(num_slots, device=dev)
     qz = qz_slot.long()[:, None]
-    s27 = cstart27.long()[(slots // cc) * g + qz_slot.long()]  # [S, 27]
+    col_q = slot_col
+    s27 = cstart27.long()[col_q * g + qz_slot.long()]  # [S, 27]
     const = tile_const.long()[slots // qb]  # [S, 45]
 
     is_res = codes >= res_base
@@ -1032,11 +1165,11 @@ def _lib(name: str):
     lib = kernels.library(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "s_decode":
-        entries = {"s_decode_launch": [p] * 10 + [i] * 9 + [p]}
+        entries = {"s_decode_launch": [p] * 11 + [i] * 9 + [p]}
     elif name == "s_onehot":
         entries = {"s_onehot_launch": [p, p, p, i, i, i, p]}
     elif name == "reverse_table":
-        entries = {"reverse_table_launch": [p] * 6 + [i] * 8 + [p]}
+        entries = {"reverse_table_launch": [p] * 8 + [i] * 6 + [p]}
     elif name == "dense_select":
         entries = {"dense_select_launch": [p] * 4 + [i] * 5 + [ctypes.c_float] + [p] * 3}
     else:
@@ -1087,6 +1220,7 @@ def s_decode(neighbor_codes: torch.Tensor, codes_spill, layout: CellBlockLayout,
         ("sorted_cz", layout.sorted_cz, (n,), torch.int64),
         ("cstart_rel", layout.cstart_rel, (spec.num_columns, g), torch.int64),
         ("tile_const", layout.tile_const, (spec.num_tiles, 45), torch.int32),
+        ("tile_col", layout.tile_col, (spec.num_tiles,), torch.int32),
     ]
     if spill_len:
         tensors += [("spill_cells", codes_spill[0], (spill_len,), torch.int32),
@@ -1098,9 +1232,9 @@ def s_decode(neighbor_codes: torch.Tensor, codes_spill, layout: CellBlockLayout,
         kernels.ptr(neighbor_codes), kernels.ptr(codes_spill[0] if spill_len else None),
         kernels.ptr(codes_spill[1] if spill_len else None), kernels.ptr(layout.particle_of_slot),
         kernels.ptr(layout.order), kernels.ptr(layout.sorted_cz), kernels.ptr(layout.cstart_rel),
-        kernels.ptr(layout.tile_const), kernels.ptr(offsets), kernels.ptr(dropped),
-        spec.num_tiles, n, k, spill_len, g, spec.col_capacity, spec.query_block, spec.window,
-        codes_cap, kernels.stream_handle(dev),
+        kernels.ptr(layout.tile_const), kernels.ptr(layout.tile_col), kernels.ptr(offsets),
+        kernels.ptr(dropped), spec.num_tiles, n, k, spill_len, g, spec.col_capacity,
+        spec.query_block, spec.window, codes_cap, kernels.stream_handle(dev),
     )
     kernels.check("s_decode", err)
     kernels.launches["s_decode"] += 1
@@ -1164,14 +1298,17 @@ def s_onehot(offsets: torch.Tensor, *, width: int, with_total: bool = False):
 _PLAIN_TILES = 64
 
 
-def reverse_table_reference(packed: torch.Tensor, window_starts: torch.Tensor, *,
+def reverse_table_reference(packed: torch.Tensor, window_starts: torch.Tensor,
+                            tile_pack_base: torch.Tensor, window_lims: torch.Tensor, *,
                             spec: CellBlockSpec) -> torch.Tensor:
     """Plain PyTorch version of K7 (the Pallas ``_reverse_table_kernel``):
     ``S_rev [num_tiles, 9W, rev_lanes]`` int8, where entry ``(t, j*W + p,
-    q)`` counts the senders ``t * QB + q`` in the neighbor list of padded
+    q)`` counts the senders ``base[t] + q`` in the neighbor list of padded
     row ``window_starts[t, j] + p`` of ``packed [num_padded, k + 1]`` (see
     ``reverse_candidates``), if that row speaks for its particle: it is the
-    particle's main image, or the main image lies outside the window."""
+    particle's main image, or the main image lies outside the window; and
+    ``p < window_lims[t, j]``; ``base`` is ``tile_pack_base`` (the layout's
+    ``window_starts``, ``tile_pack_base`` and ``window_lims``)."""
     qb, w, lanes = spec.query_block, spec.window, spec.rev_lanes
     num_tiles = window_starts.shape[0]
     k = packed.shape[1] - 1
@@ -1184,8 +1321,10 @@ def reverse_table_reference(packed: torch.Tensor, window_starts: torch.Tensor, *
         rows = starts + offs  # [T, 9, W]
         win = packed[rows].long()  # [T, 9, W, k + 1]
         main = win[..., k]
-        canonical = (main == rows) | (main < starts) | (main >= starts + w)
-        local = win[..., :k] - (torch.arange(t0, t1, device=dev) * qb)[:, None, None, None]
+        canonical = ((main == rows) | (main < starts) | (main >= starts + w)) \
+            & (offs < window_lims[t0:t1].long()[:, :, None])
+        base = tile_pack_base[t0:t1].long()
+        local = win[..., :k] - base[:, None, None, None]
         ok = canonical[..., None] & (local >= 0) & (local < qb)
         row_ids = torch.arange((t1 - t0) * 9 * w, device=dev).view(t1 - t0, 9, w, 1)
         size = (t1 - t0) * 9 * w * lanes
@@ -1200,35 +1339,41 @@ def reverse_table_reference(packed: torch.Tensor, window_starts: torch.Tensor, *
 def reverse_table(packs: torch.Tensor, layout: CellBlockLayout, spec: CellBlockSpec):
     """K7: the reverse selection table and its edge total from each slot's
     sender packs ``packs [num_slots, k]`` int32 (``sender_packs``,
-    ``dense_sender_packs``, or the aux senders' packs; ``num_slots`` for no
+    ``dense_sender_packs``, or the aux senders' packs; ``pack_slots`` for no
     sender): ``(S_rev [num_tiles, 9W, rev_lanes] int8, rev_total)``,
     ``reverse_table_reference`` of ``reverse_candidates`` and the int32 sum
     of its counts (``k <= 127``, so counts fit int8). CPU tensors take the
     plain version; CUDA tensors launch ``csrc/reverse_table.cu``, which
     reads ``packs`` through ``layout.pad_src`` and computes the main-image
-    rows itself, or raise."""
+    rows itself from ``layout.main_base``, with the tiles' pack bases and
+    the windows' limits, or raise."""
     num_slots, k = packs.shape
     if packs.device.type == "cpu":
         s_rev = reverse_table_reference(reverse_candidates(packs, layout, spec),
-                                        layout.window_starts, spec=spec)
+                                        layout.window_starts, layout.tile_pack_base,
+                                        layout.window_lims, spec=spec)
         return s_rev, s_rev.sum(dtype=torch.int32)
     lanes = spec.rev_lanes
     if not 1 <= k <= 127:
         raise ValueError(f"reverse_table kernel takes 1 <= k <= 127, got k={k}")
     dev = packs.device
-    _check("reverse_table", dev, [
+    tensors = [
         ("packs", packs, (spec.num_slots, k), torch.int32),
         ("pad_src", layout.pad_src, (spec.num_padded,), torch.int64),
-        ("c_pre", layout.c_pre, (spec.num_columns,), torch.int64),
         ("window_starts", layout.window_starts, (spec.num_tiles, 9), torch.int32),
-    ])
+        ("tile_pack_base", layout.tile_pack_base, (spec.num_tiles,), torch.int32),
+        ("window_lims", layout.window_lims, (spec.num_tiles, 9), torch.int32),
+        ("main_base", layout.main_base, (spec.num_tiles, 9), torch.int32),
+    ]
+    _check("reverse_table", dev, tensors)
     out = torch.empty((spec.num_tiles, spec.s_width, lanes), dtype=torch.int8, device=dev)
     total = torch.zeros((), dtype=torch.int32, device=dev)
     err = _lib("reverse_table").reverse_table_launch(
-        kernels.ptr(packs), kernels.ptr(layout.pad_src), kernels.ptr(layout.c_pre),
-        kernels.ptr(layout.window_starts), kernels.ptr(out), kernels.ptr(total),
-        spec.num_tiles, num_slots, spec.col_capacity, spec.padded_col, spec.query_block,
-        spec.window, k, lanes, kernels.stream_handle(dev),
+        kernels.ptr(packs), kernels.ptr(layout.pad_src), kernels.ptr(layout.window_starts),
+        kernels.ptr(layout.tile_pack_base), kernels.ptr(layout.window_lims),
+        kernels.ptr(layout.main_base), kernels.ptr(out), kernels.ptr(total),
+        spec.num_tiles, num_slots, spec.query_block, spec.window, k, lanes,
+        kernels.stream_handle(dev),
     )
     kernels.check("reverse_table", err)
     kernels.launches["reverse_table"] += 1

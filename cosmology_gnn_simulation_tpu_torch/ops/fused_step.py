@@ -28,15 +28,19 @@ import torch
 from cosmology_gnn_simulation_tpu_torch import kernels
 from cosmology_gnn_simulation_tpu_torch.models.mlp import LN_EPS, layer_norm, matmul
 
-# The kernels' fixed layout: latent = hidden = 128, one hidden Linear.
+# The kernels' layout: latent = hidden = 128 or 256, one hidden Linear. The
+# tuned kernels take width 128 with an f32 carry; the width-general variants
+# (``fused_tail_wide_*``) take either width and an f32 or a bf16 carry.
 KERNEL_WIDTH = 128
+KERNEL_WIDTHS = (128, 256)
 KERNEL_LAYERS = 3
 
 
 def kernel_takes(latent: int, hidden: int, num_layers: int, dtype) -> bool:
     """Whether K5 and K6 take a node MLP of this shape: bf16 operands,
-    latent = hidden = 128 and ``num_layers`` = 3 Linears (one hidden)."""
-    return (dtype == torch.bfloat16 and latent == hidden == KERNEL_WIDTH
+    latent = hidden = 128 or 256 and ``num_layers`` = 3 Linears (one
+    hidden)."""
+    return (dtype == torch.bfloat16 and latent == hidden and latent in KERNEL_WIDTHS
             and num_layers == KERNEL_LAYERS)
 
 
@@ -134,38 +138,51 @@ def _bind(lib, name: str):
     """``lib`` (K5's or K6's library) with its entry points' C types set."""
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "fused_tail":
-        entries = (lib.fused_tail_launch, lib.fused_tail_f32agg_launch)
-        argtypes = [p] * 11 + [i, p]
+        entries = [(lib.fused_tail_launch, [p] * 11 + [i, p]),
+                   (lib.fused_tail_f32agg_launch, [p] * 11 + [i, p]),
+                   (lib.fused_tail_wide_launch, [p, p, i, i, i] + [p] * 10 + [i, p])]
     else:
-        entries = (lib.fused_tail_bwd_launch, lib.fused_tail_bwd_f32agg_launch)
-        argtypes = [p] * 13 + [i, p, i, p]
+        entries = [(lib.fused_tail_bwd_launch, [p] * 13 + [i, p, i, p]),
+                   (lib.fused_tail_bwd_f32agg_launch, [p] * 13 + [i, p, i, p]),
+                   (lib.fused_tail_wide_bwd_launch, ([p, p, p, i, i, i] + [p] * 10
+                                                     + [ctypes.c_longlong, i, p, i, p]))]
         lib.fused_tail_bwd_partial_floats.restype = i
-    for entry in entries:
+        lib.fused_tail_wide_bwd_scratch_bytes.argtypes = [i, i, i]
+        lib.fused_tail_wide_bwd_scratch_bytes.restype = ctypes.c_longlong
+    for entry, argtypes in entries:
         entry.argtypes = argtypes
         entry.restype = i
     return lib
 
 
-_FLAT_SHAPES = ((128, 128), (128,)) * 3 + ((128,), (128,))
+def _tuned(x) -> bool:
+    """Whether the tuned kernels take ``x``: width 128, f32 carry (else the
+    width-general variants run)."""
+    return x.shape[1] == KERNEL_WIDTH and x.dtype == torch.float32
 
 
 def _check_kernel_inputs(name, x, agg, flat, dtype, extra=()):
     n, latent = x.shape
     if dtype != torch.bfloat16:
         raise ValueError(f"{name} kernel takes bf16 operands, got {dtype}")
-    if len(flat) != 2 * KERNEL_LAYERS + 2 or latent != KERNEL_WIDTH:
+    if (len(flat) != 2 * KERNEL_LAYERS + 2 or latent not in KERNEL_WIDTHS
+            or flat[0].shape[1] != latent):
         raise ValueError(
-            f"{name} kernel supports latent = hidden = 128 with one hidden "
+            f"{name} kernel supports latent = hidden = 128 or 256 with one hidden "
             f"Linear; got latent {latent} and {(len(flat) - 2) // 2} layers"
         )
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} kernel takes a bf16 or f32 carry x, got {x.dtype}")
     if agg.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name} kernel takes bf16 or f32 agg, got {agg.dtype}")
     # One pass with no string built unless a check fails: a K5 call is
     # shorter on the card than its checks are on the host.
-    device, f32, rows = x.device, torch.float32, (n, 128)
-    checks = [("x", x, rows, f32), ("agg", agg, rows, agg.dtype),
-              *((i, w, shape, f32) for i, (w, shape) in enumerate(zip(flat, _FLAT_SHAPES))),
-              *((label, t, rows, f32) for label, t in extra)]
+    d = latent
+    device, f32, rows = x.device, torch.float32, (n, d)
+    shapes = ((d, d), (d,)) * 3 + ((d,), (d,))
+    checks = [("x", x, rows, x.dtype), ("agg", agg, rows, agg.dtype),
+              *((i, w, shape, f32) for i, (w, shape) in enumerate(zip(flat, shapes))),
+              *((label, t, rows, x.dtype) for label, t in extra)]
     for label, t, shape, dt in checks:
         if t.dtype != dt or t.shape != shape or t.device != device or not t.is_contiguous():
             label = f"weight {label}" if isinstance(label, int) else label
@@ -182,14 +199,29 @@ def _tail_forward(x, agg, flat, dtype):
     _check_kernel_inputs("fused_step_tail", x, agg, flat, dtype)
     out = torch.empty_like(x)
     lib = _lib("fused_tail")
-    launch = lib.fused_tail_launch if agg.dtype == torch.bfloat16 else lib.fused_tail_f32agg_launch
-    err = launch(
-        kernels.ptr(x), kernels.ptr(agg), *[kernels.ptr(w) for w in flat],
-        kernels.ptr(out), x.shape[0], kernels.stream_handle(x.device),
-    )
-    kernels.check("fused_tail", err)
-    kernels.launches["fused_tail"] += 1
+    stream = kernels.stream_handle(x.device)
+    if _tuned(x):
+        launch = (lib.fused_tail_launch if agg.dtype == torch.bfloat16
+                  else lib.fused_tail_f32agg_launch)
+        err = launch(kernels.ptr(x), kernels.ptr(agg), *[kernels.ptr(w) for w in flat],
+                     kernels.ptr(out), x.shape[0], stream)
+        kernels.check("fused_tail", err)
+        kernels.launches["fused_tail"] += 1
+        return out
+    d = x.shape[1]
+    wb = torch.empty(3 * d * d, dtype=torch.bfloat16, device=x.device)
+    err = lib.fused_tail_wide_launch(
+        kernels.ptr(x), kernels.ptr(agg), int(x.dtype == torch.bfloat16),
+        int(agg.dtype == torch.bfloat16), d, *[kernels.ptr(w) for w in flat], kernels.ptr(wb),
+        kernels.ptr(out), x.shape[0], stream)
+    kernels.check("fused_tail_wide", err)
+    kernels.launches["fused_tail_wide"] += 1
     return out
+
+
+def _unflatten_grads(grads, d):
+    dw0, dw1, dwf, db0, db1, dbf, dscale, dbias = torch.split(grads, [d * d] * 3 + [d] * 5)
+    return [dw0.view(d, d), db0, dw1.view(d, d), db1, dwf.view(d, d), dbf, dscale, dbias]
 
 
 def _tail_backward(x, agg, g, flat, dtype):
@@ -197,35 +229,43 @@ def _tail_backward(x, agg, g, flat, dtype):
     if x.device.type == "cpu":
         return _backward_plain(x, agg, g, flat, dtype)
     _check_kernel_inputs("fused_step_tail_bwd", x, agg, flat, dtype, extra=[("g", g)])
-    n = x.shape[0]
+    n, d = x.shape
     lib = _lib("fused_tail_bwd")
-    part = lib.fused_tail_bwd_partial_floats()
-    max_blocks = torch.cuda.get_device_properties(x.device).multi_processor_count
-    partials = torch.empty(max_blocks * part, dtype=torch.float32, device=x.device)
-    grads = torch.empty(part, dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    stream = kernels.stream_handle(x.device)
     dx = torch.empty_like(x)
     dagg = torch.empty_like(agg)
-    launch = (lib.fused_tail_bwd_launch if agg.dtype == torch.bfloat16
-              else lib.fused_tail_bwd_f32agg_launch)
-    # K6 takes every weight but the LayerNorm bias (dbias is the sum of g).
-    err = launch(
-        kernels.ptr(x), kernels.ptr(agg), kernels.ptr(g), *[kernels.ptr(w) for w in flat[:-1]],
-        kernels.ptr(dx), kernels.ptr(dagg), kernels.ptr(partials), max_blocks,
-        kernels.ptr(grads), n, kernels.stream_handle(x.device),
-    )
-    kernels.check("fused_tail_bwd", err)
-    kernels.launches["fused_tail_bwd"] += 1
-    d = KERNEL_WIDTH
-    dw0, dw1, dwf, db0, db1, dbf, dscale, dbias = torch.split(
-        grads, [d * d] * 3 + [d] * 5)
-    return dx, dagg, [dw0.view(d, d), db0, dw1.view(d, d), db1, dwf.view(d, d), dbf,
-                      dscale, dbias]
+    if _tuned(x):
+        part = lib.fused_tail_bwd_partial_floats()
+        partials = torch.empty(sms * part, dtype=torch.float32, device=x.device)
+        grads = torch.empty(part, dtype=torch.float32, device=x.device)
+        launch = (lib.fused_tail_bwd_launch if agg.dtype == torch.bfloat16
+                  else lib.fused_tail_bwd_f32agg_launch)
+        # K6 takes every weight but the LayerNorm bias (dbias is the sum of g).
+        err = launch(
+            kernels.ptr(x), kernels.ptr(agg), kernels.ptr(g),
+            *[kernels.ptr(w) for w in flat[:-1]], kernels.ptr(dx), kernels.ptr(dagg),
+            kernels.ptr(partials), sms, kernels.ptr(grads), n, stream)
+        kernels.check("fused_tail_bwd", err)
+        kernels.launches["fused_tail_bwd"] += 1
+        return dx, dagg, _unflatten_grads(grads, d)
+    nbytes = lib.fused_tail_wide_bwd_scratch_bytes(n, d, sms)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    grads = torch.empty(3 * d * d + 5 * d, dtype=torch.float32, device=x.device)
+    err = lib.fused_tail_wide_bwd_launch(
+        kernels.ptr(x), kernels.ptr(agg), kernels.ptr(g), int(x.dtype == torch.bfloat16),
+        int(agg.dtype == torch.bfloat16), d, *[kernels.ptr(w) for w in flat[:-1]],
+        kernels.ptr(dx), kernels.ptr(dagg), kernels.ptr(scratch), nbytes, sms,
+        kernels.ptr(grads), n, stream)
+    kernels.check("fused_tail_wide_bwd", err)
+    kernels.launches["fused_tail_wide_bwd"] += 1
+    return dx, dagg, _unflatten_grads(grads, d)
 
 
 def fused_step_tail_bwd(x, agg, g, node_params, *, dtype=torch.bfloat16):
     """K6: the fused recompute-backward (see ``fused_step_tail_bwd_reference``).
     CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/fused_tail_bwd.cu`` (K5's layout, f32 ``x`` and ``g``) or raise."""
+    ``csrc/fused_tail_bwd.cu`` (K5's layout; ``g`` in ``x``'s dtype) or raise."""
     return _tail_backward(x, agg, g, _flatten(node_params, x.shape[1]), dtype)
 
 
@@ -260,9 +300,12 @@ def fused_step_tail(x: torch.Tensor, agg: torch.Tensor, node_params, *,
     Differentiable in x, agg and every node-MLP and LayerNorm parameter:
     the backward is K6 (``fused_step_tail_bwd``). CPU tensors take the plain
     versions of both passes. CUDA tensors launch the kernels K5 and K6,
-    which take the default model's layout — L = H = 128, one hidden Linear,
-    f32 x and weights, bf16 operands, agg bf16 (the gather path) or f32 (the
-    cell-block path); ``kernel_takes`` — and raise on any other.
+    which take L = H = 128 or 256 with one hidden Linear, f32 weights, bf16
+    operands, x f32 or bf16 (the carry; the output and dx keep its dtype),
+    agg bf16 (the gather path) or f32 (the cell-block path) —
+    ``kernel_takes`` — and raise on any other: at width 128 with an f32
+    carry the tuned kernels, otherwise their width-general variants
+    (launch counts ``fused_tail_wide`` and ``fused_tail_wide_bwd``).
     """
     flat = _flatten(node_params, x.shape[1])
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, agg, *flat)):

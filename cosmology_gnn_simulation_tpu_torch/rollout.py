@@ -1,6 +1,7 @@
 """Rollout engine (counterpart of ``rollout.py``): gather aggregation, or
-the hybrid cell-block aggregation of the JAX package's main path, and the
-one-step prediction of both.
+the cell-block aggregation with the carry on the particle rows (hybrid, the
+JAX package's main path) or in slot space (its config-4 path), and the
+one-step prediction of each.
 
 Each simulated step: (re-)neighbor with the exactness certificate, featurize,
 run the model, un-normalize, then the reference's semi-implicit Euler update
@@ -48,11 +49,12 @@ def _permute_window(win: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     return win.index_select(1, order)
 
 
-def _predict_physical(params, graph, model_config, stats, dtype, cellblock_spec=None):
+def _predict_physical(params, graph, model_config, stats, dtype, cellblock_spec=None,
+                      cellblock_mode="hybrid"):
     """Forward pass + un-normalization to physical units."""
     preds = apply_encode_process_decode(
         params, graph, model_config, dtype, cellblock_spec=cellblock_spec,
-        cellblock_mode="hybrid",
+        cellblock_mode=cellblock_mode,
     )
     acceleration = preds["acceleration"] * stats.acc_std + stats.acc_mean
     temp_rate = preds["temp_rate"] * stats.temp_rate_std + stats.temp_rate_mean
@@ -121,21 +123,24 @@ def rollout(
         itself and returns at once where it holds, so no step waits for
         the host. ``neighbor_exactness`` still reports the search's own
         certificate, as in the JAX package.
-      aggregation: ``"gather"``, or ``"cellblock_hybrid"``: the selection-
+      aggregation: ``"gather"``, ``"cellblock_hybrid"``: the selection-
         matrix aggregation (a plan each re-neighboring, K4 each
         message-passing step) with the carry on the N particle rows, the
-        JAX package's main path. The state then rides in cell-sorted order,
-        re-sorted at each re-neighboring; outputs stay in original particle
-        order, and the certificate also requires no column overflow and no
-        dropped edge. ``"auto"`` resolves to ``"gather"``, as the JAX
-        dispatch does off-TPU, until the crossover is measured on the card.
-        The slot-space ``"cellblock"`` is not ported.
+        JAX package's main path, or ``"cellblock"``: the same with the
+        carry in slot space (expanded once after the encoder, compacted
+        once before the decoders; the JAX package's config-4 path). The
+        state then rides in cell-sorted order, re-sorted at each
+        re-neighboring; outputs stay in original particle order, and the
+        certificate also requires no column overflow and no dropped edge.
+        ``"auto"`` resolves to ``"gather"``, as the JAX dispatch does
+        off-TPU, until the crossover is measured on the card.
       cellblock_spec: the cell-block spec (default ``choose_cellblock_spec``
-        on the k-NN grid). On the k-NN grid the plan decodes the cell-list
-        kernel's codes (K1', K2); on another grid, or when another search
-        served (brute force below 8192 particles with ``"auto"``), it is
-        built from neighbor ids (the aux path; K1'' when the kernel
-        searches). ``cellblock_variable`` is not ported.
+        on the k-NN grid, with variable capacities where
+        ``cellblock_variable``). On the k-NN grid the plan decodes the
+        cell-list kernel's codes (K1', K2); on another grid, or when another
+        search served (brute force below 8192 particles with ``"auto"``), it
+        is built from neighbor ids (the aux path; K1'' when the kernel
+        searches).
       sorted_state: ``"on"`` carries the gather rollout's window in
         cell-sorted order (``ops.cell_list.cell_sort_order``), re-sorted at
         each re-neighboring, with outputs in the original order: the same
@@ -148,8 +153,9 @@ def rollout(
         ``dense_search_spec`` overrides ``choose_dense_search_spec``.
       fused_tail: run each message-passing step's tail as the kernel K5;
         ``None`` = on for the pruned model on CUDA where K5 takes the shape
-        (``ops.fused_step.kernel_takes``: bf16, latent = hidden = 128, one
-        hidden Linear). ``True`` on another shape raises on the card.
+        (``ops.fused_step.kernel_takes``: bf16, latent = hidden = 128 or
+        256, one hidden Linear). ``True`` on another shape raises on the
+        card.
       device: ``"cuda"`` (default; raises without a card) or ``"cpu"``,
         where every kernel is its plain PyTorch version.
 
@@ -174,11 +180,6 @@ def rollout(
                 "(brute-force fallback neighbors can exceed the one-cell window "
                 "the selection matrices cover)"
             )
-        if aggregation == "cellblock" or cellblock_variable:
-            raise NotImplementedError(
-                "the slot-space aggregation='cellblock' and cellblock_variable "
-                "are not ported; use aggregation='cellblock_hybrid'"
-            )
     if sorted_state not in ("auto", "on", "off"):
         raise ValueError(f"unknown sorted_state: {sorted_state}")
     if cellblock_search not in ("auto", "dense", "codes"):
@@ -196,9 +197,11 @@ def rollout(
     seed_pos, seed_temp = pos_window, temp_window
     box = stats.box_size
     spec = dspec = None
-    if aggregation == "cellblock_hybrid":
+    cellblock_mode = "hybrid" if aggregation == "cellblock_hybrid" else "slots"
+    if aggregation.startswith("cellblock"):
         n = pos_window.shape[1]
-        spec = cellblock_spec or choose_cellblock_spec(n, num_neighbors)
+        spec = cellblock_spec or choose_cellblock_spec(n, num_neighbors,
+                                                       variable=cellblock_variable)
         if cellblock_search == "dense":
             if spec.variable or spec.grid_x or not spec.periodic_x:
                 raise ValueError("cellblock_search='dense' requires the uniform cubic "
@@ -246,7 +249,8 @@ def rollout(
         graph = featurize(pos_window, temp_window, stats, neighbors,
                           build_edges=not pruned)._replace(cellblock=plan)
         acceleration, temp_rate = _predict_physical(
-            params, graph, model_config, stats, dtype, cellblock_spec=spec
+            params, graph, model_config, stats, dtype, cellblock_spec=spec,
+            cellblock_mode=cellblock_mode,
         )
         new_position, new_temperature = integrate_step(
             pos_window[-1], pos_window[-2], temp_window[-1],
@@ -273,7 +277,7 @@ def rollout(
 
 
 def _cellblock_plan(wrapped, k, box, spec, dspec, method, tile):
-    """One re-neighboring round of the hybrid path. Returns the plan and the
+    """One re-neighboring round of the cell-block paths. Returns the plan and the
     step's certificate: exact k-NN (or, on the dense search, no window
     truncation and every k-th neighbor within its margin), no column
     overflow, no dropped edge.
@@ -331,9 +335,9 @@ def one_step_prediction(
     ``(new_position [N, 3], new_temperature [N, 1])`` in the input particle
     order. It is the first frame of a 1-step ``rollout`` of the same window
     with the certificate off, and takes ``rollout``'s options and refusals:
-    ``aggregation`` ``"gather"`` (default) or ``"cellblock_hybrid"`` (codes
-    on the k-NN grid, the aux plan from neighbor ids on another spec or when
-    another search served).
+    ``aggregation`` ``"gather"`` (default), ``"cellblock_hybrid"`` or
+    ``"cellblock"`` (codes on the k-NN grid, the aux plan from neighbor ids
+    on another spec or when another search served), ``cellblock_variable``.
     """
     out = rollout(
         params, model_config, position_seq, temperature_seq, stats, 1,

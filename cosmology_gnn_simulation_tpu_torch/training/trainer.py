@@ -15,7 +15,10 @@ the plan with its reverse table (K2, K3, K7; from neighbor ids, the aux
 path, when another search served, as brute force does below 8192
 particles with ``neighbor_method="auto"``), nodes and targets permuted
 into the plan's cell-sorted order (the losses do not depend on row order),
-and K4 forward / K4^T backward each message-passing step. ``"auto"``
+and K4 forward / K4^T backward each message-passing step; or
+``"cellblock"``, the same with the carry in slot space (the JAX package's
+config-4 path), and ``cellblock_variable`` for variable capacities on
+either. ``"auto"``
 resolves to ``"gather"``, as the port's rollout and the JAX dispatch off
 the TPU do. ``fused_tail=None`` turns the fused tail (K5 forward, K6
 backward) on for the pruned model on CUDA where the kernels take the shape
@@ -33,8 +36,7 @@ whole validation set, the best, periodic and final checkpoints
 and a full resume (``restore``). Metrics stay tensors on the device until
 the epoch's average, so the loop adds no host sync per step.
 
-Not ported: the slot-space ``"cellblock"`` aggregation, variable cell-block
-capacities, per-particle noise keying (``partition_invariant_noise``) and
+Not ported: per-particle noise keying (``partition_invariant_noise``) and
 the sharded trainers (``mesh``, ``halo``); each raises
 ``NotImplementedError``.
 """
@@ -187,9 +189,6 @@ def _resolve(model_config: EncodeProcessDecodeConfig, tc: TrainConfig):
     pruned = model_config.aggregate == "sender_latents" and model_config.prune_dead_edge_stream
     if aggregation.startswith("cellblock") and not pruned:
         raise ValueError("aggregation='cellblock' requires the pruned sender_latents mode")
-    if aggregation == "cellblock" or tc.cellblock_variable:
-        raise NotImplementedError("the slot-space aggregation='cellblock' and "
-                                  "cellblock_variable are not ported")
     if tc.partition_invariant_noise:
         raise NotImplementedError("partition_invariant_noise (per-particle noise "
                                   "keying) is not ported")
@@ -214,13 +213,15 @@ def _sample(params, model_config, stats, tc, aggregation, pruned, dtype, pos, te
     graph, codes, codes_cap, spill = featurize(pos, temp, stats, build_edges=False,
                                                with_codes=True, codes_only=True, **kw)
     # No codes when another search served: the plan is built from the ids.
-    spec = choose_cellblock_spec(pos.shape[1], tc.num_neighbors)
+    spec = choose_cellblock_spec(pos.shape[1], tc.num_neighbors,
+                                 variable=tc.cellblock_variable)
     plan = build_cellblock(graph.positions, graph.neighbors, stats.box_size, spec,
                            with_reverse=train, neighbor_codes=codes, codes_cap=codes_cap,
                            codes_spill=spill)
     graph = graph._replace(nodes=graph.nodes[plan.order], cellblock=plan)
-    preds = apply_encode_process_decode(params, graph, model_config, dtype,
-                                        cellblock_spec=spec, cellblock_mode="hybrid")
+    preds = apply_encode_process_decode(
+        params, graph, model_config, dtype, cellblock_spec=spec,
+        cellblock_mode="hybrid" if aggregation == "cellblock_hybrid" else "slots")
     violations = None
     if train:
         violations = plan.overflow + plan.dropped_edges + plan.reverse_mismatch.abs()

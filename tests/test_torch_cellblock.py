@@ -124,10 +124,9 @@ def test_s_decode_and_onehot_match_jax_kernels(name):
     s_table, s_total = cellblock.s_onehot(offsets, width=tspec.s_width, with_total=True)
     assert int(s_total) == int(s_table.sum(dtype=torch.int64))
 
-    codes_n, qz_slot, cstart27, tile_const = cellblock.s_decode_inputs(
+    codes_n, qz_slot, cstart27, tile_const, slot_col = cellblock.s_decode_inputs(
         layout, torch.from_numpy(codes), cap, _torch_spill(spill), tspec)
-    slots = torch.arange(tspec.num_slots)
-    s27 = cstart27[(slots // tspec.col_capacity) * tspec.grid_size + qz_slot.long()]
+    s27 = cstart27[slot_col * tspec.grid_size + qz_slot.long()]
     const = tile_const.repeat_interleave(tspec.query_block, dim=0)
     packed = torch.cat([codes_n, s27, const, qz_slot[:, None]], dim=1).numpy().T
     packed = np.pad(packed, ((0, (-packed.shape[0]) % 8), (0, 0)))
@@ -260,8 +259,14 @@ def test_unported_plan_options_raise():
     with pytest.raises(ValueError, match="replaces the neighbor search"):
         cellblock.build_cellblock(tpos, None, 1.0, tspec, **ok,
                                   dense_search=cellblock.DenseSearchSpec(), num_neighbors=K)
-    for bad in (tspec._replace(slot_budget=1024), tspec._replace(grid_x=5)):
-        with pytest.raises(NotImplementedError):
-            cellblock.build_cellblock(tpos, None, 1.0, bad, **ok)
+    # Variable capacities are ported: a budget of 1,024 slot rows holds the
+    # same edges; non-cubic grids are refused.
+    variable = cellblock.build_cellblock(tpos, None, 1.0, tspec._replace(slot_budget=1024),
+                                         **ok)
+    assert variable.s_table.shape == (1024, tspec.s_width)
+    assert int(variable.overflow) == 0 and int(variable.dropped_edges) == 0
+    assert int(variable.s_table.sum(dtype=torch.int64)) == int(
+        from_ids.s_table.sum(dtype=torch.int64))
     with pytest.raises(NotImplementedError):
-        cellblock.choose_cellblock_spec(4096, 16, variable=True)
+        cellblock.build_cellblock(tpos, None, 1.0, tspec._replace(grid_x=5), **ok)
+    assert cellblock.choose_cellblock_spec(4096, 16, variable=True).variable

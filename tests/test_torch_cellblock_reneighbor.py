@@ -57,8 +57,12 @@ def test_cellblock_options_that_are_refused():
                 cellblock_spec=other._replace(grid_x=5), **kw)
     with pytest.raises(ValueError, match="cellblock_search"):
         rollout(tparams, tcfg, pos, temp, stats, 1, cellblock_search="nope", **kw)
-    # The slot-space carry of the model is not ported.
+    # The slot-space carry of the model is ported; a plan needs its spec.
     graph = ParticleGraph(nodes=torch.zeros(8, 17), neighbors=None, edges=None,
                           positions=torch.zeros(8, 3), cellblock=object())
-    with pytest.raises(NotImplementedError, match="slots"):
-        apply_encode_process_decode(tparams, graph, tcfg, cellblock_spec=other)
+    with pytest.raises(ValueError, match="cellblock_spec"):
+        apply_encode_process_decode(tparams, graph, tcfg)
+    slots = rollout(tparams, tcfg, pos, temp, stats, 1, **{**kw, "aggregation": "cellblock"})
+    hybrid = rollout(tparams, tcfg, pos, temp, stats, 1, **kw)
+    np.testing.assert_allclose(slots["Coordinates"].numpy(), hybrid["Coordinates"].numpy(),
+                               atol=COORD_ATOL, rtol=0)

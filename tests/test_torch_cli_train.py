@@ -1,7 +1,9 @@
 """The port's training CLI and metadata CLI on synthetic HDF5 files, on the
 CPU (``--device cpu``): the artifacts of the JAX CLI, a full ``--resume``,
 ``--pretrained_model`` loading weights only, every flag the port does not
-have raising ``NotImplementedError`` before any file is read, and
+have raising ``NotImplementedError`` before any file is read (and the
+config-4 flags ``--aggregation cellblock``, ``--cellblock_variable`` and
+``--carry_dtype bfloat16``, which it has now, training), and
 ``generate_metadata`` writing the JAX CLI's JSON.
 """
 
@@ -123,15 +125,21 @@ def test_pretrained_model_loads_weights_only(data, tmp_path, monkeypatch, capsys
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--aggregation", "cellblock"], 4),
-    (["--cellblock_variable"], 4),
-    (["--carry_dtype", "bfloat16"], 4),
+    # Ported in slice 11 (item None): the flag trains one epoch.
+    (["--aggregation", "cellblock"], None),
+    (["--aggregation", "cellblock", "--cellblock_variable"], None),
+    (["--carry_dtype", "bfloat16"], None),
     (["--data_parallel"], 5),
     (["--spatial_shards", "2"], 5),
     (["--distributed"], 5),
     (["--native_loader"], 6),
 ])
-def test_unported_flags_raise(tmp_path, flags, item):
+def test_unported_flags_raise(data, tmp_path, flags, item):
+    if item is None:
+        trainer = train_cli.main(_argv(data, tmp_path / "out", "--num_epochs", "1", *flags))
+        assert os.path.isdir(tmp_path / "out" / "model_final")
+        assert all(torch.isfinite(torch.tensor(trainer.history["train_loss"])))
+        return
     argv = ["--train_dir", "t", "--val_dir", "v", "--metadata_path",
             str(tmp_path / "no_such_metadata.json"), "--output_dir", str(tmp_path / "out"), *flags]
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):

@@ -11,7 +11,9 @@ cpu``):
   timesteps, errors within rtol 1e-4 and trajectories within 1e-5 (float32,
   summation order only), the same summary lines;
 * the refusals: unported flags (``NotImplementedError`` naming the ROADMAP
-  item, before any file is read), the brute-force fallback with cell-block
+  item, before any file is read; the slot-space ``--aggregation cellblock``
+  and ``--cellblock_variable``, which the port has now, run instead), the
+  brute-force fallback with cell-block
   aggregation (a parser error, as in JAX), a JAX Orbax checkpoint (its
   importer is ROADMAP item 2), ``--device cuda`` without a card.
 """
@@ -170,15 +172,26 @@ def test_the_cli_results_match_jax(data, checkpoints, tmp_path, capsys):
     assert summary[4:-2] == jax_summary[4:-2]  # past the model path, before the errors
 
 
+_SLOTS = ["--aggregation", "cellblock"]
+
+
 @pytest.mark.parametrize("cli, flags, item", [
-    ("one_step_test", ["--aggregation", "cellblock"], 4),
-    ("one_step_test", ["--cellblock_variable"], 4),
-    ("render_rollout", ["--aggregation", "cellblock"], 4),
-    ("render_rollout", ["--cellblock_variable"], 4),
+    # Ported in slice 11 (item None): the CLI runs on the slot-space path.
+    ("one_step_test", _SLOTS, None),
+    ("one_step_test", [*_SLOTS, "--cellblock_variable"], None),
+    ("render_rollout", _SLOTS, None),
+    ("render_rollout", [*_SLOTS, "--cellblock_variable"], None),
     ("render_rollout", ["--spatial_shards", "2"], 5),
 ])
-def test_unported_flags_raise(tmp_path, cli, flags, item):
+def test_unported_flags_raise(data, checkpoints, tmp_path, cli, flags, item):
     module = {"one_step_test": one_step_test, "render_rollout": render_rollout}[cli]
+    if item is None:
+        extra = (["--num_timesteps", "2"] if cli == "one_step_test"
+                 else ["--output_dir", str(tmp_path / "out"), "--num_steps", "2"])
+        out = module.main(_eval_argv(data, checkpoints[1], "--device", "cpu", *extra, *flags))
+        errors = out["position_errors"]
+        assert len(errors) == (2 if cli == "one_step_test" else 7) and np.isfinite(errors).all()
+        return
     argv = ["--model_path", str(tmp_path / "model"), "--test_data", str(tmp_path / "t.hdf5"),
             "--metadata_path", str(tmp_path / "no_such_metadata.json"),
             "--output_dir" if cli == "render_rollout" else "--num_timesteps",

@@ -21,7 +21,7 @@ def _copy_package(tmp_path, monkeypatch):
 def test_both_tails_hash_their_shared_header():
     for name in ("fused_tail", "fused_tail_bwd"):
         names = [p.name for p in kernels._sources(kernels.PACKAGE_DIR / "csrc" / f"{name}.cu")]
-        assert names == [f"{name}.cu", "tail_common.cuh", "sm90.cuh"]
+        assert names == [f"{name}.cu", "tail_common.cuh", "sm90.cuh", "tail_wide.cuh"]
 
 
 def test_window_matmul_hashes_the_hopper_header():
@@ -32,6 +32,7 @@ def test_window_matmul_hashes_the_hopper_header():
 @pytest.mark.parametrize("header, changed", [
     ("tail_common.cuh", {"fused_tail", "fused_tail_bwd"}),
     ("sm90.cuh", {"fused_tail", "fused_tail_bwd", "window_matmul"}),
+    ("tail_wide.cuh", {"fused_tail", "fused_tail_bwd"}),
 ])
 def test_editing_an_included_header_changes_the_library_path(tmp_path, monkeypatch, header,
                                                              changed):

@@ -83,10 +83,14 @@ def test_one_step_prediction_is_the_first_rollout_frame(route):
 def test_one_step_prediction_options_that_are_refused():
     _, tcfg, _, tparams, pos, temp = _setup()
     stats = NormalizationStats.from_metadata(METADATA, device="cpu")
+    # The slot-space carry and variable capacities are ported: each one step
+    # is its own 1-step rollout's first frame.
     for kw in (dict(aggregation="cellblock"),
                dict(aggregation="cellblock_hybrid", cellblock_variable=True)):
-        with pytest.raises(NotImplementedError):
-            one_step_prediction(tparams, tcfg, pos, temp, stats, device="cpu", **kw)
+        kw = dict(num_neighbors=K, device="cpu", **kw)
+        new_pos, _ = one_step_prediction(tparams, tcfg, pos, temp, stats, **kw)
+        ref = rollout(tparams, tcfg, pos, temp, stats, 1, **kw)
+        assert torch.equal(new_pos, ref["Coordinates"][-1])
     with pytest.raises(ValueError):
         one_step_prediction(tparams, tcfg, pos, temp, stats, aggregation="nope", device="cpu")
     if not torch.cuda.is_available():

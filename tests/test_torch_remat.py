@@ -2,7 +2,8 @@
 one train step with each gives the loss and gradients of the step without
 it, bit for bit (the recomputed forward runs the same operations on the
 same inputs), on gather and hybrid, with the fused tail's plain version on
-and off; and the recomputation runs each step's forward again exactly as
+and off, and on the slot-space path with the bf16 carry; and the
+recomputation runs each step's forward again exactly as
 often as the checkpoint structure implies, which ``chip_smoke.py`` holds
 the card's kernel launches to. No JAX.
 
@@ -75,12 +76,13 @@ def _sgd_step(batch, aggregation, fused, steps=STEPS, model_kw=None, **remat):
 
 
 CASES = [("gather", False, None), ("gather", True, None), ("cellblock_hybrid", False, None),
-         ("cellblock_hybrid", True, None), ("gather", False, {"aggregate": "edge_messages"})]
+         ("cellblock_hybrid", True, None), ("gather", False, {"aggregate": "edge_messages"}),
+         ("cellblock", True, {"carry_dtype": "bfloat16"})]
 
 
 @pytest.mark.parametrize("aggregation,fused,model_kw", CASES,
                          ids=["gather", "gather-fused", "hybrid", "hybrid-fused",
-                              "gather-unpruned"])
+                              "gather-unpruned", "slots-fused-bf16-carry"])
 def test_remat_gives_the_same_loss_and_gradients(aggregation, fused, model_kw):
     batch = _batch()
     loss, grads = _sgd_step(batch, aggregation, fused, model_kw=model_kw)
@@ -89,6 +91,8 @@ def test_remat_gives_the_same_loss_and_gradients(aggregation, fused, model_kw):
                                             **remat)
         assert remat_loss == loss, remat
         assert all(torch.equal(a, b) for a, b in zip(remat_grads, grads)), remat
+    if "carry_dtype" in (model_kw or {}):
+        return
     # The float32 carry is the default carry.
     carry_loss, carry_grads = _sgd_step(batch, aggregation, fused,
                                         model_kw={**(model_kw or {}), "carry_dtype": "float32"})
@@ -130,5 +134,8 @@ def test_recomputation_count(monkeypatch, remat, forwards):
 def test_remat_chunk_must_divide_and_bf16_carry_is_not_ported():
     with pytest.raises(ValueError, match="remat_chunk=3 must divide num_message_passing_steps=4"):
         _sgd_step(_batch(n=64), "gather", False, remat_chunk=3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        _sgd_step(_batch(n=64), "gather", False, model_kw={"carry_dtype": "bfloat16"})
+    # The bf16 carry is ported: its step trains; an unknown carry is refused.
+    loss, grads = _sgd_step(_batch(n=64), "gather", False, model_kw={"carry_dtype": "bfloat16"})
+    assert np.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in grads)
+    with pytest.raises(ValueError, match="carry_dtype"):
+        _sgd_step(_batch(n=64), "gather", False, model_kw={"carry_dtype": "float16"})

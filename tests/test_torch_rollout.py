@@ -211,12 +211,14 @@ def test_unported_options_raise():
     flagged = rollout(tparams, tcfg, pos, temp, stats, 1, device="cpu")
     for key in flagged:
         assert torch.equal(guarded[key], flagged[key]), key
-    with pytest.raises(NotImplementedError):
-        rollout(tparams, tcfg, pos, temp, stats, 1, aggregation="cellblock",
-                device="cpu")
-    with pytest.raises(NotImplementedError):
-        rollout(tparams, tcfg, pos, temp, stats, 1, aggregation="cellblock_hybrid",
-                cellblock_variable=True, device="cpu")
+    # The slot-space carry and variable capacities are ported: on a clean
+    # certificate both give the gather rollout's step (f32, summation order).
+    for kw in (dict(aggregation="cellblock"),
+               dict(aggregation="cellblock_hybrid", cellblock_variable=True)):
+        out = rollout(tparams, tcfg, pos, temp, stats, 1, device="cpu", **kw)
+        assert bool(out["neighbor_exactness"].all())
+        torch.testing.assert_close(out["Coordinates"], flagged["Coordinates"], atol=1e-5,
+                                   rtol=0)
 
 
 def test_cuda_entry_points_raise_without_a_card():

@@ -112,10 +112,9 @@ def test_plan_on_clustered_frames_matches_jax(name, monkeypatch):
         return real(offs, *args)
 
     monkeypatch.setattr(jcb, "_s_from_offsets", capture)
-    codes_n, qz_slot, cstart27, tile_const = cellblock.s_decode_inputs(
+    codes_n, qz_slot, cstart27, tile_const, slot_col = cellblock.s_decode_inputs(
         layout, torch.from_numpy(codes), cap, tspill, spec)
-    slots = torch.arange(spec.num_slots)
-    s27 = cstart27[(slots // spec.col_capacity) * spec.grid_size + qz_slot.long()]
+    s27 = cstart27[slot_col * spec.grid_size + qz_slot.long()]
     const = tile_const.repeat_interleave(spec.query_block, dim=0)
     packed = torch.cat([codes_n, s27, const, qz_slot[:, None]], dim=1).numpy().T
     packed = np.pad(packed, ((0, (-packed.shape[0]) % 8), (0, 0)))
