@@ -14,7 +14,8 @@ tail); then ``Trainer.fit`` on the hybrid path (epochs, validation,
 checkpoints, a resume) and activation checkpointing; then the rollout's
 brute-force fallback (K9 gated on the device), its cell-sorted state, and
 the evaluation entry points (``validate_one_step``, ``render_rollout``'s
-body).
+body); the config-4 path; then the table codes layout of the plan build and
+the index-sharded train step, rollout and Trainer on a one-rank NCCL mesh.
 Before that it builds every CUDA kernel from ``csrc/`` and holds each
 against its plain PyTorch version at the shapes the paths give it. Phases,
 each timed on its own line:
@@ -162,6 +163,30 @@ each timed on its own line:
      equal to the plain plan's count on its frame, ms per step and peak
      memory; at N = 8,192 one step (noise 0, SGD lr 1) on the card against
      the CPU plain path: loss within 1e-3, each gradient leaf within 5e-2;
+ 15a. the table codes layout, on the flagship frame (N = 65,536, k = 16), on
+     phase 4b's clustered30 frame (the spill block in use) and on the
+     config-4 variable spec's seed frame (N = 500,000, k = 32): K1''s
+     cell-table output bit-equal to knn_codes_reference on the same table,
+     every used spill slot's picks equal to the particle layout's codes of
+     its particle and every particle's table row to its particle-layout
+     codes; K2 on table rows (and the spill picks) bit-equal to its plain
+     version and to K2 on the particle-order codes (offsets and dropped
+     edges); the table route's plan S equal to the particle route's and to
+     the plain plan's, with exact launches; the device ms of each route's
+     plan build (K1' with its wrapper, then K2) from a CUDA graph, and K2 on
+     table rows timed with its bound;
+ 15b. the index-sharded paths at world size 1 over an NCCL process group
+     (file rendezvous, make_mesh((1, 1)) on the card, every group NCCL): the
+     data-parallel train step of the default model (bf16, fused tail, N =
+     65,536, k = 16), noise 0 and no augmentation, equal to make_train_step
+     on the same batch (loss and every parameter after one Adam step within
+     1e-6); at the flagship training row (noise 3e-4, augmentation) 1
+     warm-up and 4 timed steps of the sharded and the bare step, losses
+     finite, exact launches (K1 once, K5 and K6 ten times a step) and
+     collectives (11 all-gathers, 14 all-reduces a step); an 8-step
+     make_sharded_rollout within 2e-4 of rollout(aggregation="gather")
+     (K5 80 launches, 88 all-gathers), ms a step of each; Trainer(mesh=...)
+     for 2 steps and a validation pass equal to Trainer()'s (noise 0);
  12. one JSON line of every ported kernel: launches on its path, time, bound,
      plain version's time, library yardstick's time.
 
@@ -253,6 +278,10 @@ K5_BF16_MAX_ABS_TOL, K5_BF16_MEAN_ABS_TOL = 1e-1, 4e-3
 # share of K6's entries allowed off.
 K6_WIDE_OFF_SHARE = 5e-5
 C4_SLOTS_TOL = 2e-4  # slots against hybrid (JAX tests/test_cellblock_rollout.py)
+# The sharded paths at world size 1: the step, Trainer(mesh) and their
+# single-device counterparts (the same search, the same sorted-edge backward;
+# the collectives of one rank copy) within 1e-6.
+SHARDED_TOL = 1e-6
 
 METADATA = {
     "temp_mean": 1.0, "temp_std": 0.3, "temp_rate_mean": 0.0,
@@ -866,6 +895,327 @@ def config4_phases(args, dev, report, path_launches, zero):
           f"rel err {grad_err:.3g} (tol {TRAIN_GRAD_TOL})")
     print(f"phase 14d config-4 train: {time.perf_counter() - t0:.1f} s")
     return c4_ms, train_ms
+
+
+def table_phase(args, dev, report, path_launches, zero):
+    """Phase 15a (the table codes layout; see the module docstring).
+    Returns each frame's plan-build device ms by route."""
+    from cosmology_gnn_simulation_tpu_torch import kernels
+    from cosmology_gnn_simulation_tpu_torch.ops import cellblock, pallas_knn
+    from cosmology_gnn_simulation_tpu_torch.ops.cell_list import choose_cell_grid, f32
+
+    t0 = time.perf_counter()
+    label, share, sigma = CLUSTERED[1]
+    frames = (
+        ("flagship", N, K, seed_window(N, args.seed)[0][-1], False),
+        (label, N, K, clustered_frame(N, share, sigma, args.seed + 21), False),
+        ("config-4 variable", C4_N, C4_K, seed_window(C4_N, args.seed + 41)[0][-1], True),
+    )
+    build_ms = {}
+    for name, n, k, frame, variable in frames:
+        pos = torch.from_numpy(frame).to(dev)
+        spec = cellblock.choose_cellblock_spec(n, k, variable=variable)
+        grid = choose_cell_grid(n, k)
+        g = grid.grid_size
+        cap = pallas_knn.codes_packing_cap(n, k, grid)
+        tcap, _, spill_cap = pallas_knn.spill_layout(n, k, grid)
+        # K1' in the table layout: the kernel's rows as they are, against its
+        # plain version on the same table; each used spill slot's picks
+        # against the particle layout's codes of its particle.
+        kernels.reset_launches()
+        _, codes, spill = pallas_knn.pallas_cell_list_knn(pos, k, 1.0, grid, codes_only=True,
+                                                          codes_layout="table")
+        _, pcodes, pspill = pallas_knn.pallas_cell_list_knn(pos, k, 1.0, grid, codes_only=True)
+        t = pallas_knn.build_table(pos, g, tcap, f32(1.0, dev))
+        planes = (t.x, t.y, t.z, t.ids)
+        sp_planes = pallas_knn.build_spill(pos, t.particle_rank, tcap, spill_cap)
+        ref_codes, _ = pallas_knn.knn_codes_reference(
+            planes, sp_planes, k=k, n=n, g=g, box=f32(1.0, dev),
+            mi_start=pallas_knn.min_image_start(tcap, spill_cap))
+        if not torch.equal(codes, ref_codes):
+            fail(f"K1' table {name}: the table output differs from knn_codes_reference in "
+                 f"{int((codes != ref_codes).any(1).sum())} rows")
+        used = sp_planes[3] != n
+        n_spilled = int(used.sum())
+        if spill is None or len(spill) != 3 or not torch.equal(
+                spill[2][used], pcodes[sp_planes[3][used].long()]):
+            fail(f"K1' table {name}: the spill picks differ from the particle layout's codes")
+        if name == label and n_spilled == 0:
+            fail(f"K1' table {name}: the clustered frame spilled no particle")
+        layout = cellblock.cellblock_layout(pos, 1.0, spec)
+        rows = cellblock.codes_rows(layout, spill, cap, spec, "table")
+        valid = 27 * cap + spill_cap
+        fixed = torch.where(codes >= valid, codes[:, :1], codes)
+        if not torch.equal(torch.cat([fixed, spill[2]])[rows], pcodes[layout.order]):
+            fail(f"K1' table {name}: a particle's table row differs from its particle-layout "
+                 "codes")
+        # K2 on table rows against its plain version and the particle route;
+        # the plan's S against the particle route's and the plain plan's.
+        kernels.reset_launches()
+        offsets, dropped = cellblock.s_decode(codes, spill, layout, spec, cap, "table")
+        if dict(kernels.launches) != {**zero, "s_decode": 1}:
+            fail(f"K2 table {name}: launches {dict(kernels.launches)}")
+        ref_off = cellblock.s_decode_reference(
+            *cellblock.s_decode_inputs(layout, codes, cap, spill, spec, "table"), spec=spec,
+            codes_cap=cap)
+        p_off, p_dropped = cellblock.s_decode(pcodes, pspill, layout, spec, cap)
+        width = spec.s_width
+        if not (torch.equal(offsets, ref_off) and torch.equal(offsets, p_off)
+                and int(dropped) == int(p_dropped) == int((ref_off == width + 1).sum())):
+            fail(f"K2 table {name}: offsets differ from the plain version in "
+                 f"{int((offsets != ref_off).sum())} and from the particle route in "
+                 f"{int((offsets != p_off).sum())} entries, dropped {int(dropped)} vs "
+                 f"{int(p_dropped)}")
+        kernels.reset_launches()
+        plan = cellblock.build_cellblock(pos, None, 1.0, spec, neighbor_codes=codes,
+                                         codes_cap=cap, codes_spill=spill,
+                                         codes_layout="table")
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        if launches != {**zero, "s_decode": 1, "s_onehot": 1}:
+            fail(f"table plan {name}: launches {launches}")
+        p_plan = cellblock.build_cellblock(pos, None, 1.0, spec, neighbor_codes=pcodes,
+                                           codes_cap=cap, codes_spill=pspill)
+        ref_s = cellblock.s_onehot_reference(ref_off, width=width)
+        if not (torch.equal(plan.s_table, p_plan.s_table) and torch.equal(plan.s_table, ref_s)
+                and int(plan.dropped_edges) == int(p_plan.dropped_edges)):
+            fail(f"table plan {name}: S or dropped edges differ from the particle route's or "
+                 "the plain plan's")
+        path_launches[f"table plan {name}"] = launches
+        # The plan build's device ms by route from a CUDA graph: K1' with its
+        # wrapper, then K2 (the layout, shared, outside).
+        routes = {}
+        for route in ("particle", "table"):
+            def build(route=route):
+                _, c, sp = pallas_knn.pallas_cell_list_knn(pos, k, 1.0, grid, codes_only=True,
+                                                           codes_layout=route)
+                return cellblock.s_decode(c, sp, layout, spec, cap, route)
+
+            routes[route] = graph_ms(build, 5 if n > N else 20)
+        build_ms[name] = routes
+        k2t = lambda: cellblock.s_decode(codes, spill, layout, spec, cap, "table")  # noqa: E731
+        k2t_ms, k2t_graph = time_ms(k2t, 50), graph_ms(k2t, 20)
+        # In: the N table rows the slots read, the spill picks and tables,
+        # the slot, row and z-cell maps, the start and tile tables; out: the
+        # offsets and the count. ~30 integer operations a pick.
+        k2t_bytes = (n * k * 4 + nbytes(spill[2], spill[0], spill[1], layout.particle_of_slot,
+                                        rows, layout.sorted_cz, layout.cstart_rel,
+                                        layout.tile_const, offsets) + 4)
+        k2t_bound = max(k2t_bytes / HBM_BYTES_PER_S, 30 * offsets.numel() / F32_FLOP_PER_S) * 1e3
+        if name == "flagship":
+            report["s_decode"].update(table_ms=k2t_ms, table_graph_ms=k2t_graph,
+                                      table_bound_ms=k2t_bound)
+        layout_name = "variable" if variable else "uniform"
+        print(f"table layout {name} (N={n}, k={k}, {spec.num_slots} slots, {layout_name}): "
+              f"K1' table output ({tuple(codes.shape)}) bit-equal to knn_codes_reference, "
+              f"{n_spilled} spilled with picks equal to the particle layout's codes; K2 on "
+              f"table rows bit-equal to its plain version and to the particle route (dropped "
+              f"{int(dropped)}); S equal to the particle route's and the plain plan's; launches "
+              f"{ {kk: v for kk, v in launches.items() if v} }; K2 table {k2t_ms:.4f} ms (graph "
+              f"{k2t_graph:.4f}, bound {k2t_bound:.5f}); plan build K1'+wrapper+K2 from a graph: "
+              f"particle {routes['particle']:.4f} ms, table {routes['table']:.4f} ms")
+        del codes, pcodes, spill, pspill, t, planes, sp_planes, ref_codes, layout, rows, fixed
+        del offsets, ref_off, p_off, plan, p_plan, ref_s, pos
+        torch.cuda.empty_cache()
+    print(f"phase 15a table layout: {time.perf_counter() - t0:.1f} s")
+    return build_ms
+
+
+def sharded_phase(args, dev, report, path_launches, zero):
+    """Phase 15b (the index-sharded paths at world size 1 over NCCL; see the
+    module docstring). Returns the ms per step of the sharded and bare train
+    steps and rollouts."""
+    import torch.distributed as dist
+
+    from cosmology_gnn_simulation_tpu_torch import kernels
+    from cosmology_gnn_simulation_tpu_torch.data.synthetic import generate_synthetic_simulation
+    from cosmology_gnn_simulation_tpu_torch.models.encode_process_decode import (
+        default_model_config,
+        init_encode_process_decode,
+    )
+    from cosmology_gnn_simulation_tpu_torch.parallel import collectives as coll
+    from cosmology_gnn_simulation_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from cosmology_gnn_simulation_tpu_torch.parallel.sharded import (
+        make_data_parallel_train_step,
+        make_sharded_rollout,
+        shard_batch,
+    )
+    from cosmology_gnn_simulation_tpu_torch.rollout import rollout
+    from cosmology_gnn_simulation_tpu_torch.training import (
+        TrainConfig,
+        Trainer,
+        make_optimizer,
+        make_train_step,
+    )
+    from cosmology_gnn_simulation_tpu_torch.types import NormalizationStats, tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = default_model_config()
+    mp = cfg.num_message_passing_steps
+    stats = NormalizationStats.from_metadata(METADATA, device=dev)
+    ms = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        initialize_distributed(f"file://{tmp}/rendezvous", 1, 0, device="cuda")
+        try:
+            mesh = make_mesh((1, 1))
+            backends = {dist.get_backend(), *(dist.get_backend(a.group)
+                                              for a in mesh.axes.values())}
+            if backends != {"nccl"} or mesh.device.type != "cuda":
+                fail(f"sharded: backends {backends}, device {mesh.device}")
+            tbatch = train_batch(N, args.seed)
+            local = shard_batch(tbatch, mesh)
+
+            def params():
+                return init_encode_process_decode(cfg, torch.Generator().manual_seed(args.seed),
+                                                  device=dev)
+
+            # (a) noise 0, no augmentation: one Adam step of each, equal.
+            tc0 = TrainConfig(num_neighbors=K, compute_dtype="bfloat16", noise_std=0.0,
+                              augment_prob=0.0)
+            opt = make_optimizer(tc0, steps_per_epoch=1)
+            bare, sharded_ = params(), params()
+            _, _, m_bare = make_train_step(cfg, stats, tc0, opt)(
+                bare, opt.init(bare), tbatch, torch.Generator(device=dev).manual_seed(args.seed))
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            coll.reset_collectives()
+            _, _, m_sharded = make_data_parallel_train_step(cfg, stats, tc0, opt, mesh)(
+                sharded_, opt.init(sharded_), local, 0)
+            torch.cuda.synchronize()
+            per_step = {"knn_select": 1, "fused_tail": mp, "fused_tail_bwd": mp}
+            per_collectives = {"all_gather": 1 + mp, "all_reduce": mp + 4, "broadcast": 0}
+            if dict(kernels.launches) != {**zero, **per_step}:
+                fail(f"sharded train step: launches {dict(kernels.launches)}")
+            if dict(coll.collectives) != per_collectives:
+                fail(f"sharded train step: collectives {dict(coll.collectives)}")
+            loss_err = abs(float(m_sharded["loss"]) - float(m_bare["loss"]))
+            param_err = max(float((a - b).abs().max())
+                            for a, b in zip(tree_leaves(sharded_), tree_leaves(bare)))
+            if not (loss_err <= SHARDED_TOL and param_err <= SHARDED_TOL):
+                fail(f"sharded train step vs make_train_step: loss diff {loss_err}, worst "
+                     f"parameter diff {param_err} (tol {SHARDED_TOL})")
+            print(f"sharded train step (1,1) NCCL, N={N} k={K} default model bf16, noise 0, no "
+                  f"augmentation, Adam: loss {float(m_sharded['loss']):.6g}, diff to "
+                  f"make_train_step {loss_err:.3g}, worst parameter diff {param_err:.3g} (tol "
+                  f"{SHARDED_TOL}); launches { {k: v for k, v in kernels.launches.items() if v} }, "
+                  f"collectives {dict(coll.collectives)}")
+            del bare, sharded_
+
+            # (b) the flagship training row: noise 3e-4, augmentation on.
+            tc = TrainConfig(num_neighbors=K, compute_dtype="bfloat16", noise_std=TRAIN_NOISE)
+            steps = {"sharded": make_data_parallel_train_step, "bare": make_train_step}
+            for kind, make in steps.items():
+                p = params()
+                opt = make_optimizer(tc, steps_per_epoch=TRAIN_STEPS + 1)
+                state = opt.init(p)
+                if kind == "sharded":
+                    step = make(cfg, stats, tc, opt, mesh)
+                    run = lambda i: step(p, state, local, i)[2]  # noqa: E731
+                else:
+                    step, gen = make(cfg, stats, tc, opt), torch.Generator(device=dev)
+                    run = lambda i: step(p, state, tbatch, gen)[2]  # noqa: E731
+                run(0)  # warm-up
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                coll.reset_collectives()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                metrics = [run(i) for i in range(1, TRAIN_STEPS + 1)]
+                end.record()
+                torch.cuda.synchronize()
+                ms[f"train {kind}"] = start.elapsed_time(end) / TRAIN_STEPS
+                losses = [float(m["loss"]) for m in metrics]
+                if not all(np.isfinite(losses)):
+                    fail(f"train {kind} (flagship row): losses {losses}")
+                if kind == "sharded":
+                    expected = {name: c * TRAIN_STEPS for name, c in per_step.items()}
+                    counts = {name: c * TRAIN_STEPS for name, c in per_collectives.items()}
+                    if dict(kernels.launches) != {**zero, **expected}:
+                        fail(f"sharded train (flagship row): launches {dict(kernels.launches)}")
+                    if dict(coll.collectives) != counts:
+                        fail(f"sharded train (flagship row): collectives "
+                             f"{dict(coll.collectives)}")
+                    path_launches["sharded train"] = dict(kernels.launches)
+                print(f"train {kind} (flagship row: noise {TRAIN_NOISE}, augmentation, batch 1, "
+                      f"Adam): {TRAIN_STEPS} steps, {ms[f'train {kind}']:.3f} ms/step, losses "
+                      f"{[float(f'{v:.6g}') for v in losses]}"
+                      + (f", per step launches {per_step}, collectives {per_collectives}"
+                         if kind == "sharded" else ""))
+                del p, state, step, run, metrics
+
+            # (c) an 8-step sharded rollout against the gather rollout.
+            p = params()
+            pos, temp = seed_window(N, args.seed)
+            kw = dict(num_neighbors=K, dtype=torch.bfloat16)
+            sharded_rollout = make_sharded_rollout(cfg, stats, mesh, STEPS, **kw)
+            sharded_rollout(p, pos, temp)  # warm-up
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            coll.reset_collectives()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = sharded_rollout(p, pos, temp)
+            end.record()
+            torch.cuda.synchronize()
+            ms["rollout sharded"] = start.elapsed_time(end) / STEPS
+            launches = dict(kernels.launches)
+            expected = {"knn_select": STEPS, "fused_tail": mp * STEPS}
+            rollout_collectives = {"all_gather": STEPS * (1 + mp), "all_reduce": 0,
+                                   "broadcast": 0}
+            if launches != {**zero, **expected} or dict(coll.collectives) != rollout_collectives:
+                fail(f"sharded rollout: launches {launches}, collectives "
+                     f"{dict(coll.collectives)}")
+            path_launches["sharded rollout"] = launches
+            start.record()
+            ref = rollout(p, cfg, pos, temp, stats, STEPS, aggregation="gather", device=dev, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            ms["rollout gather"] = start.elapsed_time(end) / STEPS
+            err = max(float((out[key] - ref[key]).abs().max())
+                      for key in ("Coordinates", "InternalEnergy"))
+            if not (err <= SMALL_COORD_TOL and bool(torch.isfinite(out["Coordinates"]).all())):
+                fail(f"sharded rollout vs gather rollout: max diff {err} (tol "
+                     f"{SMALL_COORD_TOL})")
+            print(f"sharded rollout (1,1) NCCL: N={N}, {STEPS} steps bf16, within {err:.3g} of "
+                  f"rollout(aggregation='gather') (tol {SMALL_COORD_TOL}); launches "
+                  f"{ {k: v for k, v in launches.items() if v} }, collectives "
+                  f"{dict(coll.collectives)}; {ms['rollout sharded']:.3f} ms/step (gather "
+                  f"rollout {ms['rollout gather']:.3f})")
+            del p, out, ref
+
+            # (d) Trainer(mesh) against Trainer(): 2 steps and a validation
+            # pass (noise 0, no augmentation), params and history equal.
+            train_sim = generate_synthetic_simulation(num_snapshots=WINDOW + 2, num_particles=N,
+                                                      seed=args.seed + 50)
+            val_sim = generate_synthetic_simulation(num_snapshots=WINDOW + 1, num_particles=N,
+                                                    seed=args.seed + 51)
+            fitted = {}
+            for kind in ("single", "mesh"):
+                tcf = TrainConfig(num_neighbors=K, compute_dtype="bfloat16", noise_std=0.0,
+                                  augment_prob=0.0, num_epochs=1, save_every=1,
+                                  output_dir=os.path.join(tmp, kind))
+                trainer = Trainer(cfg, stats, tcf, 2, params(),
+                                  mesh=mesh if kind == "mesh" else None, device=dev)
+                with contextlib.redirect_stdout(io.StringIO()):
+                    best = trainer.fit(MemoryDataset([train_sim]), MemoryDataset([val_sim]))
+                fitted[kind] = ([t.detach().clone() for t in tree_leaves(best)],
+                                trainer.history)
+            (p_one, h_one), (p_mesh, h_mesh) = fitted["single"], fitted["mesh"]
+            fit_err = max(float((a - b).abs().max()) for a, b in zip(p_mesh, p_one))
+            hist_err = max(abs(h_mesh[key][0] - h_one[key][0]) for key in ("train_loss",
+                                                                           "val_loss"))
+            if not (fit_err <= SHARDED_TOL and hist_err <= SHARDED_TOL):
+                fail(f"Trainer(mesh) vs Trainer(): worst parameter diff {fit_err}, history diff "
+                     f"{hist_err}")
+            print(f"Trainer(mesh) (1,1) NCCL: 2 steps and validation at N={N}, params within "
+                  f"{fit_err:.3g} and losses within {hist_err:.3g} of Trainer()'s (tol "
+                  f"{SHARDED_TOL}); train loss {h_mesh['train_loss'][0]:.6g}, val loss "
+                  f"{h_mesh['val_loss'][0]:.6g}")
+        finally:
+            dist.destroy_process_group()
+    print(f"phase 15b sharded paths: {time.perf_counter() - t0:.1f} s")
+    return ms
 
 
 def main() -> None:
@@ -2333,6 +2683,8 @@ def main() -> None:
     print(f"phase 13d evaluation: {time.perf_counter() - t0:.1f} s")
 
     c4_rollout_ms, c4_train_ms = config4_phases(args, dev, report, path_launches, zero)
+    table_ms = table_phase(args, dev, report, path_launches, zero)
+    sharded_ms = sharded_phase(args, dev, report, path_launches, zero)
 
     # ---- 12. kernels line ------------------------------------------------
     kernels_line = []
@@ -2344,7 +2696,10 @@ def main() -> None:
           f"per train step gather {train_ms['gather']:.4f}, cellblock_hybrid "
           f"{train_ms['cellblock_hybrid']:.4f}; config 4 ms per rollout step "
           + ", ".join(f"{label} {ms:.4f}" for label, ms in c4_rollout_ms.items())
-          + f", per train step {c4_train_ms:.4f}")
+          + f", per train step {c4_train_ms:.4f}; table layout plan build ms (particle, "
+          f"table) " + ", ".join(f"{name} {r['particle']:.4f} {r['table']:.4f}"
+                                 for name, r in table_ms.items())
+          + "; sharded (1,1) ms " + ", ".join(f"{name} {v:.4f}" for name, v in sharded_ms.items()))
     print(smi)
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,21 @@
 """``python -m cosmology_gnn_simulation_tpu_torch.cli.train`` — the training
-entry point (counterpart of ``cli/train.py``, single device; the sharded
-branches raise in ``config.check_ported``)."""
+entry point (counterpart of ``cli/train.py``): single device, or
+data-parallel over the ranks of a process group (``--data_parallel``,
+launched by ``torchrun --nproc_per_node=G ... --distributed``); the halo
+branch (``--spatial_shards`` > 1) raises in ``config.check_ported``."""
 
 from __future__ import annotations
 
+import torch
+import torch.distributed as dist
+
 from cosmology_gnn_simulation_tpu_torch.config import get_config
 from cosmology_gnn_simulation_tpu_torch.data.dataset import SequenceDataset
+from cosmology_gnn_simulation_tpu_torch.parallel.mesh import (
+    initialize_distributed,
+    local_rank,
+    make_mesh,
+)
 from cosmology_gnn_simulation_tpu_torch.training.trainer import (
     TrainConfig,
     Trainer,
@@ -18,6 +28,16 @@ from cosmology_gnn_simulation_tpu_torch.utils import checkpoint as ckpt_lib
 def main(argv=None):
     args = get_config(argv)
     device = resolve_device(args.device)
+    if args.distributed:
+        # First, so each rank's tensors go to its own card.
+        if initialize_distributed(device=device):
+            print(f"Multi-process runtime: rank {dist.get_rank()} of {dist.get_world_size()} "
+                  f"({dist.get_backend()})")
+        else:
+            print("--distributed: no torchrun environment (MASTER_ADDR, RANK, WORLD_SIZE); "
+                  "running single-process")
+        if device.type == "cuda":
+            device = torch.device("cuda", local_rank())
     stats = NormalizationStats.from_metadata(args.metadata, device=device)
     print(f"Using time step (dt): {stats.dt}")
     print(f"Using box size: {stats.box_size}")
@@ -66,6 +86,11 @@ def main(argv=None):
         cellblock_variable=args.cellblock_variable,
         fused_tail=args.fused_tail,
     )
+    if train_config.aggregation.startswith("cellblock") and (args.data_parallel
+                                                             or args.distributed):
+        raise SystemExit("--aggregation cellblock is single-device only (the cell block does "
+                         "not compose with data or particle sharding); drop the "
+                         "--data_parallel/--distributed flags")
     steps_per_epoch = max(len(train_dataset) // args.batch_size, 1)
 
     init_params = None
@@ -78,8 +103,14 @@ def main(argv=None):
             # fails; so does this, loudly.
             print(f"Error loading pretrained model ({exc}); continuing with random init")
 
+    mesh = None
+    if args.data_parallel:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        mesh = make_mesh((world, 1), device=device)
+        print(f"Data-parallel training over {world} rank(s) ({mesh.device} here)")
+
     trainer = Trainer(model_config, stats, train_config, steps_per_epoch, init_params,
-                      device=device)
+                      mesh=mesh, device=device)
     start_epoch = 0
     if args.resume:
         start_epoch = trainer.restore(args.resume)

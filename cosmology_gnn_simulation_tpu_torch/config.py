@@ -5,10 +5,12 @@ package's flags and defaults, plus ``--device``.
   CUDA device ``cuda`` raises, nothing falls back to the CPU;
 * ``--num_workers`` is accepted for CLI compatibility but unused (graphs
   are built on the device inside the step);
-* flags whose paths the port does not have yet (``--data_parallel``,
-  ``--spatial_shards`` > 1, ``--distributed``, ``--native_loader``) raise
-  ``NotImplementedError`` naming the ROADMAP item that ports them
-  (``check_ported``).
+* ``--distributed`` joins torchrun's process group (NCCL on the card,
+  gloo with ``--device cpu``) and ``--data_parallel`` trains on a mesh of
+  every rank on the data axis (``parallel/``);
+* flags whose paths the port does not have yet (``--spatial_shards`` > 1,
+  ``--native_loader``) raise ``NotImplementedError`` naming the ROADMAP
+  item that ports them (``check_ported``).
 """
 
 from __future__ import annotations
@@ -65,9 +67,11 @@ def build_train_parser() -> argparse.ArgumentParser:
     parser.add_argument("--aggregate", type=str, default="sender_latents",
                         choices=["sender_latents", "edge_messages"])
     parser.add_argument("--distributed", action="store_true",
-                        help="Multi-process training (not ported)")
+                        help="Multi-process training: join torchrun's process group "
+                             "(MASTER_ADDR, RANK, WORLD_SIZE; one rank per GPU)")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="Shard the batch across all visible devices (not ported)")
+                        help="Shard the batch over every rank of the process group "
+                             "(one rank alone without --distributed)")
     parser.add_argument("--spatial_shards", type=int, default=0,
                         help="Decompose the box into this many x-slabs with "
                              "halo exchange; 0/1 = off (more is not ported)")
@@ -127,9 +131,7 @@ def check_ported(args) -> None:
         return getattr(args, name, default)
 
     unported = [
-        (flag("data_parallel"), "--data_parallel", 5),
-        ((flag("spatial_shards") or 0) > 1, "--spatial_shards > 1", 5),
-        (flag("distributed"), "--distributed", 5),
+        ((flag("spatial_shards") or 0) > 1, "--spatial_shards > 1", "5, second half (halo)"),
         (flag("native_loader"), "--native_loader", 6),
     ]
     for given, name, item in unported:

@@ -5,8 +5,15 @@
 // _s_from_codes_fused (its decode body; pallas_call in the same function)
 // and the XLA code around it that moves the codes to their slots, resolves
 // the spill codes and pre-normalizes them. Per slot s of query tile t and
-// pick p, with the slot's particle (particle_of_slot, order) and its z-cell
-// qz, of the codes [N, k] in particle order (an empty slot has no edge):
+// pick p, with the slot's sorted particle (particle_of_slot) and its z-cell
+// qz, the slot's codes row is rows[particle]: below num_rows a row of
+// `codes` (the particle-order codes [N, k], rows = the sort order; or K1''s
+// cell-table output [G^3 * cap, k], rows = cell * cap + rank), past it a row
+// of `picks` (the spilled queries' solved picks, table layout only). The two
+// sources are read in place, not copied into one array. An empty slot has
+// no edge. A pick at or past the valid lanes (27 * cap + spill_len: an
+// exhausted pick, as K1' writes it) repeats its row's first code (the
+// particle layout's k-NN wrapper has already done so).
 //   * ring codes (< 27 * cap) are j27 * cap + rank, j27 = (dx+1) * 9 +
 //     (dy+1) * 3 + (dz+1): the sender's column rank is the compact start of
 //     z-cell (qz + dz) mod G in ring column jring = (dx+1) * 3 + (dy+1) of
@@ -113,20 +120,31 @@ __device__ __forceinline__ int decode(int code, int qz, const Tile& t) {
 
 // K: picks a row, 8, 16, 32 or 64 (8 picks a thread, 16-byte vectors), or
 // 0 for any k (one pick a thread).
+// A slot's codes row: a row of `codes` below num_rows, else of `picks`;
+// null for an empty slot (row -1) or a row past both.
+__device__ __forceinline__ const int* codes_row(int row, const int* codes, int num_rows,
+                                                const int* picks, int num_picks, int k) {
+  if (row < 0) return nullptr;
+  if (row < num_rows) return codes + (size_t)row * k;
+  row -= num_rows;
+  return row < num_picks ? picks + (size_t)row * k : nullptr;
+}
+
 template <int K>
 __global__ void __launch_bounds__(kMaxThreads)
-    s_decode_kernel(const int* __restrict__ codes, const int* __restrict__ spill_cells,
+    s_decode_kernel(const int* __restrict__ codes, const int* __restrict__ picks,
+                    const int* __restrict__ spill_cells,
                     const int* __restrict__ spill_ranks, const long long* __restrict__ pos_slot,
-                    const long long* __restrict__ order, const long long* __restrict__ sorted_cz,
+                    const long long* __restrict__ rows, const long long* __restrict__ sorted_cz,
                     const long long* __restrict__ cstart_rel, const int* __restrict__ tile_const,
                     const int* __restrict__ tile_col, int16_t* __restrict__ out,
-                    int* __restrict__ dropped, int n, int k_rt,
+                    int* __restrict__ dropped, int n, int k_rt, int num_rows, int num_picks,
                     int spill_len, int g, int cc, int qb, int w_cap, int cap) {
   const int k = K ? K : k_rt;
   extern __shared__ int smem[];
   int* s_starts = smem;             // [9 * g]
-  int* s_orig = s_starts + 9 * g;   // [qb] particle (original order), -1: empty slot
-  int* s_qz = s_orig + qb;          // [qb]
+  int* s_row = s_starts + 9 * g;    // [qb] the slot's codes row, -1: empty slot
+  int* s_qz = s_row + qb;           // [qb]
   __shared__ int s_const[45];
   __shared__ int warp_sums[kMaxThreads / 32];
 
@@ -144,25 +162,30 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   for (int i = threadIdx.x; i < qb; i += blockDim.x) {
     const long long p = pos_slot[slot0 + i];
-    s_orig[i] = p < n ? (int)order[p] : -1;
+    s_row[i] = p < n ? (int)rows[p] : -1;
     s_qz[i] = p < n ? (int)sorted_cz[p] : 0;
   }
   __syncthreads();
   const Tile t{s_const, s_starts, spill_cells, spill_ranks, cstart_rel,
                spill_len, g, cc, w_cap, cap, cx, cy};
   const int width = 9 * w_cap;
+  const int valid_lanes = 27 * cap + spill_len;
   int drops = 0;
   if constexpr (K != 0) {
     constexpr int kChunks = K / 8;
     for (int it = threadIdx.x; it < qb * kChunks; it += blockDim.x) {
       const int sl = it / kChunks, ch = it % kChunks;
-      const int orig = s_orig[sl], qz = s_qz[sl];
+      const int qz = s_qz[sl];
+      const int* row = codes_row(s_row[sl], codes, num_rows, picks, num_picks, K);
       int c[8];
-      if (orig >= 0) {
-        const int4* src = reinterpret_cast<const int4*>(codes + (size_t)orig * K + ch * 8);
+      if (row != nullptr) {
+        const int4* src = reinterpret_cast<const int4*>(row + ch * 8);
         const int4 lo = __ldg(src), hi = __ldg(src + 1);
         c[0] = lo.x; c[1] = lo.y; c[2] = lo.z; c[3] = lo.w;
         c[4] = hi.x; c[5] = hi.y; c[6] = hi.z; c[7] = hi.w;
+        const int first = ch == 0 ? c[0] : __ldg(row);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) c[e] = c[e] >= valid_lanes ? first : c[e];
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) c[e] = -1;
@@ -180,8 +203,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   } else {
     for (int it = threadIdx.x; it < qb * k; it += blockDim.x) {
       const int sl = it / k, pk = it - sl * k;
-      const int orig = s_orig[sl];
-      const int r = decode(orig >= 0 ? codes[(size_t)orig * k + pk] : -1, s_qz[sl], t);
+      const int* row = codes_row(s_row[sl], codes, num_rows, picks, num_picks, k);
+      int code = row != nullptr ? row[pk] : -1;
+      if (code >= valid_lanes) code = row[0];
+      const int r = decode(code, s_qz[sl], t);
       drops += r == width + 1;
       out[(size_t)(slot0 + sl) * k + pk] = (int16_t)r;
     }
@@ -197,12 +222,11 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 template <int K>
-int launch(const int* codes, const int* spill_cells, const int* spill_ranks,
-           const long long* pos_slot, const long long* order, const long long* sorted_cz,
+int launch(const int* codes, const int* picks, const int* spill_cells, const int* spill_ranks,
+           const long long* pos_slot, const long long* rows, const long long* sorted_cz,
            const long long* cstart_rel, const int* tile_const, const int* tile_col, void* out,
-           int* dropped,
-           int num_tiles, int n, int k, int spill_len, int g, int cc, int qb, int w_cap,
-           int cap, cudaStream_t stream) {
+           int* dropped, int num_tiles, int n, int k, int num_rows, int num_picks,
+           int spill_len, int g, int cc, int qb, int w_cap, int cap, cudaStream_t stream) {
   const int items = qb * (K ? K / 8 : k);
   int threads = (items + 31) / 32 * 32;
   threads = threads > kMaxThreads ? kMaxThreads : threads;
@@ -213,39 +237,44 @@ int launch(const int* codes, const int* spill_cells, const int* spill_ranks,
     if (err != cudaSuccess) return (int)err;
   }
   s_decode_kernel<K><<<(unsigned)num_tiles, threads, smem, stream>>>(
-      codes, spill_cells, spill_ranks, pos_slot, order, sorted_cz, cstart_rel, tile_const,
-      tile_col, static_cast<int16_t*>(out), dropped, n, k, spill_len, g, cc, qb, w_cap, cap);
+      codes, picks, spill_cells, spill_ranks, pos_slot, rows, sorted_cz, cstart_rel,
+      tile_const, tile_col, static_cast<int16_t*>(out), dropped, n, k, num_rows, num_picks,
+      spill_len, g, cc, qb, w_cap, cap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). codes [n, k] int32 in particle
-// order; spill_cells, spill_ranks [spill_len] int32 (null when spill_len is
-// 0); particle_of_slot [num_tiles * qb] int64 (a sorted particle, n for an
-// empty slot); order, sorted_cz [n] int64; cstart_rel [g^2, g] int64;
-// tile_const [num_tiles, 45] int32; tile_col [num_tiles] int32, each
-// tile's column; out [num_tiles * qb, k] int16; dropped
-// one int32, zeroed by the caller; all contiguous. cc % qb == 0,
-// 9 * w_cap + 1 < 2^15. Launches on `stream`, does not synchronize, returns
-// the cudaError_t.
-extern "C" int s_decode_launch(const int* codes, const int* spill_cells, const int* spill_ranks,
-                               const long long* particle_of_slot, const long long* order,
-                               const long long* sorted_cz, const long long* cstart_rel,
-                               const int* tile_const, const int* tile_col, void* out,
-                               int* dropped, int num_tiles,
-                               int n, int k, int spill_len, int g, int cc, int qb, int w_cap,
-                               int cap, void* stream) {
+// Plain C entry point (loaded with ctypes). codes [num_rows, k] int32: in
+// particle order (rows = the sort order) or K1''s cell table; picks
+// [num_picks, k] int32, the rows past num_rows (null when num_picks is 0);
+// spill_cells, spill_ranks [spill_len] int32 (null when spill_len is 0);
+// particle_of_slot [num_tiles * qb] int64 (a sorted particle, n for an empty
+// slot); rows, sorted_cz [n] int64, each sorted particle's codes row and
+// z-cell; cstart_rel [g^2, g] int64; tile_const [num_tiles, 45] int32;
+// tile_col [num_tiles] int32, each tile's column; out [num_tiles * qb, k]
+// int16; dropped one int32, zeroed by the caller; all contiguous.
+// cc % qb == 0, 9 * w_cap + 1 < 2^15. Launches on `stream`, does not
+// synchronize, returns the cudaError_t.
+extern "C" int s_decode_launch(const int* codes, const int* picks, const int* spill_cells,
+                               const int* spill_ranks, const long long* particle_of_slot,
+                               const long long* rows, const long long* sorted_cz,
+                               const long long* cstart_rel, const int* tile_const,
+                               const int* tile_col, void* out, int* dropped, int num_tiles,
+                               int n, int k, int num_rows, int num_picks, int spill_len, int g,
+                               int cc, int qb, int w_cap, int cap, void* stream) {
   if (9 * w_cap + 2 >= 32768 || k < 1 || qb <= 0 || cc % qb || cap <= 0 || dropped == nullptr ||
-      tile_col == nullptr)
+      tile_col == nullptr || num_rows < 1 || num_picks < 0 || (num_picks && picks == nullptr))
     return (int)cudaErrorInvalidValue;
   if ((size_t)(9 * g + 2 * qb) * sizeof(int) > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool aligned = ((uintptr_t)codes % 16 == 0) && ((uintptr_t)out % 16 == 0);
-#define S_DECODE_ARGS                                                                   \
-  codes, spill_cells, spill_ranks, particle_of_slot, order, sorted_cz, cstart_rel,     \
-      tile_const, tile_col, out, dropped, num_tiles, n, k, spill_len, g, cc, qb, w_cap, cap, s
+  const bool aligned = ((uintptr_t)codes % 16 == 0) && ((uintptr_t)out % 16 == 0) &&
+                       ((uintptr_t)picks % 16 == 0);
+#define S_DECODE_ARGS                                                                        \
+  codes, picks, spill_cells, spill_ranks, particle_of_slot, rows, sorted_cz, cstart_rel,    \
+      tile_const, tile_col, out, dropped, num_tiles, n, k, num_rows, num_picks, spill_len, g, \
+      cc, qb, w_cap, cap, s
   if (aligned) {
     switch (k) {
       case 8: return launch<8>(S_DECODE_ARGS);

@@ -26,6 +26,7 @@ from cosmology_gnn_simulation_tpu_torch.ops.periodic import (
     min_image_displacement,
     wrap_positions,
 )
+from cosmology_gnn_simulation_tpu_torch.parallel.collectives import all_gather
 from cosmology_gnn_simulation_tpu_torch.types import NormalizationStats, ParticleGraph
 
 
@@ -110,6 +111,7 @@ def neighbor_search_certified(
     query_tile: int = 512,
     with_codes: bool = False,
     codes_only: bool = False,
+    codes_layout: str = "particle",
 ):
     """k-NN search plus its exactness certificate.
 
@@ -131,7 +133,9 @@ def neighbor_search_certified(
     capacity and spill tables for the cell-block plan build, or ``None``
     for all three when another search served. The kernel then runs in its
     dual mode K1'' (ids and codes); with ``codes_only`` in its codes mode
-    K1', and ``neighbors`` is ``None``.
+    K1', and ``neighbors`` is ``None``; there ``codes_layout="table"`` hands
+    on K1''s cell-table codes (``pallas_cell_list_knn``); the layout is
+    ignored without ``codes_only``.
     """
     n = positions.shape[0]
     method = resolve_neighbor_method(n, k, method)
@@ -151,6 +155,7 @@ def neighbor_search_certified(
         idx, codes, spill, (overflow, _, max_excess) = pallas_cell_list_knn(
             positions, k, box_size, grid, return_diagnostics=True,
             with_codes=True, codes_only=codes_only,
+            codes_layout=codes_layout if codes_only else "particle",
         )
         exact = (overflow == 0) & (max_excess <= 0.0)
         return idx, codes, codes_packing_cap(n, k, grid), spill, exact
@@ -238,6 +243,7 @@ def featurize(
     build_reverse: bool = False,
     with_codes: bool = False,
     codes_only: bool = False,
+    particle_axis=None,
 ):
     """Build a ``ParticleGraph`` from a ``[T, N, 3]`` / ``[T, N, 1]``
     time-major window.
@@ -258,7 +264,22 @@ def featurize(
     ``[N, 1]`` attach the normalized targets, shifted by the last noise
     frame; ``build_reverse`` attaches the sender-sorted edge stream
     (``graph.sorted_edges``) for the scatter-free aggregation backward.
+
+    ``particle_axis`` (a ``parallel.mesh.MeshAxis``): the window holds this
+    rank's rows of particles sharded over the axis. The recent positions
+    are all-gathered (in coordinate order) for the search, which takes the
+    gathered set with this rank's rows as separate queries (the plain cell
+    list, or brute force: K1 takes self-queries only; on an axis of one rank
+    the queries are the gathered set, a self-query), and for the edge
+    features; ``neighbors`` then hold indices into the gathered rows. The
+    rest stays rank-local. ``build_reverse`` is refused with it, as in the
+    JAX package (the sorted stream would index the gathered rows; the
+    sharded train step sorts it over them itself).
     """
+    if particle_axis is not None and build_reverse:
+        raise ValueError("build_reverse=True is not supported together with particle_axis "
+                         "(the sorted edges would index the gathered rows; the sharded "
+                         "train step sorts them itself)")
     box = stats.box_size
     dt = stats.dt
     pos_seq = position_seq.float().transpose(0, 1)  # [N, T, 3]
@@ -280,16 +301,27 @@ def featurize(
         [normal_velocity.reshape(n, -1), normal_temp.reshape(n, -1)], dim=-1
     )
     codes = codes_cap = spill = None
+    all_positions = recent_position
+    if particle_axis is not None and (num_neighbors is not None or build_edges):
+        all_positions = all_gather(recent_position, particle_axis)
     if num_neighbors is not None:
         if neighbors is not None:
             raise ValueError("pass neighbors or num_neighbors, not both")
         if codes_only and (build_edges or build_reverse):
             raise ValueError("codes_only returns no neighbor ids: incompatible "
                              "with build_edges/build_reverse")
-        found = neighbor_search_certified(
-            recent_position, num_neighbors, box, method=neighbor_method,
-            query_tile=neighbor_query_tile, with_codes=with_codes, codes_only=codes_only,
-        )
+        if particle_axis is None:
+            found = neighbor_search_certified(
+                recent_position, num_neighbors, box, method=neighbor_method,
+                query_tile=neighbor_query_tile, with_codes=with_codes, codes_only=codes_only,
+            )
+        else:
+            found = neighbor_search(
+                all_positions, num_neighbors, box,
+                queries=recent_position if particle_axis.size > 1 else None,
+                method=neighbor_method, query_tile=neighbor_query_tile, with_codes=with_codes,
+                codes_only=codes_only)
+            found = found if with_codes else (found,)
         neighbors = found[0]
         if with_codes:
             codes, codes_cap, spill = found[1:4]
@@ -297,7 +329,7 @@ def featurize(
     if build_edges:
         # Raw sender - receiver displacement, deliberately NOT minimum-image
         # (the reference's edge features).
-        disp = recent_position[neighbors] - recent_position[:, None, :]
+        disp = all_positions[neighbors] - recent_position[:, None, :]
         edges = torch.cat([disp, torch.linalg.norm(disp, dim=-1, keepdim=True)], dim=-1)
     sorted_edges = build_sorted_edges(neighbors) if build_reverse else None
 

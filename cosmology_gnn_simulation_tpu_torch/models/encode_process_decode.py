@@ -55,6 +55,7 @@ from cosmology_gnn_simulation_tpu_torch.ops.cellblock import (
     expand_to_slots,
 )
 from cosmology_gnn_simulation_tpu_torch.ops.fused_step import fused_step_tail
+from cosmology_gnn_simulation_tpu_torch.parallel.collectives import all_gather
 from cosmology_gnn_simulation_tpu_torch.types import ParticleGraph, resolve_device, tree_map
 
 Params = Dict[str, Any]
@@ -169,14 +170,21 @@ def _gather_sum(values: torch.Tensor, neighbors: torch.Tensor, sorted_edges=None
     return gather_sum(values, neighbors)
 
 
+def _maybe_all_gather(values: torch.Tensor, particle_axis) -> torch.Tensor:
+    """The rows the neighbor indices name: this rank's alone, or under
+    ``particle_axis`` every rank's, all-gathered (once per message-passing
+    step, in the compute dtype, as the JAX package's index-sharded path)."""
+    return values if particle_axis is None else all_gather(values, particle_axis)
+
+
 def _processor_step(x, e, neighbors, params: Params, aggregate: str, dtype,
-                    sorted_edges=None):
+                    sorted_edges=None, particle_axis=None):
     """One unpruned InteractionNetwork step (pre-residual outputs)."""
     latent = x.shape[-1]
     edge_first = params["edge"]["layers"][0]
     w = edge_first["w"]
     w_src, w_dst, w_e = w[:latent], w[latent:2 * latent], w[2 * latent:]
-    y_src = matmul(x, w_src, dtype)
+    y_src = _maybe_all_gather(matmul(x, w_src, dtype), particle_axis)
     y_dst = matmul(x, w_dst, dtype)
     h_e = torch.relu(
         y_src[neighbors] + y_dst[:, None, :] + matmul(e, w_e, dtype) + edge_first["b"]
@@ -186,7 +194,8 @@ def _processor_step(x, e, neighbors, params: Params, aggregate: str, dtype,
     node_first = params["node"]["layers"][0]
     w_self, w_agg = node_first["w"][:latent], node_first["w"][latent:]
     if aggregate == "sender_latents":
-        agg_h = _gather_sum(matmul(x, w_agg, dtype), neighbors, sorted_edges)
+        agg_h = _gather_sum(_maybe_all_gather(matmul(x, w_agg, dtype), particle_axis),
+                            neighbors, sorted_edges)
     elif aggregate == "edge_messages":
         agg_h = matmul(e_new.sum(dim=1), w_agg, dtype)
     else:
@@ -197,7 +206,7 @@ def _processor_step(x, e, neighbors, params: Params, aggregate: str, dtype,
 
 def _pruned_processor_step(x, neighbors, params: Params, dtype, fused_tail: bool,
                            cellblock=None, cellblock_spec=None, sorted_edges=None,
-                           cellblock_mode: str = "slots"):
+                           cellblock_mode: str = "slots", particle_axis=None):
     """Node-stream-only step under ``sender_latents`` aggregation. With
     ``fused_tail`` it returns the full new carry (residual included, kernel
     K5); otherwise the pre-residual step output. With a ``cellblock`` plan
@@ -217,7 +226,7 @@ def _pruned_processor_step(x, neighbors, params: Params, dtype, fused_tail: bool
             # The gather-sum is the bandwidth-dominant op of the step; carry
             # it in the reduced dtype, as the JAX package does.
             z = z.to(dtype)
-        agg_h = _gather_sum(z, neighbors, sorted_edges)
+        agg_h = _gather_sum(_maybe_all_gather(z, particle_axis), neighbors, sorted_edges)
     if fused_tail:
         # The kernel widens agg on read: no f32 copy of it is made.
         return fused_step_tail(
@@ -234,6 +243,7 @@ def apply_encode_process_decode(
     dtype: Optional[torch.dtype] = None,
     cellblock_spec=None,
     cellblock_mode: str = "slots",
+    particle_axis=None,
 ) -> Dict[str, torch.Tensor]:
     """Forward pass: ``{'acceleration': [N, 3], 'temp_rate': [N, 1]}``.
 
@@ -249,6 +259,15 @@ def apply_encode_process_decode(
     (non-reentrant ``torch.utils.checkpoint``, as the JAX package's
     ``jax.checkpoint``): the backward recomputes each checkpointed region's
     forward, its kernels included, before that region's backward.
+
+    ``particle_axis`` (a ``parallel.mesh.MeshAxis``; the graph from
+    ``featurize(..., particle_axis=...)``): ``graph`` holds this rank's rows
+    of particles sharded over the axis, with neighbor indices into the
+    gathered rows. Each message-passing step all-gathers the projected
+    sender latents (``y_src`` too in the unpruned model); everything else,
+    the fused tail K5 included, runs on the local rows. The cell-block
+    aggregation is refused under it (the halo path, ROADMAP queue 1 item 5,
+    second half, is what composes with it in the JAX package).
     """
     if cellblock_mode not in ("slots", "hybrid"):
         raise ValueError(f"unknown cellblock_mode: {cellblock_mode}")
@@ -257,6 +276,12 @@ def apply_encode_process_decode(
         if cellblock_spec is None:
             raise ValueError(
                 "graph carries a cellblock plan but cellblock_spec was not passed"
+            )
+        if particle_axis is not None:
+            raise ValueError(
+                "cellblock aggregation under the index-sharded all-gather path is "
+                "unsupported (the halo path composes with it: ROADMAP queue 1 item 5, "
+                "second half (halo))"
             )
         if not prune:
             raise ValueError(
@@ -289,13 +314,14 @@ def apply_encode_process_decode(
             x_new = _pruned_processor_step(
                 x, graph.neighbors, step_params(params, i), dtype, config.fused_tail,
                 graph.cellblock, cellblock_spec, graph.sorted_edges, cellblock_mode,
+                particle_axis,
             )
             return (x_new if config.fused_tail else residual_add(x, x_new),)
     else:
         def step(i, x, e):
             x_new, e_new = _processor_step(
                 x, e, graph.neighbors, step_params(params, i), config.aggregate, dtype,
-                graph.sorted_edges,
+                graph.sorted_edges, particle_axis,
             )
             return residual_add(x, x_new), residual_add(e, e_new)
 

@@ -16,7 +16,7 @@ XLA, not a Pallas kernel.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -31,7 +31,7 @@ class SortedEdges(NamedTuple):
       order:      ``[N*k]`` int64 — flat edge indices in ascending-sender
                   order (stable: ties keep flat order).
       receivers:  ``[N*k]`` int64 — receiver of each sorted edge.
-      boundaries: ``[N+1]`` int64 — ``boundaries[p]:boundaries[p+1]`` is the
+      boundaries: ``[S+1]`` int64 (S senders) — ``boundaries[p]:boundaries[p+1]`` is the
                   run of sorted edges whose sender is particle ``p``.
     """
 
@@ -40,12 +40,14 @@ class SortedEdges(NamedTuple):
     boundaries: torch.Tensor
 
 
-def build_sorted_edges(neighbors: torch.Tensor) -> SortedEdges:
-    """Sort the edge stream by sender (stable)."""
+def build_sorted_edges(neighbors: torch.Tensor, num_senders: Optional[int] = None) -> SortedEdges:
+    """Sort the edge stream by sender (stable). Senders index ``num_senders``
+    rows (default: the receivers' own ``N``; the index-sharded path's
+    neighbors index the all-gathered rows)."""
     n, k = neighbors.shape
     sorted_senders, order = torch.sort(neighbors.reshape(-1), stable=True)
     return SortedEdges(order=order, receivers=order // k,
-                       boundaries=bucket_boundaries(sorted_senders, n))
+                       boundaries=bucket_boundaries(sorted_senders, num_senders or n))
 
 
 # Above this many bytes for the gathered [N, k, H] rows (counted at 4 B an

@@ -44,11 +44,11 @@ from which slots follow by the prefixes. Exceeding the budget counts in
 ``overflow``.
 
 Ported: the uniform and the variable cubic layouts; the plan build from the
-k-NN codes in the particle codes layout, from neighbor ids (the aux path)
-and (uniform only, as in JAX) by the dense search, each with the reverse
-table; the hybrid and slot-space aggregations with their backward (expand
-and compact as monotone gathers both ways). The table codes layout,
-non-cubic grids and validity masks raise ``NotImplementedError``.
+k-NN codes in the particle and the table codes layouts, from neighbor ids
+(the aux path) and (uniform only, as in JAX) by the dense search, each with
+the reverse table; the hybrid and slot-space aggregations with their
+backward (expand and compact as monotone gathers both ways). Non-cubic
+grids and validity masks raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -545,10 +545,43 @@ class SlotCodes(NamedTuple):
     sp_aux: Optional[torch.Tensor]
 
 
+def codes_rows(layout: CellBlockLayout, codes_spill, codes_cap: int, spec: CellBlockSpec,
+               codes_layout: str = "particle") -> torch.Tensor:
+    """Each sorted particle's row of the k-NN codes, ``[N]`` int64 (what K2
+    reads a slot's codes through). ``"particle"``: its particle, ``order``.
+    ``"table"``: the row ``cell * cap + rank`` of K1''s cell-table output
+    (the plan bins by the k-NN's own key, so slots visit these rows in
+    ascending order: a quasi-monotone row map; a particle past ``cap`` reads
+    its cell's last row, as the particle layout's re-order gather does), and
+    for spilled particle ``i`` of the spill tables the row ``G^3 * cap + i``
+    of the spill picks that follow the table."""
+    if codes_layout == "particle":
+        return layout.order
+    n = layout.order.shape[0]
+    gstart, sorted_cell = layout.gstart, layout.sorted_cell
+    rank = torch.arange(n, device=sorted_cell.device) - gstart[sorted_cell]
+    rows = sorted_cell * codes_cap + torch.clamp(rank, max=codes_cap - 1)
+    if codes_spill is not None:
+        cells = torch.clamp(codes_spill[0].long(), 0, spec.num_columns * spec.grid_size - 1)
+        ranks, start = codes_spill[1].long(), gstart[cells]
+        # Unused spill slots (rank 2**20) name no particle: dropped.
+        p = torch.where(ranks < gstart[cells + 1] - start, start + ranks, n)
+        rows = torch.cat([rows, rows.new_zeros(1)])
+        rows[p] = spec.num_columns * spec.grid_size * codes_cap + torch.arange(
+            cells.shape[0], device=rows.device)
+        rows = rows[:n]
+    return rows
+
+
 def slot_codes(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes_cap: int,
-               codes_spill, spec: CellBlockSpec) -> SlotCodes:
+               codes_spill, spec: CellBlockSpec, codes_layout: str = "particle") -> SlotCodes:
     """Move the k-NN codes to their query's slot (the JAX plan build's codes
-    path, particle layout, up to its decode)."""
+    path up to its decode): one row gather through ``codes_rows`` of the
+    particle-order codes ``[N, k]`` or, in the table layout, of K1''s table
+    ``[G^3 * cap, k]`` followed by the spill picks (``codes_spill[2]``).
+    Picks at or past the valid lanes (``27 * cap + spill_len``: exhausted
+    picks) repeat their row's first code, as the k-NN wrapper does in the
+    particle layout."""
     g, cc = spec.grid_size, spec.col_capacity
     num_slots = spec.num_slots
     k = neighbor_codes.shape[1]
@@ -556,16 +589,20 @@ def slot_codes(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes_cap:
     spill_len = 0 if codes_spill is None else codes_spill[0].shape[0]
     # Always-invalid code for empty slots: past the ring and the spill block.
     code_sentinel = 27 * codes_cap + spill_len
-    # Per-slot codes by a row scatter through each particle's slot; slotless
-    # particles (column overflow) land on the cut-off row num_slots.
-    order, slot_of_sorted = layout.order, layout.slot_of_sorted
-    slot_of_particle = torch.empty_like(slot_of_sorted)
-    slot_of_particle[order] = slot_of_sorted
-    codes_slots = torch.full((num_slots + 1, k), code_sentinel, dtype=torch.int32,
-                             device=dev)
-    codes_slots[slot_of_particle] = neighbor_codes.to(torch.int32)
+    num_rows = neighbor_codes.shape[0]
+    picks = codes_spill[2] if codes_layout == "table" and spill_len else None
+    num_picks = 0 if picks is None else picks.shape[0]
+    rows = codes_rows(layout, codes_spill, codes_cap, spec, codes_layout)
+    row = torch.cat([rows, rows.new_full((1,), num_rows + num_picks)])[layout.particle_of_slot]
+    codes_slots = neighbor_codes[torch.clamp(row, max=num_rows - 1)].to(torch.int32)
+    if picks is not None:
+        codes_slots = torch.where(
+            (row >= num_rows)[:, None],
+            picks[torch.clamp(row - num_rows, 0, num_picks - 1)].to(torch.int32), codes_slots)
+    codes_slots = torch.where((row >= num_rows + num_picks)[:, None], code_sentinel, codes_slots)
+    codes_slots = torch.where(codes_slots >= code_sentinel, codes_slots[:, :1], codes_slots)
     qz_slot = torch.zeros(num_slots + 1, dtype=torch.int32, device=dev)
-    qz_slot[slot_of_sorted] = layout.sorted_cz.to(torch.int32)
+    qz_slot[layout.slot_of_sorted] = layout.sorted_cz.to(torch.int32)
     sp_aux = None
     if spill_len:
         sp_cells = torch.clamp(codes_spill[0].long(), 0, g**3 - 1)
@@ -574,7 +611,8 @@ def slot_codes(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes_cap:
         sp_in = sp_rs < cc
         sp_slot = torch.where(sp_in, sp_col * cc + sp_rs, spec.pack_slots)
         sp_aux = sp_slot * g + torch.where(sp_in, sp_cz, 0)
-    return SlotCodes(codes=codes_slots[:num_slots], qz_slot=qz_slot[:num_slots], sp_aux=sp_aux)
+    return SlotCodes(codes=codes_slots.contiguous(), qz_slot=qz_slot[:num_slots],
+                     sp_aux=sp_aux)
 
 
 def neighbor_starts27(cstart_rel: torch.Tensor, g: int) -> torch.Tensor:
@@ -631,14 +669,14 @@ def _normalized_codes(sc: SlotCodes, codes_cap: int, spec: CellBlockSpec,
 
 
 def s_decode_inputs(layout: CellBlockLayout, neighbor_codes: torch.Tensor, codes_cap: int,
-                    codes_spill, spec: CellBlockSpec):
+                    codes_spill, spec: CellBlockSpec, codes_layout: str = "particle"):
     """The plain version's inputs of K2: ``(codes [num_slots, k], qz_slot
     [num_slots], cstart27 [G^3, 27], tile_const [T, 45])``, all int32, and
     ``layout.slot_col`` — the k-NN codes moved to their query's slot and
     pre-normalized (``slot_codes``, ``_normalized_codes``) and the 27-roll
     start table (``neighbor_starts27``). K2 on the card does all of this
     itself."""
-    sc = slot_codes(layout, neighbor_codes, codes_cap, codes_spill, spec)
+    sc = slot_codes(layout, neighbor_codes, codes_cap, codes_spill, spec, codes_layout)
     return (_normalized_codes(sc, codes_cap, spec, layout.slot_col), sc.qz_slot.contiguous(),
             neighbor_starts27(layout.cstart_rel, spec.grid_size), layout.tile_const,
             layout.slot_col)
@@ -1008,8 +1046,15 @@ def build_cellblock(
       ``search_window_overflow``.
 
     The cubic layouts, uniform and variable (the dense search takes the
-    uniform one only, as in JAX); validity masks and the table codes layout
-    raise ``NotImplementedError``.
+    uniform one only, as in JAX); validity masks raise
+    ``NotImplementedError``.
+
+    ``codes_layout="table"``: ``neighbor_codes`` is K1''s cell-table output
+    ``[G^3 * codes_cap, k]`` (``pallas_cell_list_knn(..., codes_layout=
+    "table")``) and ``codes_spill`` its three-element spill info, the
+    spilled queries' picks last; K2 reads each slot's row through one
+    quasi-monotone row map (``codes_rows``). No entry point takes it (the
+    JAX rollout keeps it off, a measured negative on the TPU).
     """
     if (neighbor_codes is None) != (codes_cap is None):
         raise ValueError("neighbor_codes and codes_cap go together")
@@ -1018,9 +1063,18 @@ def build_cellblock(
     if valid is not None:
         raise NotImplementedError("validity masks are not ported yet (ROADMAP queue 1 "
                                   "item 5)")
-    if codes_layout != "particle":
-        raise NotImplementedError(f"codes_layout={codes_layout!r} is not ported yet (ROADMAP "
-                                  "queue 1 item 4, the next bring-up)")
+    if codes_layout not in ("particle", "table"):
+        raise ValueError(f"unknown codes_layout: {codes_layout}")
+    if codes_layout == "table":
+        if neighbor_codes is None:
+            raise ValueError("codes_layout='table' requires neighbor_codes")
+        if codes_spill is not None and len(codes_spill) != 3:
+            raise ValueError("codes_layout='table' needs the k-NN's 3-element spill info "
+                             "(cells, ranks, solved picks)")
+        expected_rows = spec.num_columns * spec.grid_size * codes_cap
+        if neighbor_codes.shape[0] != expected_rows:
+            raise ValueError(f"table-layout codes have {neighbor_codes.shape[0]} rows, "
+                             f"expected G^3*cap = {expected_rows}")
     if dense_search is not None:
         dense_search.validate()
         if num_neighbors is None:
@@ -1057,9 +1111,10 @@ def build_cellblock(
         if with_reverse:
             packs = dense_sender_packs(offsets, picks, ds.ccp, layout, spec)
     elif neighbor_codes is not None:
-        offsets, dropped = s_decode(neighbor_codes, codes_spill, layout, spec, codes_cap)
+        offsets, dropped = s_decode(neighbor_codes, codes_spill, layout, spec, codes_cap,
+                                    codes_layout)
         if with_reverse:
-            sc = slot_codes(layout, neighbor_codes, codes_cap, codes_spill, spec)
+            sc = slot_codes(layout, neighbor_codes, codes_cap, codes_spill, spec, codes_layout)
             packs = sender_packs(sc, layout, codes_cap, spec)
     else:
         senders = aux_slot_senders(layout, neighbors, spec)
@@ -1165,7 +1220,7 @@ def _lib(name: str):
     lib = kernels.library(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "s_decode":
-        entries = {"s_decode_launch": [p] * 11 + [i] * 9 + [p]}
+        entries = {"s_decode_launch": [p] * 12 + [i] * 11 + [p]}
     elif name == "s_onehot":
         entries = {"s_onehot_launch": [p, p, p, i, i, i, p]}
     elif name == "reverse_table":
@@ -1192,31 +1247,39 @@ def _check(name: str, device, tensors) -> None:
 
 
 def s_decode(neighbor_codes: torch.Tensor, codes_spill, layout: CellBlockLayout,
-             spec: CellBlockSpec, codes_cap: int):
-    """K2: the k-NN codes ``[N, k]`` (particle order, as ``pallas_cell_list_knn(...,
-    codes_only=True)`` returns them, with its spill tables ``codes_spill`` or
-    None) -> ``(offsets [num_slots, k] int16, dropped)``: each slot's S-lane
-    offsets (``s_decode_reference`` of ``s_decode_inputs``) and the int32
-    count of dropped edges (offsets ``9W + 1``). CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/s_decode.cu``, which gathers the
-    codes to their slots, resolves and normalizes them and finds each
-    neighbor cell's start itself, or raise."""
+             spec: CellBlockSpec, codes_cap: int, codes_layout: str = "particle"):
+    """K2: the k-NN codes -> ``(offsets [num_slots, k] int16, dropped)``:
+    each slot's S-lane offsets (``s_decode_reference`` of
+    ``s_decode_inputs``) and the int32 count of dropped edges (offsets
+    ``9W + 1``). The codes are those of ``pallas_cell_list_knn(...,
+    codes_only=True)`` with its spill tables ``codes_spill`` (or None):
+    ``[N, k]`` in particle order, or with ``codes_layout="table"`` K1''s
+    cell-table output ``[G^3 * cap, k]`` and the spill picks as the tables'
+    third element. CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/s_decode.cu``, which reads each slot's codes row through the row
+    map ``codes_rows`` (table rows, then the spill picks' rows: no copy of
+    the two), resolves and normalizes the codes and finds each neighbor
+    cell's start itself, or raise."""
     width = spec.s_width
     if neighbor_codes.device.type == "cpu":
         offsets = s_decode_reference(
-            *s_decode_inputs(layout, neighbor_codes, codes_cap, codes_spill, spec), spec=spec,
-            codes_cap=codes_cap)
+            *s_decode_inputs(layout, neighbor_codes, codes_cap, codes_spill, spec,
+                             codes_layout), spec=spec, codes_cap=codes_cap)
         return offsets, (offsets == width + 1).sum(dtype=torch.int32)
-    n, k = neighbor_codes.shape
+    num_rows, k = neighbor_codes.shape
+    n = layout.order.shape[0]
     g, num_slots = spec.grid_size, spec.num_slots
     if width + 2 >= 2**15:
         raise ValueError(f"s_decode writes int16 offsets; S width {width} too wide")
     dev = neighbor_codes.device
     spill_len = 0 if codes_spill is None else codes_spill[0].shape[0]
+    picks = codes_spill[2] if codes_layout == "table" and spill_len else None
+    num_picks = 0 if picks is None else picks.shape[0]
+    rows = codes_rows(layout, codes_spill, codes_cap, spec, codes_layout)
     tensors = [
-        ("neighbor_codes", neighbor_codes, (n, k), torch.int32),
+        ("neighbor_codes", neighbor_codes, (num_rows, k), torch.int32),
         ("particle_of_slot", layout.particle_of_slot, (num_slots,), torch.int64),
-        ("order", layout.order, (n,), torch.int64),
+        ("codes_rows", rows, (n,), torch.int64),
         ("sorted_cz", layout.sorted_cz, (n,), torch.int64),
         ("cstart_rel", layout.cstart_rel, (spec.num_columns, g), torch.int64),
         ("tile_const", layout.tile_const, (spec.num_tiles, 45), torch.int32),
@@ -1225,16 +1288,19 @@ def s_decode(neighbor_codes: torch.Tensor, codes_spill, layout: CellBlockLayout,
     if spill_len:
         tensors += [("spill_cells", codes_spill[0], (spill_len,), torch.int32),
                     ("spill_ranks", codes_spill[1], (spill_len,), torch.int32)]
+    if picks is not None:
+        tensors.append(("spill_picks", picks, (num_picks, k), torch.int32))
     _check("s_decode", dev, tensors)
     offsets = torch.empty((num_slots, k), dtype=torch.int16, device=dev)
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
     err = _lib("s_decode").s_decode_launch(
-        kernels.ptr(neighbor_codes), kernels.ptr(codes_spill[0] if spill_len else None),
+        kernels.ptr(neighbor_codes), kernels.ptr(picks),
+        kernels.ptr(codes_spill[0] if spill_len else None),
         kernels.ptr(codes_spill[1] if spill_len else None), kernels.ptr(layout.particle_of_slot),
-        kernels.ptr(layout.order), kernels.ptr(layout.sorted_cz), kernels.ptr(layout.cstart_rel),
+        kernels.ptr(rows), kernels.ptr(layout.sorted_cz), kernels.ptr(layout.cstart_rel),
         kernels.ptr(layout.tile_const), kernels.ptr(layout.tile_col), kernels.ptr(offsets),
-        kernels.ptr(dropped), spec.num_tiles, n, k, spill_len, g, spec.col_capacity,
-        spec.query_block, spec.window, codes_cap, kernels.stream_handle(dev),
+        kernels.ptr(dropped), spec.num_tiles, n, k, num_rows, num_picks, spill_len, g,
+        spec.col_capacity, spec.query_block, spec.window, codes_cap, kernels.stream_handle(dev),
     )
     kernels.check("s_decode", err)
     kernels.launches["s_decode"] += 1

@@ -391,6 +391,7 @@ def pallas_cell_list_knn(
     return_diagnostics: bool = False,
     with_codes: bool = False,
     codes_only: bool = False,
+    codes_layout: str = "particle",
 ):
     """Exact periodic k-NN (self-query) through the cell-list kernel K1.
 
@@ -409,6 +410,17 @@ def pallas_cell_list_knn(
     code. ``spill`` is ``None`` without a spill block, else the resolution
     tables ``(spill_cells, spill_ranks)`` of ``build_spill``.
 
+    ``codes_layout="table"`` (with ``codes_only``) returns K1''s codes as
+    the kernel wrote them, in its cell-table order ``[G^3 * cap, k]`` (row
+    ``cell * cap + rank``; exhausted picks keep the sentinel lane ``>= 27 *
+    cap + spill_cap``, and empty table rows are all sentinel), without the
+    ``[N, k]`` re-order gather: the plan build's slot layout visits table
+    rows in ascending order (``ops.cellblock.build_cellblock``), and K2
+    repeats a row's first code for its exhausted picks. ``spill`` then has a
+    third element, ``spill_picks [spill_cap, k]`` int32: the spilled
+    queries' solved picks, which have no table row to go to (the sentinel
+    lane in unused slots).
+
     ``with_codes=True`` without ``codes_only`` runs the dual mode K1'' and
     returns ``(neighbors, codes, spill)``: the ids mode's neighbors, and per
     neighbor the smallest candidate lane holding its id. Exhausted picks
@@ -416,6 +428,11 @@ def pallas_cell_list_knn(
     """
     if codes_only:
         with_codes = True
+    if codes_layout not in ("particle", "table"):
+        raise ValueError(f"unknown codes_layout: {codes_layout}")
+    table_codes = codes_layout == "table"
+    if table_codes and not codes_only:
+        raise ValueError("codes_layout='table' requires codes_only=True")
     g = grid.grid_size
     if g < 3:
         raise ValueError("grid_size must be >= 3")
@@ -435,16 +452,19 @@ def pallas_cell_list_knn(
     *picked, kth = select(planes, spill, k=k, n=n, g=g, box=box_size,
                           mi_start=min_image_start(cap, spill_cap))
 
-    # Back to particle order. A particle past `cap` has no table row: it
-    # reads its cell's last row, then the spill solve overwrites it.
-    table_row = table.cell_id * cap + torch.clamp(table.particle_rank, max=cap - 1)
-    out = picked[0][table_row]
-    codes = picked[1][table_row] if with_codes and not codes_only else None
-    if codes_only:
+    out, codes = picked[0], None
+    if not table_codes:
+        # Back to particle order. A particle past `cap` has no table row: it
+        # reads its cell's last row, then the spill solve overwrites it.
+        table_row = table.cell_id * cap + torch.clamp(table.particle_rank, max=cap - 1)
+        out = out[table_row]
+        if with_codes and not codes_only:
+            codes = picked[1][table_row]
+    if codes_only and not table_codes:
         # Exhausted picks (uncertified regime only) repeat the row's first
         # code; the kth keeps 1e30, so the certificate fails on such rows.
         out = torch.where(out >= 27 * cap + spill_cap, out[:, :1], out)
-    else:
+    elif not codes_only:
         out = out.long()
         # Exhausted picks (uncertified regime only) repeat the row's first
         # pick, and the row's first code beside it.
@@ -475,6 +495,9 @@ def pallas_cell_list_knn(
             d2_k = d2_sorted[:, :k]
             picks = torch.where(d2_k >= 0.5 * _BIG, lane_sorted[:, :1],
                                 lane_sorted[:, :k])
+            if table_codes:
+                spill_info = (*spill_info, torch.where(
+                    spill_valid[:, None], picks, 27 * cap + spill_cap).to(torch.int32))
         else:
             # (d2, id) order with each pick's lane riding along.
             d2_k, picks, code_picks = _lex_smallest(d2s, sp_ids, k)
@@ -490,7 +513,8 @@ def pallas_cell_list_knn(
             ext[scatter] = values.to(rows.dtype)
             return ext[:n]
 
-        out = put(out, picks)
+        if not table_codes:
+            out = put(out, picks)
         if codes is not None:
             codes = put(codes, code_picks)
 

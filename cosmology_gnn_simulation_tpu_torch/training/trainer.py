@@ -36,9 +36,16 @@ whole validation set, the best, periodic and final checkpoints
 and a full resume (``restore``). Metrics stay tensors on the device until
 the epoch's average, so the loop adds no host sync per step.
 
+``Trainer(mesh=...)`` runs the index-sharded steps of
+``parallel/sharded.py`` on every rank of a ``parallel.mesh.Mesh``: the
+data-parallel train step, and validation through the per-sample sharded
+eval step with the tail batch padded and masked; rank 0 writes the
+checkpoints, the plots and ``training_history.json``, and every rank
+restores on resume.
+
 Not ported: per-particle noise keying (``partition_invariant_noise``) and
-the sharded trainers (``mesh``, ``halo``); each raises
-``NotImplementedError``.
+the halo-sharded trainer (``halo``); each raises ``NotImplementedError``
+(ROADMAP queue 1 item 5, second half).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ import os
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from cosmology_gnn_simulation_tpu_torch.featurize import featurize, verify_neighbor_exactness
@@ -65,6 +73,7 @@ from cosmology_gnn_simulation_tpu_torch.ops.cellblock import (
     choose_cellblock_spec,
 )
 from cosmology_gnn_simulation_tpu_torch.ops.fused_step import resolve_fused_tail
+from cosmology_gnn_simulation_tpu_torch.parallel.collectives import broadcast_flat
 from cosmology_gnn_simulation_tpu_torch.training.losses import combined_loss
 from cosmology_gnn_simulation_tpu_torch.types import (
     NormalizationStats,
@@ -190,8 +199,8 @@ def _resolve(model_config: EncodeProcessDecodeConfig, tc: TrainConfig):
     if aggregation.startswith("cellblock") and not pruned:
         raise ValueError("aggregation='cellblock' requires the pruned sender_latents mode")
     if tc.partition_invariant_noise:
-        raise NotImplementedError("partition_invariant_noise (per-particle noise "
-                                  "keying) is not ported")
+        raise NotImplementedError("partition_invariant_noise (per-particle noise keying) is "
+                                  "not ported yet (ROADMAP queue 1 item 5, second half (halo))")
     resolve_fused_tail(tc.fused_tail, model_config, "cpu", None)  # the pruned check
     return aggregation, pruned
 
@@ -344,8 +353,14 @@ class Trainer:
     ``init_encode_process_decode`` drawn from
     ``torch.Generator().manual_seed(seed)``. The train generator,
     ``torch.Generator(device).manual_seed(seed)``, draws the augmentation
-    and the noise. ``mesh`` / ``halo`` (the sharded trainers) are not
-    ported (ROADMAP queue 1 item 5) and raise.
+    and the noise.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; every rank of it constructs the
+    Trainer and calls ``fit``): the steps run index-sharded on
+    ``mesh.device``, which replaces ``device``; ``batch_size`` must divide by
+    the data-axis size; each step's randomness is keyed by the seed and the
+    global step (``parallel/sharded.py``). ``halo`` (the halo-sharded
+    trainer) is not ported (ROADMAP queue 1 item 5, second half) and raises.
     """
 
     def __init__(
@@ -359,10 +374,11 @@ class Trainer:
         halo=None,
         device="cuda",
     ):
-        if mesh is not None or halo is not None:
-            raise NotImplementedError("the sharded trainers (mesh, halo) are not ported "
-                                      "(ROADMAP queue 1 item 5)")
-        self.device = resolve_device(device)
+        if halo is not None:
+            raise NotImplementedError("Trainer(halo=...) is not ported yet (ROADMAP queue 1 "
+                                      "item 5, second half (halo))")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.model_config = model_config
         self.stats = stats.to(self.device)
         self.tc = train_config
@@ -376,9 +392,26 @@ class Trainer:
                 init_params)
         self.optimizer = make_optimizer(train_config, steps_per_epoch)
         self.opt_state = self.optimizer.init(self.params)
-        self.train_step = make_train_step(model_config, self.stats, train_config,
-                                          self.optimizer)
-        self.eval_step = make_eval_step(model_config, self.stats, train_config)
+        if mesh is None:
+            self.train_step = make_train_step(model_config, self.stats, train_config,
+                                              self.optimizer)
+            self.eval_step = make_eval_step(model_config, self.stats, train_config)
+        else:
+            from cosmology_gnn_simulation_tpu_torch.parallel.sharded import (
+                make_data_parallel_train_step,
+                make_sharded_eval_step,
+                shard_batch,
+            )
+
+            self.shard_batch = shard_batch
+            if train_config.batch_size % mesh.shape["data"]:
+                raise ValueError(f"batch_size {train_config.batch_size} must divide by "
+                                 f"data-axis size {mesh.shape['data']}")
+            self.train_step = make_data_parallel_train_step(
+                model_config, self.stats, train_config, self.optimizer, mesh)
+            # Per-sample metrics, so a tail batch can be padded and masked.
+            self.eval_step = make_sharded_eval_step(model_config, self.stats, train_config,
+                                                    mesh, per_sample=True)
         self.history: Dict[str, Any] = {
             "train_loss": [],
             "val_loss": [],
@@ -403,9 +436,11 @@ class Trainer:
         final (best) params. The datasets need ``len`` and
         ``SequenceDataset.batches``' contract."""
         tc = self.tc
-        os.makedirs(tc.output_dir, exist_ok=True)
+        main = self._is_main()
+        verbose = verbose and main
         plots_dir = os.path.join(tc.output_dir, "plots")
-        os.makedirs(plots_dir, exist_ok=True)
+        if main:
+            os.makedirs(plots_dir, exist_ok=True)
         gamma = (tc.final_learning_rate / tc.learning_rate) ** (1.0 / tc.num_epochs)
         h = self.history
 
@@ -441,8 +476,14 @@ class Trainer:
             with (trace(os.path.join(tc.output_dir, "profile")) if profiling
                   else contextlib.nullcontext()):
                 for count, batch in enumerate(batch_iter, start=1):
-                    self.params, self.opt_state, metrics = self.train_step(
-                        self.params, self.opt_state, batch, self.generator)
+                    if self.mesh is None:
+                        self.params, self.opt_state, metrics = self.train_step(
+                            self.params, self.opt_state, batch, self.generator)
+                    else:
+                        step = epoch * (len(train_dataset) // tc.batch_size) + count - 1
+                        self.params, self.opt_state, metrics = self.train_step(
+                            self.params, self.opt_state, self.shard_batch(batch, self.mesh),
+                            step)
                     epoch_metrics.append(metrics)
                     if bar is not None and count % 10 == 0:
                         # Reading a metric waits for the device: only every
@@ -508,20 +549,32 @@ class Trainer:
                 if verbose:
                     print(f"New best model saved with validation loss: {val_avg['loss']:.6f}")
 
-            if epoch % 5 == 0:
+            if epoch % 5 == 0 and main:
                 self._plot(os.path.join(plots_dir, f"losses_epoch_{epoch}.png"))
             if (epoch + 1) % tc.save_every == 0 or epoch == tc.num_epochs - 1:
                 self.save(f"model_epoch_{epoch}", epoch)
 
-        self._plot(os.path.join(plots_dir, "losses_final.png"))
-        # Reload the best params and save them as the final model.
+        if main:
+            self._plot(os.path.join(plots_dir, "losses_final.png"))
+        # Reload the best params and save them as the final model. On a mesh
+        # rank 0 reads the checkpoint and sends the params to every rank.
         best_path = os.path.join(tc.output_dir, "model_best")
-        if os.path.exists(best_path):
+        if main and os.path.exists(best_path):
             self._load_params(ckpt_lib.load_state(best_path)["params"])
+        if self.mesh is not None:
+            with torch.no_grad():
+                for leaf, value in zip(tree_leaves(self.params),
+                                       broadcast_flat(tree_leaves(self.params))):
+                    leaf.copy_(value)
         self.save("model_final", tc.num_epochs - 1)
-        with open(os.path.join(tc.output_dir, "training_history.json"), "w") as f:
-            json.dump(h, f, indent=4)
+        if main:
+            with open(os.path.join(tc.output_dir, "training_history.json"), "w") as f:
+                json.dump(h, f, indent=4)
         return self.params
+
+    def _is_main(self) -> bool:
+        """Whether this process writes the run's files (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def _check_neighbor_exactness(self, dataset, verbose: bool) -> None:
         """The cell-list search's exactness certificate on the first
@@ -545,10 +598,19 @@ class Trainer:
     def evaluate(self, dataset) -> Dict[str, float]:
         """Average metrics over the whole validation set, the tail batch
         included (the reference's validation loader keeps it): the mean of
-        the batches' means."""
-        metrics = [self.eval_step(self.params, batch)
-                   for batch in dataset.batches(self.tc.batch_size, shuffle=False,
-                                                drop_remainder=False)]
+        the batches' means. On a mesh a tail batch is padded to the batch
+        size with copies of its last window, and the padding masked out."""
+        bs = self.tc.batch_size
+        metrics = []
+        for batch in dataset.batches(bs, shuffle=False, drop_remainder=False):
+            if self.mesh is None:
+                metrics.append(self.eval_step(self.params, batch))
+                continue
+            real = batch["positions"].shape[0]
+            batch = {key: np.concatenate([v, np.repeat(v[-1:], bs - real, axis=0)])
+                     for key, v in batch.items()}
+            per_sample = self.eval_step(self.params, self.shard_batch(batch, self.mesh))
+            metrics.append({key: v[:real].mean() for key, v in per_sample.items()})
         if not metrics:
             raise ValueError(
                 f"Validation produced zero batches: dataset has "
@@ -556,7 +618,11 @@ class Trainer:
             )
         return mean_metrics(metrics)
 
-    def save(self, name: str, epoch: int = 0) -> str:
+    def save(self, name: str, epoch: int = 0) -> Optional[str]:
+        """Write checkpoint ``name`` (rank 0 alone on a mesh; None
+        elsewhere)."""
+        if not self._is_main():
+            return None
         path = ckpt_lib.save_checkpoint(
             self.tc.output_dir, name, self.params, self.opt_state, epoch=epoch,
             generator_state=self.generator.get_state(), config=self._config_dict(),

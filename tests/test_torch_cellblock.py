@@ -25,7 +25,10 @@ from cosmology_gnn_simulation_tpu_torch import kernels
 from cosmology_gnn_simulation_tpu_torch.ops import cellblock
 from cosmology_gnn_simulation_tpu_torch.ops.cell_list import CellGrid
 from cosmology_gnn_simulation_tpu_torch.ops.neighbors import knn_periodic
-from cosmology_gnn_simulation_tpu_torch.ops.pallas_knn import codes_packing_cap
+from cosmology_gnn_simulation_tpu_torch.ops.pallas_knn import (
+    codes_packing_cap,
+    pallas_cell_list_knn,
+)
 
 AGG_ATOL = 1e-5
 
@@ -251,10 +254,16 @@ def test_unported_plan_options_raise():
     from_ids = cellblock.build_cellblock(tpos, knn_periodic(tpos, K, 1.0), 1.0, tspec)
     assert torch.equal(from_ids.s_table, cellblock.build_cellblock(tpos, None, 1.0, tspec,
                                                                    **ok).s_table)
-    for kw in (dict(s_build="contract"),
-               dict(codes_layout="table"), dict(valid=torch.ones(len(pos), dtype=bool))):
+    for kw in (dict(s_build="contract"), dict(valid=torch.ones(len(pos), dtype=bool))):
         with pytest.raises(NotImplementedError):
             cellblock.build_cellblock(tpos, None, 1.0, tspec, **ok, **kw)
+    # The table codes layout is ported: K1''s cell-table codes give the same S.
+    _, table_codes, table_spill = pallas_cell_list_knn(
+        tpos, K, 1.0, CellGrid(*grid), codes_only=True, codes_layout="table")
+    from_table = cellblock.build_cellblock(tpos, None, 1.0, tspec, neighbor_codes=table_codes,
+                                           codes_cap=cap, codes_spill=table_spill,
+                                           codes_layout="table")
+    assert torch.equal(from_table.s_table, from_ids.s_table)
     # The dense search replaces the k-NN search: codes with it are refused.
     with pytest.raises(ValueError, match="replaces the neighbor search"):
         cellblock.build_cellblock(tpos, None, 1.0, tspec, **ok,

@@ -12,6 +12,7 @@ import os
 
 import pytest
 import torch
+import torch.distributed as dist
 
 from cosmology_gnn_simulation_tpu.cli import generate_metadata as jax_generate_metadata_cli
 from cosmology_gnn_simulation_tpu_torch.cli import generate_metadata as generate_metadata_cli
@@ -129,16 +130,27 @@ def test_pretrained_model_loads_weights_only(data, tmp_path, monkeypatch, capsys
     (["--aggregation", "cellblock"], None),
     (["--aggregation", "cellblock", "--cellblock_variable"], None),
     (["--carry_dtype", "bfloat16"], None),
-    (["--data_parallel"], 5),
+    # Ported in slice 12: one rank of a process group (gloo, in memory) with
+    # --data_parallel; --distributed without torchrun's environment runs
+    # single-process, as the JAX CLI does without a coordinator.
+    (["--data_parallel"], None),
     (["--spatial_shards", "2"], 5),
-    (["--distributed"], 5),
+    (["--distributed"], None),
+    (["--distributed", "--data_parallel"], None),
     (["--native_loader"], 6),
 ])
 def test_unported_flags_raise(data, tmp_path, flags, item):
     if item is None:
-        trainer = train_cli.main(_argv(data, tmp_path / "out", "--num_epochs", "1", *flags))
+        try:
+            trainer = train_cli.main(_argv(data, tmp_path / "out", "--num_epochs", "1", *flags))
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
         assert os.path.isdir(tmp_path / "out" / "model_final")
         assert all(torch.isfinite(torch.tensor(trainer.history["train_loss"])))
+        assert (trainer.mesh is not None) == ("--data_parallel" in flags)
+        if trainer.mesh is not None:
+            assert trainer.mesh.shape == {"data": 1, "particle": 1}
         return
     argv = ["--train_dir", "t", "--val_dir", "v", "--metadata_path",
             str(tmp_path / "no_such_metadata.json"), "--output_dir", str(tmp_path / "out"), *flags]

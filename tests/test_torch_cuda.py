@@ -189,9 +189,10 @@ _PLAN_CASES = {
 _PLAN_MISMATCH = {"clustered30": 1042, "clustered95": 23, "w8": -22}
 
 
-def _plan_inputs(case, device):
-    """(spec, codes cap, layout, particle-order codes, spill tables,
-    positions) of one plan-kernel case on ``device``."""
+def _plan_inputs(case, device, codes_layout="particle"):
+    """(spec, codes cap, layout, codes, spill tables, positions) of one
+    plan-kernel case on ``device``: particle-order codes, or K1''s
+    cell-table codes and the three-element spill info."""
     n, k, spec_name = _PLAN_CASES[case]
     if case in CLUSTERED:
         pos = torch.from_numpy(clustered_positions(n, case))
@@ -214,9 +215,44 @@ def _plan_inputs(case, device):
         g = spec.grid_size
         grid = CellGrid(g, max(8, -(-2 * n // g**3)))
     pos = pos.to(device)
-    _, codes, spill = pallas_cell_list_knn(pos, k, 1.0, grid, codes_only=True)
+    _, codes, spill = pallas_cell_list_knn(pos, k, 1.0, grid, codes_only=True,
+                                           codes_layout=codes_layout)
     layout = cellblock.cellblock_layout(pos, 1.0, spec)
     return spec, codes_packing_cap(n, k, grid), layout, codes, spill, pos
+
+
+_TABLE_CASES = ["flagship", "spill", *CLUSTERED, "variable", "variable_spill", "w8"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _TABLE_CASES)
+def test_s_decode_on_table_rows_matches_plain_version(cuda_device, case):
+    """The table codes layout: K1''s cell-table output and spill picks on
+    the card equal the CPU plain path's; K2 reading table rows and the spill
+    picks through its row map equals its plain version on the same inputs
+    and K2 on the particle-order codes of the same frame (offsets and
+    dropped edges)."""
+    spec, cap, layout, codes, spill, _ = _plan_inputs(case, cuda_device, "table")
+    *_, cpu_codes, cpu_spill, _ = _plan_inputs(case, torch.device("cpu"), "table")
+    assert torch.equal(codes.cpu(), cpu_codes)
+    assert (spill is None) == (cpu_spill is None)
+    for a, b in zip(spill or (), cpu_spill or ()):
+        assert torch.equal(a.cpu(), b)
+    width = spec.s_width
+    kernels.reset_launches()
+    offsets, dropped = cellblock.s_decode(codes, spill, layout, spec, cap, "table")
+    torch.cuda.synchronize()
+    assert kernels.launches["s_decode"] == 1
+    ref = cellblock.s_decode_reference(
+        *cellblock.s_decode_inputs(layout, codes, cap, spill, spec, "table"), spec=spec,
+        codes_cap=cap)
+    assert torch.equal(offsets, ref)
+    assert int(dropped) == int((ref == width + 1).sum())
+    _, pcap, _, pcodes, pspill, _ = _plan_inputs(case, cuda_device)
+    p_offsets, p_dropped = cellblock.s_decode(pcodes, pspill, layout, spec, pcap)
+    assert torch.equal(offsets, p_offsets) and int(dropped) == int(p_dropped)
+    if case.endswith("spill"):
+        assert spill is not None and bool((spill[1] < 2**20).any())
 
 
 @pytest.mark.cuda

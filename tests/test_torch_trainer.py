@@ -286,9 +286,11 @@ def test_profiling_step_timer_trace_and_profile_epoch(tmp_path):
 
 
 def test_unported_and_device_arguments_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    # The mesh trainer is ported (tests/test_torch_sharded.py); the halo one
+    # is not.
+    with pytest.raises(NotImplementedError, match="queue 1 item 5, second half"):
         Trainer(default_model_config(**MODEL), NormalizationStats.from_metadata(
-            METADATA, device="cpu"), TrainConfig(), 1, mesh=object(), device="cpu")
+            METADATA, device="cpu"), TrainConfig(), 1, halo=object(), device="cpu")
     if not torch.cuda.is_available():  # the default device is the card; no fallback
         with pytest.raises(RuntimeError, match="CUDA device requested"):
             Trainer(default_model_config(**MODEL),
