@@ -15,7 +15,9 @@ checkpoints, a resume) and activation checkpointing; then the rollout's
 brute-force fallback (K9 gated on the device), its cell-sorted state, and
 the evaluation entry points (``validate_one_step``, ``render_rollout``'s
 body); the config-4 path; then the table codes layout of the plan build and
-the index-sharded train step, rollout and Trainer on a one-rank NCCL mesh.
+the index-sharded train step, rollout and Trainer on a one-rank NCCL mesh;
+then one halo shard's open-slab plan at config 5 and the hybrid train step
+with its noise keyed per particle.
 Before that it builds every CUDA kernel from ``csrc/`` and holds each
 against its plain PyTorch version at the shapes the paths give it. Phases,
 each timed on its own line:
@@ -187,6 +189,32 @@ each timed on its own line:
      make_sharded_rollout within 2e-4 of rollout(aggregation="gather")
      (K5 80 launches, 88 all-gathers), ms a step of each; Trainer(mesh=...)
      for 2 steps and a validation pass equal to Trainer()'s (noise 0);
+ 16a. one config-5 halo shard's plan (BASELINE config 5: N = 2,000,000
+     over 8 shards, k = 16; choose_halo_config gives G = 56, 7 slab layers,
+     one halo layer; choose_cellblock_spec_halo an open slab of gx = 9
+     x-layers, 387,072 slots): a seeded frame made as bench_config4's, the
+     port's partition_windows, and for shards 0 (its left halo wraps across
+     x = 0) and 3 the candidate set [own; halo_left; halo_right] built on
+     the host as the exchange builds it (parallel.halo.shard_candidates);
+     the masked cell list (the owned rows querying the valid candidates);
+     then build_cellblock(valid=..., with_reverse=True) in the slab's local
+     x frame over a per-dimension box and the hybrid aggregation's forward
+     and backward at H = 128 (bf16 carry), launch counts zeroed before and
+     read after (K3, K7, K4, K4^T once each); overflow, dropped edges and
+     reverse_mismatch 0; K3 and K7 bit-equal to their plain versions (S,
+     S_rev, totals), K4 and K4^T within phase 4's tolerances, the
+     aggregation at the owned rows (through the inverse order) within them
+     of the gather-sum over the neighbor ids; on shard 0 each kernel timed
+     by events and from a CUDA graph with its bound and its plain version's
+     time, and the plan build's time and peak memory;
+ 16b. phase 11's hybrid train step with partition_invariant_noise=True
+     (the noise keyed by each particle's global id): 1 warm-up and 4 timed
+     steps, exact launches, cellblock_violations 0, ms per step against
+     phase 11's and against the stream keying timed in turns here (stream,
+     gid, gid, stream); the sample with its particles and ids permuted gives the
+     same loss and gradients within the N = 8,192 check's tolerances; the
+     keying's hash bits on the card equal the CPU's and its normals within
+     GID_NORMAL_ULPS;
  12. one JSON line of every ported kernel: launches on its path, time, bound,
      plain version's time, library yardstick's time.
 
@@ -282,6 +310,13 @@ C4_SLOTS_TOL = 2e-4  # slots against hybrid (JAX tests/test_cellblock_rollout.py
 # single-device counterparts (the same search, the same sorted-edge backward;
 # the collectives of one rank copy) within 1e-6.
 SHARDED_TOL = 1e-6
+# Config 5 (BASELINE.md: N = 2,000,000 over 8 halo shards, k = 16): one
+# shard's slab plan, shard 0 (its left halo wraps across x = 0) and shard 3;
+# the aggregation at latent 128 (the default model's).
+C5_N, C5_K, C5_SHARDS, C5_CHECK_SHARDS, C5_H = 2_000_000, 16, 8, (0, 3), 128
+# The gid-keyed noise's normals on the card against the CPU's: Box-Muller
+# through log, sqrt and cos, each within 1-2 ulps on either side.
+GID_NORMAL_ULPS = 16
 
 METADATA = {
     "temp_mean": 1.0, "temp_std": 0.3, "temp_rate_mean": 0.0,
@@ -1216,6 +1251,296 @@ def sharded_phase(args, dev, report, path_launches, zero):
             dist.destroy_process_group()
     print(f"phase 15b sharded paths: {time.perf_counter() - t0:.1f} s")
     return ms
+
+
+def halo_phase(args, dev, report, path_launches, zero, cfg, stats, train_ms):
+    """Phases 16a and 16b (one config-5 shard's slab plan; the gid-keyed
+    hybrid train step; see the module docstring). Returns the plan build's
+    ms and peak GiB and the gid-keyed step's ms."""
+    from cosmology_gnn_simulation_tpu_torch import kernels
+    from cosmology_gnn_simulation_tpu_torch.models.encode_process_decode import (
+        init_encode_process_decode,
+    )
+    from cosmology_gnn_simulation_tpu_torch.ops import cellblock, noise
+    from cosmology_gnn_simulation_tpu_torch.ops.cell_list import (
+        CellGrid,
+        cell_list_knn,
+        f32,
+        window_margin_sq,
+    )
+    from cosmology_gnn_simulation_tpu_torch.ops.periodic import min_image_displacement
+    from cosmology_gnn_simulation_tpu_torch.parallel import halo
+    from cosmology_gnn_simulation_tpu_torch.training import TrainConfig, make_optimizer
+    from cosmology_gnn_simulation_tpu_torch.training import make_train_step
+    from cosmology_gnn_simulation_tpu_torch.training.trainer import Optimizer
+    from cosmology_gnn_simulation_tpu_torch.types import tree_leaves
+
+    # ---- 16a. one config-5 shard's slab plan ---------------------------------
+    t0 = time.perf_counter()
+    hc = halo.choose_halo_config(C5_N, C5_K, C5_SHARDS)
+    spec = cellblock.choose_cellblock_spec_halo(C5_N, hc.grid_size, hc.slab_layers,
+                                                hc.halo_layers, C5_SHARDS)
+    width, g = spec.s_width, hc.grid_size
+    print(f"config-5 halo geometry (choose_halo_config({C5_N}, {C5_K}, {C5_SHARDS})): {hc}; "
+          f"{hc.candidate_count} candidate rows a shard; slab spec "
+          f"(choose_cellblock_spec_halo): {spec}; {spec.num_slots} slots, {spec.num_tiles} "
+          f"tiles, {spec.num_padded} padded rows, S {spec.num_slots * width / 1e9:.3f} GB, S_rev "
+          f"{spec.num_tiles * width * spec.rev_lanes / 1e9:.3f} GB")
+    c5_pos, c5_temp = seed_window(C5_N, args.seed + 51)
+    part = halo.partition_windows(c5_pos, c5_temp, hc, 1.0)
+    recent, valid = part["positions"][-1], part["valid"]
+    del c5_pos, c5_temp
+    gen = torch.Generator().manual_seed(args.seed + 52)
+    expected = {**zero, "s_onehot": 1, "reverse_table": 1, "window_matmul": 1,
+                "window_matmul_t": 1}
+    slab = {}
+    for shard in C5_CHECK_SHARDS:
+        cand, cand_valid, halo_over = halo.shard_candidates(recent, valid, hc, 1.0, shard)
+        local, box_local = halo.slab_frame(cand, hc, spec.gx, 1.0, shard)
+        cap, m = hc.local_capacity, cand.shape[0]
+        cand_t, valid_t = torch.from_numpy(cand).to(dev), torch.from_numpy(cand_valid).to(dev)
+        local_t, box_t = torch.from_numpy(local).to(dev), torch.from_numpy(box_local).to(dev)
+        own_t, own_valid = cand_t[:cap], valid_t[:cap]
+        # The masked cell list: the owned rows query the candidate set.
+        grid = CellGrid(g, hc.cell_capacity)
+        idx, (cell_over, _, _) = cell_list_knn(cand_t, C5_K, 1.0, grid, queries=own_t,
+                                               valid=valid_t, return_diagnostics=True)
+        d2 = (min_image_displacement(own_t[:, None, :] - cand_t[idx], f32(1.0, dev)) ** 2).sum(-1)
+        excess = float(torch.where(own_valid, d2.max(1).values
+                                   - window_margin_sq(own_t, f32(1.0, dev), grid),
+                                   -torch.inf).max())
+        if halo_over or int(cell_over) or not bool(valid_t[idx[own_valid]].all()):
+            fail(f"slab shard {shard}: halo overflow {halo_over}, cell overflow {int(cell_over)}, "
+                 "or a valid query picked an invalid row")
+        nbr = torch.cat([idx, torch.full((m - cap, C5_K), m, dtype=idx.dtype, device=dev)])
+
+        # The main path: plan (K3, K7), aggregation forward (K4) and backward
+        # (K4^T), counts zeroed before and read after.
+        z = torch.randn(m, C5_H, generator=gen).to(dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        plan = cellblock.build_cellblock(local_t, nbr, box_t, spec, with_reverse=True,
+                                         valid=valid_t)
+        z_sorted = z[plan.order].requires_grad_(True)
+        agg = cellblock.cellblock_aggregate(z_sorted, plan, spec, carry_dtype=torch.bfloat16)
+        (dz,) = torch.autograd.grad((agg * agg).sum(), z_sorted)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        if launches != expected:
+            fail(f"slab shard {shard}: launches {launches}, expected {expected}")
+        counts = (int(plan.overflow), int(plan.dropped_edges), int(plan.reverse_mismatch))
+        if counts != (0, 0, 0) or not bool(torch.isfinite(dz).all()):
+            fail(f"slab shard {shard}: overflow, dropped edges, reverse_mismatch {counts}, or a "
+                 "gradient not finite")
+        # The aggregation at the owned rows (through the inverse order)
+        # against the gather-sum over the neighbor ids, bf16-rounded as the
+        # carry is.
+        inv = torch.empty_like(plan.order)
+        inv[plan.order] = torch.arange(m, device=dev)
+        owned = agg.detach()[inv[:cap]][own_valid]
+        ref = z.bfloat16().float()[idx[own_valid]].sum(1)
+        agg_err = (owned - ref).abs()
+        if not (float(agg_err.max()) <= K4_MAX_ABS_TOL and float(agg_err.mean()) <= K4_MEAN_ABS_TOL):
+            fail(f"slab shard {shard}: aggregation vs gather-sum max abs err "
+                 f"{float(agg_err.max())}, mean {float(agg_err.mean())}")
+        path_launches[f"slab plan shard {shard}"] = launches
+
+        # Each kernel against its plain version on this plan's inputs.
+        layout = cellblock.cellblock_layout(local_t, box_t, spec, valid_t)
+        senders = cellblock.aux_slot_senders(layout, nbr, spec)
+        offsets, dropped = cellblock.aux_offsets(senders, layout, spec)
+        packs = (senders // g).to(torch.int32)
+        s_table, s_total = cellblock.s_onehot(offsets, width=width, with_total=True)
+        ref_s = cellblock.s_onehot_reference(offsets, width=width)
+        if not (torch.equal(s_table, ref_s) and torch.equal(plan.s_table, ref_s)
+                and int(s_total) == int(ref_s.sum(dtype=torch.int64))):
+            fail(f"K3 slab shard {shard}: S or its count differs from the plain version")
+        del ref_s
+        s_rev, rev_total = cellblock.reverse_table(packs, layout, spec)
+        ref_rev = cellblock.reverse_table_reference(
+            cellblock.reverse_candidates(packs, layout, spec), layout.window_starts,
+            layout.tile_pack_base, layout.window_lims, spec=spec)
+        if not (torch.equal(s_rev, ref_rev) and torch.equal(plan.s_rev_table, ref_rev)
+                and int(rev_total) == int(ref_rev.sum(dtype=torch.int64)) == int(s_total)):
+            fail(f"K7 slab shard {shard}: S_rev or its total ({int(rev_total)}) differs from the "
+                 f"plain version's or from S's count ({int(s_total)})")
+        del ref_rev
+        z_pad = torch.randn(spec.num_padded, C5_H, generator=gen).bfloat16().to(dev)
+        errs = {}
+        for name, fn, ref_fn, table in (
+                ("K4", cellblock.window_matmul, cellblock.window_matmul_reference, s_table),
+                ("K4^T", cellblock.window_matmul_t, cellblock.window_matmul_t_reference, s_rev)):
+            out = fn(table, z_pad, layout.window_starts, spec=spec)
+            err = (out - ref_fn(table, z_pad, layout.window_starts, spec=spec)).abs()
+            errs[name] = float(err.max())
+            if not (errs[name] <= K4_MAX_ABS_TOL and float(err.mean()) <= K4_MEAN_ABS_TOL):
+                fail(f"{name} slab shard {shard}: max abs err {errs[name]}, mean "
+                     f"{float(err.mean())}")
+            del out, err
+        print(f"slab shard {shard}: {int(cand_valid.sum())} valid of {m} candidate rows "
+              f"({int(cand_valid[:cap].sum())} owned), masked cell list overflow 0, max excess "
+              f"over the owned queries {excess:.4g} (<= 0 certifies); plan overflow, dropped "
+              f"edges, reverse_mismatch 0; {int(s_total)} edges; K3 and K7 bit-equal to their "
+              f"plain versions (S, S_rev, totals); K4 max abs err {errs['K4']:.3g}, K4^T "
+              f"{errs['K4^T']:.3g} (tol {K4_MAX_ABS_TOL}); aggregation at the owned rows vs the "
+              f"gather-sum max abs err {float(agg_err.max()):.3g}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+
+        if shard == C5_CHECK_SHARDS[0]:
+            # Times (events, graph), bounds and plain times; the plan build.
+            def build():
+                return cellblock.build_cellblock(local_t, nbr, box_t, spec, with_reverse=True,
+                                                 valid=valid_t)
+
+            del plan, agg, dz, z_sorted
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            build_ms = time_ms(build, 2)
+            build_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            k3 = lambda: cellblock.s_onehot(offsets, width=width, with_total=True)  # noqa: E731
+            k7 = lambda: cellblock.reverse_table(packs, layout, spec)  # noqa: E731
+            k4 = lambda: cellblock.window_matmul(  # noqa: E731
+                s_table, z_pad, layout.window_starts, spec=spec)
+            k4t = lambda: cellblock.window_matmul_t(  # noqa: E731
+                s_rev, z_pad, layout.window_starts, spec=spec)
+            out = torch.empty((spec.num_slots, C5_H), dtype=torch.float32, device=dev)
+            k7_bytes = nbytes(packs, layout.pad_src, layout.window_starts, layout.tile_pack_base,
+                              layout.window_lims, layout.main_base, s_rev) + 4
+            rows = [
+                ("s_onehot", k3, lambda: cellblock.s_onehot_reference(offsets, width=width),
+                 nbytes(offsets, s_table) + 4, offsets.numel(), F32_FLOP_PER_S),
+                ("reverse_table", k7, lambda: cellblock.reverse_table_reference(
+                    cellblock.reverse_candidates(packs, layout, spec), layout.window_starts,
+                    layout.tile_pack_base, layout.window_lims, spec=spec), k7_bytes,
+                 3 * spec.num_tiles * width * C5_K, F32_FLOP_PER_S),
+                ("window_matmul", k4, lambda: cellblock.window_matmul_reference(
+                    s_table, z_pad, layout.window_starts, spec=spec),
+                 nbytes(s_table, z_pad, layout.window_starts, out),
+                 2 * int((s_table != 0).sum()) * C5_H, BF16_TENSOR_FLOP_PER_S),
+                ("window_matmul_t", k4t, lambda: cellblock.window_matmul_t_reference(
+                    s_rev, z_pad, layout.window_starts, spec=spec),
+                 nbytes(s_rev, z_pad, layout.window_starts, out),
+                 2 * int((s_rev != 0).sum()) * C5_H, BF16_TENSOR_FLOP_PER_S),
+            ]
+            del out
+            for name, fn, plain, nb, ops, rate in rows:
+                t = dict(slab_ms=time_ms(fn, 10), slab_graph_ms=graph_ms(fn, 5),
+                         slab_plain_ms=time_ms(plain, 1),
+                         slab_bound_ms=max(nb / HBM_BYTES_PER_S, ops / rate) * 1e3,
+                         slab_launches=launches[name])
+                report[name].update(t)
+                slab[name] = t
+                print(f"{name} on the slab plan: {t['slab_ms']:.4f} ms (graph "
+                      f"{t['slab_graph_ms']:.4f}; bound {t['slab_bound_ms']:.4f}, {nb} bytes); "
+                      f"plain {t['slab_plain_ms']:.4f} ms")
+            slab["build_ms"], slab["build_peak_gib"] = build_ms, build_peak
+            print(f"slab plan build (shard {shard}: layout, aux offsets, K3, sender packs, K7): "
+                  f"{build_ms:.4f} ms by events, peak {build_peak:.3f} GiB above the "
+                  f"{base / 2**30:.3f} GiB held before it")
+        del cand_t, valid_t, local_t, own_t, idx, nbr, z, layout, senders, offsets, packs
+        del s_table, s_rev, z_pad
+        torch.cuda.empty_cache()
+    del part, recent, valid
+    print(f"phase 16a config-5 slab plan: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 16b. the gid-keyed hybrid train step -------------------------------
+    t0 = time.perf_counter()
+    mp = cfg.num_message_passing_steps
+    per_step = {"knn_codes": 1, "s_decode": 1, "s_onehot": 1, "reverse_table": 1,
+                "window_matmul": mp, "window_matmul_t": mp, "fused_tail": mp,
+                "fused_tail_bwd": mp}
+    tbatch = train_batch(N, args.seed)
+
+    def timed_steps(keyed: bool):
+        """1 warm-up and TRAIN_STEPS timed steps of the flagship hybrid
+        train row, noise keyed per particle or by the stream: (ms per step,
+        launches of the timed steps, their metrics)."""
+        tc_ = TrainConfig(aggregation="cellblock_hybrid", num_neighbors=K,
+                          compute_dtype="bfloat16", noise_std=TRAIN_NOISE,
+                          partition_invariant_noise=keyed)
+        tparams = init_encode_process_decode(cfg, torch.Generator().manual_seed(args.seed),
+                                             device=dev)
+        optimizer = make_optimizer(tc_, steps_per_epoch=TRAIN_STEPS + 1)
+        state = optimizer.init(tparams)
+        train_step = make_train_step(cfg, stats, tc_, optimizer)
+        tgen = torch.Generator(device=dev).manual_seed(args.seed)
+        train_step(tparams, state, tbatch, tgen)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics_ = [train_step(tparams, state, tbatch, tgen)[2] for _ in range(TRAIN_STEPS)]
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / TRAIN_STEPS, dict(kernels.launches), metrics_
+
+    gid_ms, launches, metrics = timed_steps(True)
+    losses = [float(mt["loss"]) for mt in metrics]
+    violations = [float(mt["cellblock_violations"]) for mt in metrics]
+    want = {**zero, **{name: c * TRAIN_STEPS for name, c in per_step.items()}}
+    if launches != want or not all(np.isfinite(losses)) or any(violations):
+        fail(f"gid-keyed train step: launches {launches} (expected {want}), losses {losses}, "
+             f"cellblock_violations {violations}")
+    # The two keyings in turns in this call (stream, gid, gid, stream).
+    turns = [(keyed, timed_steps(keyed)[0]) for keyed in (False, True, True, False)]
+    stream_turns = [ms for keyed, ms in turns if not keyed]
+    gid_turns = [ms for keyed, ms in turns if keyed]
+    tc = TrainConfig(aggregation="cellblock_hybrid", num_neighbors=K, compute_dtype="bfloat16",
+                     noise_std=TRAIN_NOISE, partition_invariant_noise=True)
+    path_launches["train cellblock_hybrid gid-keyed"] = launches
+    del metrics
+    # Layout invariance: the sample with its particles (and their ids)
+    # permuted, one SGD step (lr 1) from the same weights and generator.
+    perm = np.random.default_rng(args.seed + 53).permutation(N)
+    permuted = {"positions": tbatch["positions"][:, :, perm],
+                "temperatures": tbatch["temperatures"][:, :, perm],
+                "target_positions": tbatch["target_positions"][:, perm],
+                "target_temperatures": tbatch["target_temperatures"][:, perm],
+                "gids": perm[None]}
+    runs = []
+    for batch in (tbatch, permuted):
+        sgd = Optimizer(lambda leaves: torch.optim.SGD(leaves, lr=1.0))
+        sparams = init_encode_process_decode(cfg, torch.Generator().manual_seed(args.seed),
+                                             device=dev)
+        before = [t.detach().clone() for t in tree_leaves(sparams)]
+        step = make_train_step(cfg, stats, tc, sgd)
+        sparams, _, mt = step(sparams, sgd.init(sparams), batch,
+                              torch.Generator(device=dev).manual_seed(args.seed + 54))
+        runs.append((float(mt["loss"]), [b - a.detach() for b, a in zip(before,
+                                                                        tree_leaves(sparams))]))
+    (loss, grads), (p_loss, p_grads) = runs
+    loss_err = abs(p_loss - loss) / abs(loss)
+    grad_err = max(float((a - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(p_grads, grads) if float(b.abs().max()))
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL):
+        fail(f"gid-keyed train step, permuted sample: loss rel err {loss_err}, worst gradient "
+             f"rel err {grad_err}")
+    del runs, grads, p_grads
+    # The keying's integer bits on the card equal the CPU's; its normals
+    # within GID_NORMAL_ULPS (the card's and the CPU's log, sqrt and cos).
+    key = torch.tensor([args.seed * 7919 + 12345])
+    gids = torch.from_numpy(perm)
+    elements = (WINDOW - 1) * 3
+    bits_ok = torch.equal(noise.gid_bits(key.to(dev), gids.to(dev), elements).cpu(),
+                          noise.gid_bits(key, gids, elements))
+    z_card = noise.gid_normals(key.to(dev), gids.to(dev), (N, WINDOW - 1, 3)).cpu()
+    z_cpu = noise.gid_normals(key, gids, (N, WINDOW - 1, 3))
+    ulps = int((z_card.view(torch.int32).long() - z_cpu.view(torch.int32).long()).abs().max())
+    if not bits_ok or ulps > GID_NORMAL_ULPS or not bool((z_card.sign() == z_cpu.sign()).all()):
+        fail(f"gid-keyed noise: integer bits equal {bits_ok}, normals {ulps} ulps apart")
+    print(f"gid-keyed train step (partition_invariant_noise=True): N={N} k={K} default model "
+          f"bf16, noise {TRAIN_NOISE}, batch 1, {TRAIN_STEPS} steps, {gid_ms:.3f} ms/step "
+          f"(phase 11's stream-keyed step {train_ms['cellblock_hybrid']:.3f}; in turns here, "
+          f"stream {stream_turns[0]:.3f}, gid {gid_turns[0]:.3f}, gid {gid_turns[1]:.3f}, "
+          f"stream {stream_turns[1]:.3f}), losses "
+          f"{[float(f'{v:.6g}') for v in losses]}, cellblock_violations 0, launches "
+          f"{ {k: v for k, v in launches.items() if v} }; the permuted sample: loss rel err "
+          f"{loss_err:.3g} (tol {TRAIN_LOSS_RTOL}), worst gradient leaf rel err {grad_err:.3g} "
+          f"(tol {TRAIN_GRAD_TOL}); the keying's bits on the card equal the CPU's, its normals "
+          f"at most {ulps} ulps apart (tol {GID_NORMAL_ULPS})")
+    print(f"phase 16b gid-keyed train step: {time.perf_counter() - t0:.1f} s")
+    return slab, gid_ms
 
 
 def main() -> None:
@@ -2685,6 +3010,7 @@ def main() -> None:
     c4_rollout_ms, c4_train_ms = config4_phases(args, dev, report, path_launches, zero)
     table_ms = table_phase(args, dev, report, path_launches, zero)
     sharded_ms = sharded_phase(args, dev, report, path_launches, zero)
+    slab, gid_ms = halo_phase(args, dev, report, path_launches, zero, cfg, stats, train_ms)
 
     # ---- 12. kernels line ------------------------------------------------
     kernels_line = []
@@ -2699,7 +3025,9 @@ def main() -> None:
           + f", per train step {c4_train_ms:.4f}; table layout plan build ms (particle, "
           f"table) " + ", ".join(f"{name} {r['particle']:.4f} {r['table']:.4f}"
                                  for name, r in table_ms.items())
-          + "; sharded (1,1) ms " + ", ".join(f"{name} {v:.4f}" for name, v in sharded_ms.items()))
+          + "; sharded (1,1) ms " + ", ".join(f"{name} {v:.4f}" for name, v in sharded_ms.items())
+          + f"; config-5 slab plan build {slab['build_ms']:.4f} ms (peak "
+          f"{slab['build_peak_gib']:.3f} GiB), gid-keyed train step {gid_ms:.4f} ms")
     print(smi)
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -131,7 +131,8 @@ def check_ported(args) -> None:
         return getattr(args, name, default)
 
     unported = [
-        ((flag("spatial_shards") or 0) > 1, "--spatial_shards > 1", "5, second half (halo)"),
+        ((flag("spatial_shards") or 0) > 1, "--spatial_shards > 1",
+         "5b-iii (the halo path's entry points)"),
         (flag("native_loader"), "--native_loader", 6),
     ]
     for given, name, item in unported:

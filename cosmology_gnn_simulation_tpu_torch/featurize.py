@@ -244,6 +244,7 @@ def featurize(
     with_codes: bool = False,
     codes_only: bool = False,
     particle_axis=None,
+    noise_gids: Optional[torch.Tensor] = None,
 ):
     """Build a ``ParticleGraph`` from a ``[T, N, 3]`` / ``[T, N, 1]``
     time-major window.
@@ -260,7 +261,10 @@ def featurize(
     model never reads (``neighbors`` may then be None: the cell-block path).
 
     Training: ``noise_std`` adds the random-walk noise drawn from
-    ``generator``; ``target_position`` / ``target_temperature`` ``[N, 3]`` /
+    ``generator``, or with ``noise_gids`` ``[N]`` (global particle ids) keyed
+    per particle (``ops.noise``: row i's draws a function of the call's key
+    and ``noise_gids[i]`` alone, whatever the row order, padding or N);
+    ``target_position`` / ``target_temperature`` ``[N, 3]`` /
     ``[N, 1]`` attach the normalized targets, shifted by the last noise
     frame; ``build_reverse`` attaches the sender-sorted edge stream
     (``graph.sorted_edges``) for the scatter-free aggregation backward.
@@ -285,10 +289,10 @@ def featurize(
     pos_seq = position_seq.float().transpose(0, 1)  # [N, T, 3]
     temp_seq = temperature_seq.float().transpose(0, 1)
 
-    position_noise = random_walk_position_noise(pos_seq, noise_std, dt, generator)
+    position_noise = random_walk_position_noise(pos_seq, noise_std, dt, generator, noise_gids)
     pos_seq = wrap_positions(pos_seq + position_noise, box)
     temperature_noise = random_walk_temperature_noise(
-        temp_seq, noise_std, stats.temp_rate_std, dt, generator
+        temp_seq, noise_std, stats.temp_rate_std, dt, generator, noise_gids
     )
     temp_seq = temp_seq + temperature_noise
 

@@ -266,8 +266,8 @@ def apply_encode_process_decode(
     gathered rows. Each message-passing step all-gathers the projected
     sender latents (``y_src`` too in the unpruned model); everything else,
     the fused tail K5 included, runs on the local rows. The cell-block
-    aggregation is refused under it (the halo path, ROADMAP queue 1 item 5,
-    second half, is what composes with it in the JAX package).
+    aggregation is refused under it (the halo path, ROADMAP queue 1 item 5b,
+    is what composes with it in the JAX package).
     """
     if cellblock_mode not in ("slots", "hybrid"):
         raise ValueError(f"unknown cellblock_mode: {cellblock_mode}")
@@ -280,8 +280,7 @@ def apply_encode_process_decode(
         if particle_axis is not None:
             raise ValueError(
                 "cellblock aggregation under the index-sharded all-gather path is "
-                "unsupported (the halo path composes with it: ROADMAP queue 1 item 5, "
-                "second half (halo))"
+                "unsupported (the halo path composes with it: ROADMAP queue 1 item 5b)"
             )
         if not prune:
             raise ValueError(

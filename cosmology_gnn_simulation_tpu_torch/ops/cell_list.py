@@ -147,20 +147,26 @@ def cell_list_knn(
     queries: Optional[torch.Tensor] = None,
     query_tile: int = 8192,
     return_diagnostics: bool = False,
+    valid: Optional[torch.Tensor] = None,
 ):
     """Periodic k-NN through the cell list (the JAX package's XLA
     ``cell_list_knn``): per query, the ``[27 * C]`` candidate ids of its
     3x3x3 cells (``C = grid.cell_capacity``; particles past it are dropped
     and counted), min-image ``d^2 = (dx^2 + dy^2) + dz^2``, and the k
     smallest by a stable sort (the smallest lane wins exact ties, as
-    ``lax.top_k``). Missing picks repeat the row's first pick.
+    ``lax.top_k``). A row with fewer than k candidates repeats its nearest
+    pick for the missing ones, and a row with none gets 0 (such rows keep
+    ``+inf`` distances, so ``max_d2`` and the certificate fail).
 
     ``queries`` ``[Q, 3]`` are searched against the reference set
-    ``positions`` ``[N, 3]`` (default: the particles themselves). Returns
-    ``[Q, k]`` int64 indices into ``positions`` (ascending distance), plus
-    ``(overflow, max_d2, max_excess)`` over the queries if requested: exact
-    iff ``overflow == 0`` and ``max_excess <= 0`` (``window_margin_sq``).
-    ``query_tile`` queries are searched at a time.
+    ``positions`` ``[N, 3]`` (default: the particles themselves). ``valid``
+    ``[N]`` bool drops the False rows from the candidates entirely (a halo
+    shard's padding rows): they bin under the sentinel key ``G^3`` and are
+    not counted as overflow. Returns ``[Q, k]`` int64 indices into
+    ``positions`` (ascending distance), plus ``(overflow, max_d2,
+    max_excess)`` over the queries if requested: exact iff ``overflow ==
+    0`` and ``max_excess <= 0`` (``window_margin_sq``). ``query_tile``
+    queries are searched at a time.
     """
     g, cap = grid.grid_size, grid.cell_capacity
     if g < 3:
@@ -172,8 +178,15 @@ def cell_list_knn(
     queries = positions if queries is None else queries.float()
     coords = cell_coords(positions, g, box)
     cell_id = (coords[:, 0] * g + coords[:, 1]) * g + coords[:, 2]
-    b = bin_by_key(cell_id, g**3, cap)
-    table = scatter_to_table(b, b.order, g**3, cap, n, torch.int64)
+    if valid is None:
+        b = bin_by_key(cell_id, g**3, cap)
+        overflow = b.overflow
+    else:
+        # Invalid rows share the sentinel key G^3, one bucket past the
+        # table; the ones beyond its capacity are not real overflow.
+        b = bin_by_key(torch.where(valid.to(dev), cell_id, g**3), g**3 + 1, cap)
+        overflow = b.overflow - torch.clamp((~valid.to(dev)).sum() - cap, min=0)
+    table = scatter_to_table(b, b.order, g**3 + (valid is not None), cap, n, torch.int64)
     planes = [torch.cat([positions[:, d], positions.new_zeros(1)]) for d in range(3)]
     offsets = neighbor_offsets(dev)
     idx_tiles, d2_tiles = [], []
@@ -198,4 +211,4 @@ def cell_list_knn(
         return idx
     d2 = torch.cat(d2_tiles)
     excess = d2.max(dim=1).values - window_margin_sq(queries, box, grid)
-    return idx, (b.overflow, d2.max(), excess.max())
+    return idx, (overflow, d2.max(), excess.max())

@@ -43,12 +43,20 @@ the sender decode keeps the PACK ids ``col * CC + rank`` (``pack_slots``),
 from which slots follow by the prefixes. Exceeding the budget counts in
 ``overflow``.
 
-Ported: the uniform and the variable cubic layouts; the plan build from the
-k-NN codes in the particle and the table codes layouts, from neighbor ids
-(the aux path) and (uniform only, as in JAX) by the dense search, each with
-the reverse table; the hybrid and slot-space aggregations with their
-backward (expand and compact as monotone gathers both ways). Non-cubic
-grids and validity masks raise ``NotImplementedError``.
+Halo slabs (``grid_x``, ``periodic_x=False``; ``choose_cellblock_spec_halo``):
+one shard's local plan over an open slab of ``gx`` x-layers by the full
+periodic ``G x G`` (y, z) cross-section, binned over a per-dimension box;
+the 3x3 ring clamps in x instead of wrapping. A validity mask (``valid``)
+bins its False rows past every real cell: they take no slot, sit in no
+window and do not count as overflow.
+
+Ported: the uniform and the variable cubic layouts and the uniform slab
+layout, with or without a validity mask; the plan build from the k-NN codes
+in the particle and the table codes layouts (cubic periodic grids only, as
+in JAX), from neighbor ids (the aux path, every layout) and (uniform cubic
+only, as in JAX) by the dense search, each with the reverse table; the
+hybrid and slot-space aggregations with their backward (expand and compact
+as monotone gathers both ways).
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ import functools
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from cosmology_gnn_simulation_tpu_torch import kernels
@@ -65,7 +74,6 @@ from cosmology_gnn_simulation_tpu_torch.ops.binning import bucket_boundaries
 from cosmology_gnn_simulation_tpu_torch.ops.cell_list import (
     NEIGHBOR_OFFSETS,
     CellGrid,
-    cell_coords,
     choose_cell_grid,
     f32,
     host_f32,
@@ -80,18 +88,22 @@ def _round_up(x, m: int) -> int:
 
 
 class CellBlockSpec(NamedTuple):
-    """Static cell-block configuration (the JAX ``CellBlockSpec``; the
-    uniform and variable cubic periodic layouts are ported).
+    """Static cell-block configuration (the JAX ``CellBlockSpec``).
 
     Attributes:
-      grid_size:    G — cells per box edge (G^2 columns of G z-cells).
+      grid_size:    G — cells per (y, z) box edge, and per x edge on the
+                    cubic grid (``gx * G`` columns of G z-cells).
       col_capacity: CC — slot rows per column (multiple of ``query_block``).
       query_block:  QB — query rows per tile.
       window:       W — candidate rows per neighbor column per tile.
       wrap_cap:     max rows copied per z-wrap segment.
       h_block:      the TPU kernel's latent tile (kept for spec equality).
-      grid_x, periodic_x: non-cubic / halo layouts (not ported; must keep
-                    their defaults).
+      grid_x:       x-cells of a non-cubic grid (0 = cubic, ``G``): a halo
+                    shard's slab of ``slab_layers + 2 * halo_layers``
+                    x-layers over the full ``G x G`` (y, z) cross-section.
+      periodic_x:   the x ring wraps; False on halo slabs, whose queries sit
+                    at least one x-layer inside, so the ring's x index is a
+                    plain difference (clamped at the slab's edges).
       slot_budget:  0 = the uniform layout (every column owns CC slot rows);
                     > 0 = variable capacities: the static total of slot rows
                     (a QB multiple), CC only the per-column clamp.
@@ -165,21 +177,23 @@ class CellBlockSpec(NamedTuple):
         return _round_up(self.query_block, _LANE)
 
     def validate(self) -> None:
-        """The JAX spec checks of the cubic layouts (the window and wrap
-        alignments also fix the S lane offsets, so they stay)."""
+        """The JAX spec checks (the window and wrap alignments also fix the
+        S lane offsets, so they stay)."""
         g, cc, qb, w, ec = (self.grid_size, self.col_capacity,
                             self.query_block, self.window, self.wrap_cap)
-        if self.grid_x or not self.periodic_x:
-            raise NotImplementedError(
-                "only the cubic periodic cell-block layouts are ported (grid_x and "
-                "halo slabs are ROADMAP queue 1 item 5)"
-            )
         if g < 3:
             raise ValueError(f"grid_size {g} must be >= 3")
+        if self.gx < 3:
+            raise ValueError(f"grid_x {self.gx} must be >= 3")
+        if not self.periodic_x and self.grid_x == 0:
+            raise ValueError("periodic_x=False requires an explicit grid_x")
         if self.variable:
             if self.slot_budget % qb:
                 raise ValueError(f"slot_budget {self.slot_budget} not a multiple of "
                                  f"query_block {qb}")
+            if self.grid_x or not self.periodic_x:
+                raise ValueError("variable capacities are cubic-periodic only (halo slabs use "
+                                 "the uniform layout)")
             if w % 16:
                 raise ValueError(f"window {w} must be a 16-multiple in variable mode (the "
                                  "padded-image clamp must stay 16-aligned)")
@@ -219,14 +233,17 @@ def choose_cellblock_spec(
         g = max(3, int(round((num_particles / 24.0) ** (1.0 / 3.0))))
     mean_col = num_particles / g**2
     mean_cell = num_particles / g**3
-    return _plan_spec(g, mean_col, mean_cell, h_block, query_block, variable)
+    return _plan_spec(g, mean_col, mean_cell, h_block, query_block, variable=variable)
 
 
-def _plan_spec(g, mean_col, mean_cell, h_block, query_block, variable=False):
-    """CC covers the per-column Poisson tail, W a QB tile's z-extent plus one
-    cell each side with a 5-sigma margin; QB minimizes the TPU kernel's
-    per-step traffic (S table plus re-streamed windows)."""
-    num_columns = g * g
+def _plan_spec(g, mean_col, mean_cell, h_block, query_block, num_columns=None, grid_x=0,
+               periodic_x=True, variable=False):
+    """Capacity planning of the cubic and the halo-slab choosers: CC covers
+    the per-column Poisson tail, W a QB tile's z-extent plus one cell each
+    side with a 5-sigma margin; QB minimizes the TPU kernel's per-step
+    traffic (S table plus re-streamed windows)."""
+    if num_columns is None:
+        num_columns = g * g
     wrap = _round_up(mean_cell + 6.0 * math.sqrt(mean_cell) + 4.0, 16)
 
     def plan(qb):
@@ -263,8 +280,34 @@ def _plan_spec(g, mean_col, mean_cell, h_block, query_block, variable=False):
                 best = (score, qb_c, cc_c, w_c)
         _, qb, cc, w = best
     return CellBlockSpec(grid_size=g, col_capacity=cc, query_block=qb, window=w,
-                         wrap_cap=wrap, h_block=h_block,
+                         wrap_cap=wrap, h_block=h_block, grid_x=grid_x, periodic_x=periodic_x,
                          slot_budget=budget(qb) if variable else 0)
+
+
+def choose_cellblock_spec_halo(
+    num_particles: int,
+    grid_size: int,
+    slab_layers: int,
+    halo_layers: int,
+    num_shards: int,
+    *,
+    h_block: int = 256,
+    query_block: Optional[int] = None,
+) -> CellBlockSpec:
+    """The spec of one halo shard's LOCAL plan (the JAX chooser): an open
+    slab of ``slab_layers + 2 * halo_layers`` x-layers over the full
+    periodic ``grid_size x grid_size`` (y, z) cross-section, with the halo
+    decomposition's cell edge (``parallel.halo.choose_halo_config``).
+    ``num_particles`` is the GLOBAL count; capacities assume about uniform
+    occupancy (clustered data trips the plan's overflow and dropped-edge
+    counts). ``num_shards`` is the JAX signature's; the slab's width fixes
+    the plan."""
+    g = grid_size
+    gxl = slab_layers + 2 * halo_layers
+    mean_cell = num_particles / g**3
+    mean_col = mean_cell * g  # one (x, y) column spans all G z-cells
+    return _plan_spec(g, mean_col, mean_cell, h_block, query_block, num_columns=gxl * g,
+                      grid_x=gxl, periodic_x=False)
 
 
 class CellBlockGraph(NamedTuple):
@@ -368,11 +411,40 @@ class CellBlockLayout(NamedTuple):
     main_pos: torch.Tensor
 
 
-def cellblock_layout(positions: torch.Tensor, box_size, spec: CellBlockSpec) -> CellBlockLayout:
+def _box(box_size, dev) -> torch.Tensor:
+    """The box as float32 on ``dev``: a scalar edge, or a per-dimension
+    ``[3]`` extent (a tensor, array or sequence)."""
+    if isinstance(box_size, torch.Tensor):
+        return box_size.to(device=dev, dtype=torch.float32)
+    if isinstance(box_size, (int, float)) or np.ndim(box_size) == 0:
+        return f32(float(box_size), dev)
+    return torch.as_tensor(np.asarray(box_size, dtype=np.float32), device=dev)
+
+
+def _grid_coords(positions: torch.Tensor, box_size, spec: CellBlockSpec) -> torch.Tensor:
+    """``[N, 3]`` int64 cell coordinates on the spec's ``[gx, G, G]`` grid:
+    ``clip(floor(p * (dims / box)))`` per dimension, the box a scalar or a
+    per-dimension ``[3]`` extent (on the cubic grid with a scalar box, the
+    ``cell_coords`` of every other search)."""
+    g, dev = spec.grid_size, positions.device
+    dims = torch.full((3,), float(g), device=dev)
+    if spec.gx != g:
+        dims[0] = float(spec.gx)
+    scaled = torch.floor(positions.float() * (dims / _box(box_size, dev))).long()
+    return torch.stack([torch.clamp(scaled[:, 0], 0, spec.gx - 1),
+                        torch.clamp(scaled[:, 1], 0, g - 1),
+                        torch.clamp(scaled[:, 2], 0, g - 1)], dim=1)
+
+
+def cellblock_layout(positions: torch.Tensor, box_size, spec: CellBlockSpec,
+                     valid: Optional[torch.Tensor] = None) -> CellBlockLayout:
     """Bin wrapped ``[N, 3]`` positions into the spec's columns: the sort
     order, slot maps, z-wrap image map, window placement and the overflow
     counts (the JAX ``build_cellblock`` up to its S build), in the uniform
-    or the variable layout."""
+    or the variable layout, on the cubic grid or a halo slab (``box_size``
+    then a per-dimension ``[3]`` extent, positions in the slab's local
+    frame). Rows where ``valid`` is False bin past every real cell: no slot,
+    no window row, no overflow."""
     spec.validate()
     g = spec.grid_size
     cc, qb, w_cap, wrap = (spec.col_capacity, spec.query_block, spec.window,
@@ -383,19 +455,23 @@ def cellblock_layout(positions: torch.Tensor, box_size, spec: CellBlockSpec) -> 
     n = positions.shape[0]
     dev = positions.device
 
-    coords = cell_coords(positions.float(), g, f32(box_size, dev))
+    coords = _grid_coords(positions, box_size, spec)
     cell_id = (coords[:, 0] * g + coords[:, 1]) * g + coords[:, 2]
+    if valid is not None:
+        cell_id = torch.where(valid.to(dev), cell_id, num_cells)
     sorted_cell, order = torch.sort(cell_id, stable=True)
     sorted_col = sorted_cell // g
     sorted_cz = sorted_cell % g
 
-    # Per-cell / per-column boundaries of the sorted stream.
+    # Per-cell / per-column boundaries of the sorted stream (invalid rows
+    # trail the last cell: gstart[num_cells] is the valid count).
     gstart = bucket_boundaries(sorted_cell, num_cells)  # [cells + 1]
     col_start = gstart[::g]  # [cols + 1]
     counts = (gstart[1:] - gstart[:-1]).reshape(num_cols, g)
     col_cnt = col_start[1:] - col_start[:-1]
 
     # Compact per-column rank (z-ordered) and the slot maps.
+    real_row = sorted_col < num_cols  # False only for invalid rows
     r = torch.arange(n, device=dev) - col_start[sorted_col]
     slot_ids = torch.arange(num_slots, device=dev)
     if spec.variable:
@@ -407,8 +483,9 @@ def cellblock_layout(positions: torch.Tensor, box_size, spec: CellBlockSpec) -> 
                              max=num_slots)
         cap_col = prefix[1:] - prefix[:-1]
         m = torch.minimum(used_raw, cap_col)  # used main rows
-        q_ok = r < cap_col[sorted_col]
-        slot_of_sorted = torch.where(q_ok, prefix[sorted_col] + r, num_slots)
+        col_clamped = torch.clamp(sorted_col, max=num_cols - 1)
+        q_ok = real_row & (r < cap_col[col_clamped])
+        slot_of_sorted = torch.where(q_ok, prefix[col_clamped] + r, num_slots)
         pack_of_sorted = torch.where(q_ok, sorted_col * cc + r, spec.pack_slots)
         # slot -> column: #{col : prefix[col + 1] <= slot}; reserve slots past
         # the last prefix get num_cols (clamped where a column is read).
@@ -418,13 +495,13 @@ def cellblock_layout(positions: torch.Tensor, box_size, spec: CellBlockSpec) -> 
         in_use = (col_of_slot < num_cols) & (slot_r < m[slot_col])
         particle_of_slot = torch.where(in_use, col_start[:-1][slot_col] + slot_r, n)
     else:
-        q_ok = r < cc
+        q_ok = real_row & (r < cc)
         slot_of_sorted = pack_of_sorted = torch.where(q_ok, sorted_col * cc + r, num_slots)
         slot_col, slot_r = slot_ids // cc, slot_ids % cc
         particle_of_slot = torch.where(slot_r < col_cnt[slot_col],
                                        col_start[:-1][slot_col] + slot_r, n)
         m = torch.clamp(col_cnt, max=cc)  # used main rows
-    overflow = (~q_ok).sum()
+    overflow = (real_row & ~q_ok).sum()
 
     # Per-column z-wrap layout [cP | main | cA], tightly packed.
     c_pre = torch.clamp(counts[:, g - 1], max=wrap)
@@ -491,10 +568,13 @@ def cellblock_layout(positions: torch.Tensor, box_size, spec: CellBlockSpec) -> 
     z_lo = torch.where(has_rows, sorted_cz[torch.clamp(base + a_row, 0, n - 1)], 0)
     z_hi = torch.where(has_rows, sorted_cz[torch.clamp(base + b_row, 0, n - 1)], 0)
 
-    # The 3x3 ring columns of each tile and their window placement.
+    # The 3x3 ring columns of each tile and their window placement; x open
+    # on halo slabs (the edge clamps name no real edge: queries sit at least
+    # one x-layer inside).
     dxy = torch.arange(9, device=dev)
-    col_j = (((tile_col // g)[:, None] + dxy // 3 - 1) % g) * g \
-        + ((tile_col % g)[:, None] + dxy % 3 - 1) % g  # [T, 9]
+    colx_j = (tile_col // g)[:, None] + dxy // 3 - 1
+    colx_j = colx_j % spec.gx if spec.periodic_x else torch.clamp(colx_j, 0, spec.gx - 1)
+    col_j = colx_j * g + ((tile_col % g)[:, None] + dxy % 3 - 1) % g  # [T, 9]
     cp_j, m_j, ca_j, cg1_j = c_pre[col_j], m[col_j], c_app[col_j], cstart_g1[col_j]
     start_lo = cstart_ext[col_j, torch.clamp(z_lo - 1, 0, g)[:, None]]
     w_loc = torch.where(z_lo[:, None] >= 1, cp_j + start_lo, 0)
@@ -749,8 +829,10 @@ def aux_offsets(senders: torch.Tensor, layout: CellBlockLayout, spec: CellBlockS
     sender in the query column's 3x3 ring lands at the window lane of its
     main image, else of its pre z-wrap image, else of its appended one, in
     that order of priority; a real sender no image places is a dropped
-    edge; no edge, or an empty query slot, is the inert lane ``9W``."""
+    edge; no edge, or an empty query slot, is the inert lane ``9W``. On a
+    halo slab the ring's x index is the plain difference of the x-layers."""
     g, cc, qb, w_cap = spec.grid_size, spec.col_capacity, spec.query_block, spec.window
+    gx = spec.gx
     dev = senders.device
     slots = torch.arange(spec.num_slots, device=dev)
     col_q = layout.slot_col[:, None]
@@ -758,9 +840,11 @@ def aux_offsets(senders: torch.Tensor, layout: CellBlockLayout, spec: CellBlockS
     s_cz = senders % g
     real = s_slot < spec.pack_slots
     col_s, r_s = s_slot // cc, s_slot % cc
-    dx = (col_s // g - col_q // g + 1 + g) % g
+    dx = col_s // g - col_q // g + 1
+    if spec.periodic_x:
+        dx = (dx + gx) % gx
     dy = (col_s % g - col_q % g + 1 + g) % g
-    in3 = (dx < 3) & (dy < 3) & real
+    in3 = (dx >= 0) & (dx < 3) & (dy < 3) & real
     j = torch.where(in3, dx * 3 + dy, 9)
     const = layout.tile_const.long()[slots // qb]  # [S, 45]
     jc = torch.clamp(j, max=8)
@@ -1045,9 +1129,16 @@ def build_cellblock(
       own padded columns; the plan then also carries ``search_excess`` and
       ``search_window_overflow``.
 
-    The cubic layouts, uniform and variable (the dense search takes the
-    uniform one only, as in JAX); validity masks raise
-    ``NotImplementedError``.
+    The cubic layouts, uniform and variable, and the halo slab (the dense
+    search takes the uniform cubic layout only, and the codes route the
+    cubic periodic grid only, as in JAX). ``valid`` ``[N]`` bool: rows
+    marked False (padding rows of a halo shard's candidate set) take no
+    slot, sit in no window and are not counted in ``overflow``; senders
+    named in ``neighbors`` must be valid rows, and entries ``>= N`` name no
+    sender. On a slab (``spec.grid_x``) ``box_size`` may be a per-dimension
+    ``[3]`` extent, positions in the local frame ``[0, box_d)``; with
+    ``periodic_x=False`` every query (a row with real neighbor entries)
+    sits at least one x-layer inside the slab.
 
     ``codes_layout="table"``: ``neighbor_codes`` is K1''s cell-table output
     ``[G^3 * codes_cap, k]`` (``pallas_cell_list_knn(..., codes_layout=
@@ -1060,9 +1151,6 @@ def build_cellblock(
         raise ValueError("neighbor_codes and codes_cap go together")
     if s_build != "kernel":
         raise NotImplementedError(f"s_build={s_build!r} is not ported (only 'kernel')")
-    if valid is not None:
-        raise NotImplementedError("validity masks are not ported yet (ROADMAP queue 1 "
-                                  "item 5)")
     if codes_layout not in ("particle", "table"):
         raise ValueError(f"unknown codes_layout: {codes_layout}")
     if codes_layout == "table":
@@ -1084,6 +1172,8 @@ def build_cellblock(
                              "neighbors=None without codes")
         if spec.variable or spec.grid_x or not spec.periodic_x:
             raise ValueError("dense_search requires the uniform cubic periodic layout")
+        if valid is not None:
+            raise ValueError("dense_search does not support a validity mask")
         if dense_search.window > _round_up(spec.padded_col, _LANE):
             raise ValueError(f"dense window {dense_search.window} exceeds the padded "
                              f"column {_round_up(spec.padded_col, _LANE)}")
@@ -1094,7 +1184,10 @@ def build_cellblock(
         k = (neighbor_codes if neighbor_codes is not None else neighbors).shape[1]
     if k > 127:
         raise ValueError(f"k={k} exceeds 127 — S-table entries are int8 counts")
-    layout = cellblock_layout(positions, box_size, spec)
+    if neighbor_codes is not None and (spec.grid_x or not spec.periodic_x):
+        raise ValueError("the codes path requires the default cubic periodic grid (the "
+                         "k-NN kernel's 27-roll candidate layout is cubic)")
+    layout = cellblock_layout(positions, box_size, spec, valid)
     g, width = spec.grid_size, spec.s_width
     search_excess = search_window_overflow = packs = None
     if dense_search is not None:

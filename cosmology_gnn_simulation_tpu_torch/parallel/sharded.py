@@ -81,10 +81,11 @@ def _pruned(model_config: EncodeProcessDecodeConfig, tc: TrainConfig) -> bool:
     if tc.aggregation not in ("auto", "gather"):
         raise ValueError(f"aggregation={tc.aggregation!r} is single-device only: the cell "
                          "block does not compose with the index-sharded path (the halo path, "
-                         "ROADMAP queue 1 item 5, second half (halo), does)")
+                         "ROADMAP queue 1 item 5b, does)")
     if tc.partition_invariant_noise:
-        raise NotImplementedError("partition_invariant_noise is not ported yet (ROADMAP queue 1 "
-                                  "item 5, second half (halo))")
+        raise ValueError("partition_invariant_noise does not apply to the index-sharded path, "
+                         "which keys its noise per sample and particle coordinate (the JAX "
+                         "sharded step never reads the flag)")
     resolve_fused_tail(tc.fused_tail, model_config, "cpu", None)  # the pruned check
     return model_config.aggregate == "sender_latents" and model_config.prune_dead_edge_stream
 

@@ -43,9 +43,12 @@ eval step with the tail batch padded and masked; rank 0 writes the
 checkpoints, the plots and ``training_history.json``, and every rank
 restores on resume.
 
-Not ported: per-particle noise keying (``partition_invariant_noise``) and
-the halo-sharded trainer (``halo``); each raises ``NotImplementedError``
-(ROADMAP queue 1 item 5, second half).
+``partition_invariant_noise`` keys each sample's noise per particle by its
+global id (``ops.noise``): ``arange(N)``, or the batch's ``gids [B, N]``
+where it carries them (a layout of the particles other than the dataset's,
+as a halo partition gives). Not ported: the halo-sharded trainer
+(``halo``), which raises ``NotImplementedError`` (ROADMAP queue 1 item
+5b-ii).
 """
 
 from __future__ import annotations
@@ -198,22 +201,24 @@ def _resolve(model_config: EncodeProcessDecodeConfig, tc: TrainConfig):
     pruned = model_config.aggregate == "sender_latents" and model_config.prune_dead_edge_stream
     if aggregation.startswith("cellblock") and not pruned:
         raise ValueError("aggregation='cellblock' requires the pruned sender_latents mode")
-    if tc.partition_invariant_noise:
-        raise NotImplementedError("partition_invariant_noise (per-particle noise keying) is "
-                                  "not ported yet (ROADMAP queue 1 item 5, second half (halo))")
     resolve_fused_tail(tc.fused_tail, model_config, "cpu", None)  # the pruned check
     return aggregation, pruned
 
 
 def _sample(params, model_config, stats, tc, aggregation, pruned, dtype, pos, temp, tpos,
-            ttemp, generator, train: bool):
-    """One sample's predictions, targets and (cell-block) plan violations."""
+            ttemp, generator, train: bool, gids=None):
+    """One sample's predictions, targets and (cell-block) plan violations;
+    ``gids`` the particles' global ids (``arange(N)`` when None) under
+    ``partition_invariant_noise``."""
     if train:
         pos, tpos = _augment_axes(generator, pos, tpos, tc.augment_prob)
+    noise_gids = None
+    if train and tc.partition_invariant_noise:
+        noise_gids = gids if gids is not None else torch.arange(pos.shape[1], device=pos.device)
     kw = dict(generator=generator, noise_std=tc.noise_std if train else 0.0,
               num_neighbors=tc.num_neighbors, neighbor_method=tc.neighbor_method,
               neighbor_query_tile=tc.neighbor_query_tile, target_position=tpos,
-              target_temperature=ttemp)
+              target_temperature=ttemp, noise_gids=noise_gids)
     if aggregation == "gather":
         graph = featurize(pos, temp, stats, build_edges=not pruned,
                           build_reverse=train and tc.build_reverse, **kw)
@@ -246,7 +251,7 @@ def _batch_loss(params, batch, model_config, stats, tc, aggregation, pruned, dty
         p, a, r, v = _sample(params, model_config, stats, tc, aggregation, pruned, dtype,
                              batch["positions"][b], batch["temperatures"][b],
                              batch["target_positions"][b], batch["target_temperatures"][b],
-                             generator, train)
+                             generator, train, batch["gids"][b] if "gids" in batch else None)
         preds.append(p)
         acc.append(a)
         rate.append(r)
@@ -266,8 +271,8 @@ def _prepare(params, batch, model_config, tc, dtype):
     """The batch as float32 tensors on the parameters' device, and the model
     config with the fused tail resolved for that device."""
     device = tree_leaves(params)[0].device
-    batch = {key: torch.as_tensor(value, dtype=torch.float32).to(device)
-             for key, value in batch.items()}
+    batch = {key: torch.as_tensor(value, dtype=torch.int64 if key == "gids" else torch.float32)
+             .to(device) for key, value in batch.items()}
     return batch, model_config._replace(
         fused_tail=resolve_fused_tail(tc.fused_tail, model_config, device, dtype))
 
@@ -281,8 +286,11 @@ def make_train_step(
     """Build the train step ``(params, opt_state, batch, generator) ->
     (params, opt_state, metrics)``. ``batch`` holds ``positions [B, T, N,
     3]``, ``temperatures [B, T, N, 1]``, ``target_positions [B, N, 3]`` and
-    ``target_temperatures [B, N, 1]`` (arrays or tensors); ``generator``
-    draws the augmentation and the noise (on its own device). ``params``
+    ``target_temperatures [B, N, 1]`` (arrays or tensors), and optionally
+    ``gids [B, N]``, the particles' global ids that
+    ``partition_invariant_noise`` keys the noise by (``arange(N)`` without
+    them); ``generator`` draws the augmentation and the noise (on its own
+    device). ``params``
     (on the device the step runs on) and ``opt_state``
     (``optimizer.init(params)``) are updated in place and returned.
     ``metrics`` holds 0-d tensors: ``loss``, ``acceleration``,
@@ -360,7 +368,8 @@ class Trainer:
     ``mesh.device``, which replaces ``device``; ``batch_size`` must divide by
     the data-axis size; each step's randomness is keyed by the seed and the
     global step (``parallel/sharded.py``). ``halo`` (the halo-sharded
-    trainer) is not ported (ROADMAP queue 1 item 5, second half) and raises.
+    trainer) is not ported (ROADMAP queue 1 items 5b-ii and 5b-iii) and
+    raises.
     """
 
     def __init__(
@@ -376,7 +385,8 @@ class Trainer:
     ):
         if halo is not None:
             raise NotImplementedError("Trainer(halo=...) is not ported yet (ROADMAP queue 1 "
-                                      "item 5, second half (halo))")
+                                      "item 5b-ii, the halo exchange and steps; item 5b-iii, "
+                                      "the entry points)")
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.model_config = model_config

@@ -254,9 +254,13 @@ def test_unported_plan_options_raise():
     from_ids = cellblock.build_cellblock(tpos, knn_periodic(tpos, K, 1.0), 1.0, tspec)
     assert torch.equal(from_ids.s_table, cellblock.build_cellblock(tpos, None, 1.0, tspec,
                                                                    **ok).s_table)
-    for kw in (dict(s_build="contract"), dict(valid=torch.ones(len(pos), dtype=bool))):
-        with pytest.raises(NotImplementedError):
-            cellblock.build_cellblock(tpos, None, 1.0, tspec, **ok, **kw)
+    with pytest.raises(NotImplementedError):
+        cellblock.build_cellblock(tpos, None, 1.0, tspec, **ok, s_build="contract")
+    # Validity masks are ported, on the codes path too (as JAX accepts
+    # them there): an all-true mask builds the same S.
+    masked = cellblock.build_cellblock(tpos, None, 1.0, tspec, **ok,
+                                       valid=torch.ones(len(pos), dtype=bool))
+    assert torch.equal(masked.s_table, from_ids.s_table)
     # The table codes layout is ported: K1''s cell-table codes give the same S.
     _, table_codes, table_spill = pallas_cell_list_knn(
         tpos, K, 1.0, CellGrid(*grid), codes_only=True, codes_layout="table")
@@ -269,13 +273,13 @@ def test_unported_plan_options_raise():
         cellblock.build_cellblock(tpos, None, 1.0, tspec, **ok,
                                   dense_search=cellblock.DenseSearchSpec(), num_neighbors=K)
     # Variable capacities are ported: a budget of 1,024 slot rows holds the
-    # same edges; non-cubic grids are refused.
+    # same edges; the codes path refuses non-cubic grids, as in JAX.
     variable = cellblock.build_cellblock(tpos, None, 1.0, tspec._replace(slot_budget=1024),
                                          **ok)
     assert variable.s_table.shape == (1024, tspec.s_width)
     assert int(variable.overflow) == 0 and int(variable.dropped_edges) == 0
     assert int(variable.s_table.sum(dtype=torch.int64)) == int(
         from_ids.s_table.sum(dtype=torch.int64))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="cubic periodic grid"):
         cellblock.build_cellblock(tpos, None, 1.0, tspec._replace(grid_x=5), **ok)
     assert cellblock.choose_cellblock_spec(4096, 16, variable=True).variable

@@ -1128,3 +1128,58 @@ def test_sorted_state_rollout_on_the_card_is_bit_equal(cuda_device, reneighbor_e
             for state in ("on", "off")}
     for key in runs["off"]:
         assert torch.equal(runs["on"][key], runs["off"][key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [0, 1, 2, 3])
+def test_slab_plan_kernels_match_plain_versions(cuda_device, shard):
+    """One halo shard's open-slab plan (N = 4,096, k = 4, 4 shards: the
+    candidate set built on the host, a validity mask, a per-dimension box,
+    the ring clamped in x) with its reverse table: K3 and K7 equal to their
+    plain versions (S, S_rev, totals), the plan's S and S_rev equal to them
+    and its certificate counts 0; K4 and K4^T within K4's tolerances."""
+    from cosmology_gnn_simulation_tpu_torch.ops.cell_list import cell_list_knn
+    from cosmology_gnn_simulation_tpu_torch.parallel import halo
+
+    n, k, p = 4096, 4, 4
+    rng = np.random.default_rng(31)
+    pos = rng.uniform(0, 1, (5, n, 3)).astype(np.float32)
+    hc = halo.choose_halo_config(n, k, p)
+    spec = cellblock.choose_cellblock_spec_halo(n, hc.grid_size, hc.slab_layers,
+                                                hc.halo_layers, p)
+    part = halo.partition_windows(pos, np.ones((5, n, 1), np.float32), hc, 1.0)
+    cand, valid, _ = halo.shard_candidates(part["positions"][-1], part["valid"], hc, 1.0, shard)
+    local, box_local = halo.slab_frame(cand, hc, spec.gx, 1.0, shard)
+    cand_t, valid_t = torch.from_numpy(cand).to(cuda_device), torch.from_numpy(valid).to(cuda_device)
+    local_t = torch.from_numpy(local).to(cuda_device)
+    box_t = torch.from_numpy(box_local).to(cuda_device)
+    cap, m = hc.local_capacity, cand.shape[0]
+    idx = cell_list_knn(cand_t, k, 1.0, CellGrid(hc.grid_size, hc.cell_capacity),
+                        queries=cand_t[:cap], valid=valid_t)
+    nbr = torch.cat([idx, torch.full((m - cap, k), m, dtype=idx.dtype, device=cuda_device)])
+    layout = cellblock.cellblock_layout(local_t, box_t, spec, valid_t)
+    senders = cellblock.aux_slot_senders(layout, nbr, spec)
+    offsets, _ = cellblock.aux_offsets(senders, layout, spec)
+    packs = (senders // spec.grid_size).to(torch.int32)
+    kernels.reset_launches()
+    s_table, s_total = cellblock.s_onehot(offsets, width=spec.s_width, with_total=True)
+    s_rev, rev_total = cellblock.reverse_table(packs, layout, spec)
+    torch.cuda.synchronize()
+    assert kernels.launches["s_onehot"] == kernels.launches["reverse_table"] == 1
+    ref_s = cellblock.s_onehot_reference(offsets, width=spec.s_width)
+    ref_rev = cellblock.reverse_table_reference(
+        cellblock.reverse_candidates(packs, layout, spec), layout.window_starts,
+        layout.tile_pack_base, layout.window_lims, spec=spec)
+    assert torch.equal(s_table, ref_s) and torch.equal(s_rev, ref_rev)
+    assert int(s_total) == int(rev_total) == int(ref_s.sum(dtype=torch.int64)) > 0
+    plan = cellblock.build_cellblock(local_t, nbr, box_t, spec, with_reverse=True, valid=valid_t)
+    assert torch.equal(plan.s_table, ref_s) and torch.equal(plan.s_rev_table, ref_rev)
+    assert int(plan.overflow) == int(plan.dropped_edges) == int(plan.reverse_mismatch) == 0
+    z_pad = torch.randn(spec.num_padded, 128, generator=torch.Generator().manual_seed(shard))
+    z_pad = z_pad.bfloat16().to(cuda_device)
+    _assert_window_close(cellblock.window_matmul(s_table, z_pad, layout.window_starts, spec=spec),
+                         cellblock.window_matmul_reference(s_table, z_pad, layout.window_starts,
+                                                           spec=spec))
+    _assert_window_close(
+        cellblock.window_matmul_t(s_rev, z_pad, layout.window_starts, spec=spec),
+        cellblock.window_matmul_t_reference(s_rev, z_pad, layout.window_starts, spec=spec))

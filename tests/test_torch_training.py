@@ -302,11 +302,11 @@ def test_train_step_options_that_are_refused():
     _, tcfg, _ = _models()
     stats = NormalizationStats.from_metadata(METADATA, device="cpu")
     opt = Optimizer(lambda leaves: torch.optim.SGD(leaves, lr=1.0))
-    # The slot-space carry and variable capacities are ported: accepted.
-    for tc in (TrainConfig(aggregation="cellblock"), TrainConfig(cellblock_variable=True)):
+    # The slot-space carry, variable capacities and the per-particle noise
+    # keying are ported: accepted.
+    for tc in (TrainConfig(aggregation="cellblock"), TrainConfig(cellblock_variable=True),
+               TrainConfig(partition_invariant_noise=True)):
         assert callable(make_train_step(tcfg, stats, tc, opt))
-    with pytest.raises(NotImplementedError):
-        make_train_step(tcfg, stats, TrainConfig(partition_invariant_noise=True), opt)
     with pytest.raises(ValueError):
         make_train_step(tcfg, stats, TrainConfig(aggregation="nope"), opt)
     with pytest.raises(ValueError, match="pruned"):
