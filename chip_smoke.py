@@ -17,7 +17,8 @@ the evaluation entry points (``validate_one_step``, ``render_rollout``'s
 body); the config-4 path; then the table codes layout of the plan build and
 the index-sharded train step, rollout and Trainer on a one-rank NCCL mesh;
 then one halo shard's open-slab plan at config 5 and the hybrid train step
-with its noise keyed per particle.
+with its noise keyed per particle; then the halo paths, run by 2, 4 and 8
+ranks that share the card over a gloo group.
 Before that it builds every CUDA kernel from ``csrc/`` and holds each
 against its plain PyTorch version at the shapes the paths give it. Phases,
 each timed on its own line:
@@ -215,6 +216,45 @@ each timed on its own line:
      same loss and gradients within the N = 8,192 check's tolerances; the
      keying's hash bits on the card equal the CPU's and its normals within
      GID_NORMAL_ULPS;
+ 17. the halo paths: 4 ranks for 17a and 17b, then C5_SHARDS for 17c,
+     spawned by parallel.local_ranks (torch.multiprocessing, a file store;
+     the kernels built before the spawn, so no rank runs nvcc), every rank
+     on cuda:0 over an explicitly requested gloo group (printed), the
+     exchanges staged through pinned host buffers; 17a at P = 2 runs on
+     the first 2 ranks while the others wait; a rank that raises, dies or
+     times out (60 s a collective) fails the phase;
+ 17a. P = 2 (both ring neighbours one rank) and 4, the flagship window and
+     the default model: 4 steps of the halo gather rollout (float32) within
+     HALO_GATHER_TOL of the single-device gather rollout and of the halo x
+     cell-block hybrid rollout (bf16, fused tail) within HALO_HYBRID_TOL of
+     the single-device hybrid rollout; the certificate true every step,
+     migration overflow and stranded 0, the particle count conserved, some
+     of rank 0's particles moved to another slab; exact launches (gather:
+     none; hybrid: K3 once, K4 and K5 ten times a step) and collectives
+     (24 permutes and one gather a step) on every rank; host-staged bytes
+     and ms a step per rank;
+ 17b. P = 4, the flagship training row (bf16, noise keyed per particle, no
+     augmentation: the halo step augments on the host): the halo x
+     cell-block train step with reverse plans, one SGD step (lr 1) with its
+     loss and gradients within the N = 8,192 check's tolerances of the
+     single-device hybrid step's and equal on every rank; exact launches
+     (K3, K7 once, K4, K4^T, K5, K6 ten times) and collectives (42 permutes,
+     3 all-reduces); ms of a second step and peak memory per rank; the halo
+     eval step's per-sample metrics against the single-device eval step's;
+ 17c. config 5 (C5_N over C5_SHARDS ranks, k = 16, phase 16a's halo
+     geometry, the slab spec at query block C5_HALO_QB; the data made and
+     partitioned once in the parent while the ranks start): every rank's
+     featurize_halo plan of the first frame (with its reverse table) with no
+     overflow or dropped edge and its exchanged candidates bit-equal to the
+     host mirror; S and S_rev of rank 0's plan bit-equal to K3's and K7's
+     plain versions, K4 and K4^T on it within phase 16a's tolerances; 2 halo
+     x cell-block rollout steps (bf16, fused tail: every certificate
+     component 0 every step, so the certificate holds; outputs finite,
+     count conserved); one train step (the training row, remat_chunk 5,
+     loss finite); the parent's memory on the card before the spawn; per
+     rank ms a rollout and train step (the rollout's featurize_halo and
+     model spans per step, CUDA events), permutes and host-staged bytes,
+     the permutes' device span and peak memory;
  12. one JSON line of every ported kernel: launches on its path, time, bound,
      plain version's time, library yardstick's time.
 
@@ -229,6 +269,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import datetime
 import io
 import json
 import os
@@ -317,6 +358,26 @@ C5_N, C5_K, C5_SHARDS, C5_CHECK_SHARDS, C5_H = 2_000_000, 16, 8, (0, 3), 128
 # The gid-keyed noise's normals on the card against the CPU's: Box-Muller
 # through log, sqrt and cos, each within 1-2 ulps on either side.
 GID_NORMAL_ULPS = 16
+# Phase 17, the halo paths: P ranks share the card over a gloo group. 17a's
+# rollouts (4 steps at N, both rings) against the single-device rollouts:
+# gather in float32 within the JAX halo test's 2e-5 (the neighbor sets are
+# equal, their order and so the sums' differ), the hybrid in bf16 within the
+# flagship's 2e-4. A hung collective raises after HALO_TIMEOUT_S; a phase
+# whose ranks have not all answered by HALO_RANK_TIMEOUT_S fails.
+HALO_SHARDS, HALO_STEPS = (2, 4), 4
+HALO_GATHER_TOL, HALO_HYBRID_TOL = 2e-5, 2e-4
+HALO_TIMEOUT_S, HALO_RANK_TIMEOUT_S = 60, 300
+# 17c: config 5 over C5_SHARDS ranks (phase 16a's halo geometry: grid 56,
+# one halo layer; two for the noised train step), 2 rollout steps and one
+# train step, its model checkpointed in chunks of 5 steps (config 4's). The
+# slab plans take the chooser's spec at query block C5_HALO_QB (its
+# query_block argument): window 256 then spans a tile's mean need (QB plus
+# three mean cells, 162 rows) with 94 rows to spare, about 6 sigma after
+# the 16-row floor of the window starts. The chooser's own pick (QB 256, W
+# 384, phase 16a's) spares the same 94 rows over a need of 290, about 4.6
+# sigma, across the 8 shards' 108,864 windows, and dropped an edge on this
+# seeded first frame. Every certificate component is held to 0.
+C5_HALO_STEPS, C5_REMAT_CHUNK, C5_HALO_QB = 2, 5, 128
 
 METADATA = {
     "temp_mean": 1.0, "temp_std": 0.3, "temp_rate_mean": 0.0,
@@ -500,6 +561,52 @@ def mostly_close(a, b, rel, mean_rel):
     off = int((err > rel * float(b.abs().max())).sum())
     ok = off <= 1e-5 * b.numel() and float(err.mean()) <= mean_rel * float(b.abs().mean())
     return ok, float(err.max())
+
+
+def slab_kernel_checks(local_t, box_t, valid_t, nbr, spec, gen, label, plan=None):
+    """K3, K7, K4 and K4^T against their plain versions on one halo slab
+    plan's inputs (the candidates in the local frame, the per-dimension
+    box, the validity mask, the neighbor lists with the halo rows'
+    sentinels): S, S_rev and their counts bit-equal (and equal to
+    ``plan``'s tables where given), K4 and K4^T within phase 4's tolerances
+    at width C5_H. Returns the plan's inputs and the kernels' tables."""
+    from cosmology_gnn_simulation_tpu_torch.ops import cellblock
+
+    dev, width = local_t.device, spec.s_width
+    layout = cellblock.cellblock_layout(local_t, box_t, spec, valid_t)
+    senders = cellblock.aux_slot_senders(layout, nbr, spec)
+    offsets, _ = cellblock.aux_offsets(senders, layout, spec)
+    packs = (senders // spec.grid_size).to(torch.int32)
+    del senders
+    s_table, s_total = cellblock.s_onehot(offsets, width=width, with_total=True)
+    ref_s = cellblock.s_onehot_reference(offsets, width=width)
+    if not (torch.equal(s_table, ref_s) and (plan is None or torch.equal(plan.s_table, ref_s))
+            and int(s_total) == int(ref_s.sum(dtype=torch.int64))):
+        fail(f"K3 {label}: S or its count differs from the plain version")
+    del ref_s
+    s_rev, rev_total = cellblock.reverse_table(packs, layout, spec)
+    ref_rev = cellblock.reverse_table_reference(
+        cellblock.reverse_candidates(packs, layout, spec), layout.window_starts,
+        layout.tile_pack_base, layout.window_lims, spec=spec)
+    if not (torch.equal(s_rev, ref_rev)
+            and (plan is None or torch.equal(plan.s_rev_table, ref_rev))
+            and int(rev_total) == int(ref_rev.sum(dtype=torch.int64)) == int(s_total)):
+        fail(f"K7 {label}: S_rev or its total ({int(rev_total)}) differs from the plain "
+             f"version's or from S's count ({int(s_total)})")
+    del ref_rev
+    z_pad = torch.randn(spec.num_padded, C5_H, generator=gen).bfloat16().to(dev)
+    errs = {}
+    for name, fn, ref_fn, table in (
+            ("K4", cellblock.window_matmul, cellblock.window_matmul_reference, s_table),
+            ("K4^T", cellblock.window_matmul_t, cellblock.window_matmul_t_reference, s_rev)):
+        out = fn(table, z_pad, layout.window_starts, spec=spec)
+        err = (out - ref_fn(table, z_pad, layout.window_starts, spec=spec)).abs()
+        errs[name] = float(err.max())
+        if not (errs[name] <= K4_MAX_ABS_TOL and float(err.mean()) <= K4_MEAN_ABS_TOL):
+            fail(f"{name} {label}: max abs err {errs[name]}, mean {float(err.mean())}")
+        del out, err
+    return dict(layout=layout, offsets=offsets, packs=packs, s_table=s_table, s_total=s_total,
+                s_rev=s_rev, z_pad=z_pad, errs=errs)
 
 
 def config4_phases(args, dev, report, path_launches, zero):
@@ -1118,7 +1225,8 @@ def sharded_phase(args, dev, report, path_launches, zero):
                 sharded_, opt.init(sharded_), local, 0)
             torch.cuda.synchronize()
             per_step = {"knn_select": 1, "fused_tail": mp, "fused_tail_bwd": mp}
-            per_collectives = {"all_gather": 1 + mp, "all_reduce": mp + 4, "broadcast": 0}
+            per_collectives = {"all_gather": 1 + mp, "all_reduce": mp + 4, "broadcast": 0,
+                               "ppermute": 0}
             if dict(kernels.launches) != {**zero, **per_step}:
                 fail(f"sharded train step: launches {dict(kernels.launches)}")
             if dict(coll.collectives) != per_collectives:
@@ -1197,7 +1305,7 @@ def sharded_phase(args, dev, report, path_launches, zero):
             launches = dict(kernels.launches)
             expected = {"knn_select": STEPS, "fused_tail": mp * STEPS}
             rollout_collectives = {"all_gather": STEPS * (1 + mp), "all_reduce": 0,
-                                   "broadcast": 0}
+                                   "broadcast": 0, "ppermute": 0}
             if launches != {**zero, **expected} or dict(coll.collectives) != rollout_collectives:
                 fail(f"sharded rollout: launches {launches}, collectives "
                      f"{dict(coll.collectives)}")
@@ -1346,37 +1454,11 @@ def halo_phase(args, dev, report, path_launches, zero, cfg, stats, train_ms):
         path_launches[f"slab plan shard {shard}"] = launches
 
         # Each kernel against its plain version on this plan's inputs.
-        layout = cellblock.cellblock_layout(local_t, box_t, spec, valid_t)
-        senders = cellblock.aux_slot_senders(layout, nbr, spec)
-        offsets, dropped = cellblock.aux_offsets(senders, layout, spec)
-        packs = (senders // g).to(torch.int32)
-        s_table, s_total = cellblock.s_onehot(offsets, width=width, with_total=True)
-        ref_s = cellblock.s_onehot_reference(offsets, width=width)
-        if not (torch.equal(s_table, ref_s) and torch.equal(plan.s_table, ref_s)
-                and int(s_total) == int(ref_s.sum(dtype=torch.int64))):
-            fail(f"K3 slab shard {shard}: S or its count differs from the plain version")
-        del ref_s
-        s_rev, rev_total = cellblock.reverse_table(packs, layout, spec)
-        ref_rev = cellblock.reverse_table_reference(
-            cellblock.reverse_candidates(packs, layout, spec), layout.window_starts,
-            layout.tile_pack_base, layout.window_lims, spec=spec)
-        if not (torch.equal(s_rev, ref_rev) and torch.equal(plan.s_rev_table, ref_rev)
-                and int(rev_total) == int(ref_rev.sum(dtype=torch.int64)) == int(s_total)):
-            fail(f"K7 slab shard {shard}: S_rev or its total ({int(rev_total)}) differs from the "
-                 f"plain version's or from S's count ({int(s_total)})")
-        del ref_rev
-        z_pad = torch.randn(spec.num_padded, C5_H, generator=gen).bfloat16().to(dev)
-        errs = {}
-        for name, fn, ref_fn, table in (
-                ("K4", cellblock.window_matmul, cellblock.window_matmul_reference, s_table),
-                ("K4^T", cellblock.window_matmul_t, cellblock.window_matmul_t_reference, s_rev)):
-            out = fn(table, z_pad, layout.window_starts, spec=spec)
-            err = (out - ref_fn(table, z_pad, layout.window_starts, spec=spec)).abs()
-            errs[name] = float(err.max())
-            if not (errs[name] <= K4_MAX_ABS_TOL and float(err.mean()) <= K4_MEAN_ABS_TOL):
-                fail(f"{name} slab shard {shard}: max abs err {errs[name]}, mean "
-                     f"{float(err.mean())}")
-            del out, err
+        checked = slab_kernel_checks(local_t, box_t, valid_t, nbr, spec, gen,
+                                     f"slab shard {shard}", plan)
+        layout, offsets, packs = checked["layout"], checked["offsets"], checked["packs"]
+        s_table, s_rev, z_pad = checked["s_table"], checked["s_rev"], checked["z_pad"]
+        s_total, errs = checked["s_total"], checked["errs"]
         print(f"slab shard {shard}: {int(cand_valid.sum())} valid of {m} candidate rows "
               f"({int(cand_valid[:cap].sum())} owned), masked cell list overflow 0, max excess "
               f"over the owned queries {excess:.4g} (<= 0 certifies); plan overflow, dropped "
@@ -1438,8 +1520,8 @@ def halo_phase(args, dev, report, path_launches, zero, cfg, stats, train_ms):
             print(f"slab plan build (shard {shard}: layout, aux offsets, K3, sender packs, K7): "
                   f"{build_ms:.4f} ms by events, peak {build_peak:.3f} GiB above the "
                   f"{base / 2**30:.3f} GiB held before it")
-        del cand_t, valid_t, local_t, own_t, idx, nbr, z, layout, senders, offsets, packs
-        del s_table, s_rev, z_pad
+        del cand_t, valid_t, local_t, own_t, idx, nbr, z, layout, offsets, packs
+        del s_table, s_rev, z_pad, checked
         torch.cuda.empty_cache()
     del part, recent, valid
     print(f"phase 16a config-5 slab plan: {time.perf_counter() - t0:.1f} s")
@@ -1541,6 +1623,647 @@ def halo_phase(args, dev, report, path_launches, zero, cfg, stats, train_ms):
           f"at most {ulps} ulps apart (tol {GID_NORMAL_ULPS})")
     print(f"phase 16b gid-keyed train step: {time.perf_counter() - t0:.1f} s")
     return slab, gid_ms
+
+
+# ---- 17. the halo paths, P ranks on the card ------------------------------
+# The rank side: module-level functions, so the spawned ranks import them.
+
+
+def _halo_setup(seed, dev, **model):
+    """The default model's config (``model`` overrides), the flagship stats
+    and the seeded weights every rank and the parent share."""
+    from cosmology_gnn_simulation_tpu_torch.models.encode_process_decode import (
+        default_model_config,
+        init_encode_process_decode,
+    )
+    from cosmology_gnn_simulation_tpu_torch.types import NormalizationStats
+
+    cfg = default_model_config(**model)
+    stats = NormalizationStats.from_metadata(METADATA, device=dev)
+    params = init_encode_process_decode(cfg, torch.Generator().manual_seed(seed), device=dev)
+    return cfg, stats, params
+
+
+def _counts():
+    """This rank's kernel launches, collectives and staged bytes."""
+    from cosmology_gnn_simulation_tpu_torch import kernels
+    from cosmology_gnn_simulation_tpu_torch.parallel import collectives as coll
+
+    return (dict(kernels.launches), dict(coll.collectives),
+            coll.collectives_bytes["host_staged"])
+
+
+def _reset_counts():
+    from cosmology_gnn_simulation_tpu_torch import kernels
+    from cosmology_gnn_simulation_tpu_torch.parallel import collectives as coll
+
+    kernels.reset_launches()
+    coll.reset_collectives()
+
+
+def _timed(module, name):
+    """Wrap ``module.name`` in CUDA events (around the ring permute: the
+    exchange's device span, the copy down, the host exchange and the copy
+    up); returns the list the (start, end) pairs go to."""
+    spans, fn = [], getattr(module, name)
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    setattr(module, name, timed)
+    return spans
+
+
+def _span_ms(spans) -> list:
+    """Each span's ms, in call order; clears the list."""
+    torch.cuda.synchronize()
+    out = [start.elapsed_time(end) for start, end in spans]
+    spans.clear()
+    return out
+
+
+def halo_rollout_task(mesh, seed, t_spawn):
+    """17a, one rank: the halo gather rollout (float32) and the halo x
+    cell-block hybrid rollout (bf16, fused tail) of the flagship window,
+    each after a 1-step warm-up, with its counts and ms per step."""
+    import torch.distributed as dist
+
+    from cosmology_gnn_simulation_tpu_torch.ops import cellblock
+    from cosmology_gnn_simulation_tpu_torch.parallel import halo
+
+    dev = mesh.device
+    cfg, stats, params = _halo_setup(seed, dev)
+    p = mesh.shape["particle"]
+    hc = halo.choose_halo_config(N, K, p)
+    spec = cellblock.choose_cellblock_spec_halo(N, hc.grid_size, hc.slab_layers,
+                                                hc.halo_layers, p)
+    part = halo.partition_windows(*seed_window(N, seed), hc, 1.0)
+    args = halo.window_segment(part, hc, mesh.axis("particle").index)
+    out = {"backends": sorted({dist.get_backend(), *(dist.get_backend(a.group)
+                                                      for a in mesh.axes.values())}),
+           "hc": tuple(hc), "spec": tuple(spec), "initial_gid": args[3][args[2]]}
+    for label, dtype, cb in (("gather f32", None, None), ("hybrid bf16", torch.bfloat16, spec)):
+        kw = dict(num_neighbors=K, dtype=dtype, cellblock_spec=cb)
+        halo.make_halo_rollout(cfg, stats, mesh, 1, hc, **kw)(params, *args)
+        fn = halo.make_halo_rollout(cfg, stats, mesh, HALO_STEPS, hc,
+                                    with_certificate_components=True, **kw)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        outs, diag, exact, certs = fn(params, *args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / HALO_STEPS
+        launches, colls, staged = _counts()
+        out[label] = {"outs": {k: v.cpu().numpy() for k, v in outs.items()},
+                      "diag": {k: int(v) for k, v in diag.items()},
+                      "exact": exact.cpu().numpy(),
+                      "certs": {k: v.cpu().numpy() for k, v in certs.items()},
+                      "launches": launches, "collectives": colls, "staged": staged, "ms": ms}
+        _progress(mesh, t_spawn, f"{label} rollouts")
+    return out
+
+
+def _train_row(noise=TRAIN_NOISE):
+    """The flagship training row with the noise keyed per particle and no
+    augmentation (the halo step augments on the host, so the single-device
+    step it is held to does not augment)."""
+    from cosmology_gnn_simulation_tpu_torch.training import TrainConfig
+
+    return TrainConfig(aggregation="cellblock_hybrid", num_neighbors=K, compute_dtype="bfloat16",
+                       noise_std=noise, partition_invariant_noise=True, augment_prob=0.0)
+
+
+def _sgd():
+    from cosmology_gnn_simulation_tpu_torch.training.trainer import Optimizer
+
+    return Optimizer(lambda leaves: torch.optim.SGD(leaves, lr=1.0))
+
+
+def halo_train_task(mesh, seed, t_spawn):
+    """17b, one rank: the halo x cell-block train step (reverse plans, bf16,
+    the gid-keyed noise) of the flagship batch, one SGD step (lr 1: the
+    update is the gradient) from the seeded weights with its counts, then
+    one more timed; the halo eval step; peak memory."""
+    from cosmology_gnn_simulation_tpu_torch.ops import cellblock
+    from cosmology_gnn_simulation_tpu_torch.parallel import halo
+    from cosmology_gnn_simulation_tpu_torch.types import tree_leaves
+
+    dev = mesh.device
+    cfg, stats, params = _halo_setup(seed, dev)
+    p = mesh.shape["particle"]
+    tc = _train_row()
+    hc = halo.choose_halo_config(N, K, p, noise=True)
+    spec = cellblock.choose_cellblock_spec_halo(N, hc.grid_size, hc.slab_layers,
+                                                hc.halo_layers, p)
+    local = halo.shard_halo_batch(halo.partition_batch(train_batch(N, seed), hc, 1.0), mesh)
+    sgd = _sgd()
+    state = sgd.init(params)
+    step = halo.make_halo_train_step(cfg, stats, tc, sgd, mesh, hc, cellblock_spec=spec)
+    before = [t.detach().clone() for t in tree_leaves(params)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    _, _, metrics = step(params, state, local, gen)
+    torch.cuda.synchronize()
+    launches, colls, staged = _counts()
+    grads = [(b - a.detach()).cpu().numpy() for b, a in zip(before, tree_leaves(params))]
+    t0 = time.perf_counter()
+    step(params, state, local, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eval_params = _halo_setup(seed, dev)[2]
+    _reset_counts()
+    metrics_eval = halo.make_halo_eval_step(cfg, stats, tc, mesh, hc)(eval_params, local)
+    torch.cuda.synchronize()
+    eval_launches, eval_colls, _ = _counts()
+    _progress(mesh, t_spawn, "train and eval steps")
+    return {"hc": tuple(hc), "spec": tuple(spec),
+            "metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
+            "launches": launches, "collectives": colls, "staged": staged, "ms": ms, "peak": peak,
+            "eval": {k: v.cpu().numpy() for k, v in metrics_eval.items()},
+            "eval_launches": eval_launches, "eval_collectives": eval_colls}
+
+
+def _progress(mesh, t_spawn, msg):
+    """A line from rank 0 as a spawned phase goes, with the seconds since
+    the parent spawned the ranks (stdout is shared)."""
+    if mesh.axis("particle").index == 0:
+        print(f"  [rank 0, {time.time() - t_spawn:.1f} s] {msg}", flush=True)
+
+
+def _fed(feed):
+    """The next item the parent fed this rank (``_feed_config5``)."""
+    item = feed.get(timeout=HALO_RANK_TIMEOUT_S)
+    if item is None:
+        raise RuntimeError("the parent's partition of the config-5 data failed")
+    return item
+
+
+def _feed_config5(feeds, seed):
+    """17c's data, made and partitioned once in the parent while the ranks
+    start: to each rank (its queue in ``feeds``) its segment of the first
+    window with the host mirror of its exchanged candidates, then its slice
+    of the partitioned training batch (``shard_halo_batch``, which reads
+    only the mesh's coordinates and device, cut here on the host)."""
+    from cosmology_gnn_simulation_tpu_torch.parallel import halo
+    from cosmology_gnn_simulation_tpu_torch.parallel.mesh import Mesh, MeshAxis
+
+    t0 = time.perf_counter()
+    p = len(feeds)
+    hc = halo.choose_halo_config(C5_N, C5_K, p)
+    part = halo.partition_windows(*seed_window(C5_N, seed + 51), hc, 1.0)
+    for q, feed in enumerate(feeds):
+        want, want_valid, _ = halo.shard_candidates(part["positions"][-1], part["valid"], hc,
+                                                    1.0, q)
+        feed.put(([torch.from_numpy(np.ascontiguousarray(a))
+                   for a in halo.window_segment(part, hc, q)], want, want_valid))
+    del part
+    hc_t = halo.choose_halo_config(C5_N, C5_K, p, noise=True)
+    batch = halo.partition_batch(train_batch(C5_N, seed), hc_t, 1.0)
+    for q, feed in enumerate(feeds):
+        coords = Mesh(("data", "particle"), np.arange(p).reshape(1, p), q,
+                      {"data": MeshAxis("data", None, 1, 0),
+                       "particle": MeshAxis("particle", None, p, q)}, torch.device("cpu"))
+        feed.put(halo.shard_halo_batch(batch, coords))
+    print(f"phase 17c: the parent made and partitioned the data in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def config5_task(mesh, seed, t_spawn, feed):
+    """17c, one rank of BASELINE config 5 (its data from ``_feed_config5``):
+    featurize_halo's graph and slab plan of the first frame, its candidates
+    through the exchange against the host mirror, rank 0's plan's kernels
+    against their plain versions;
+    2 halo x cell-block rollout steps (bf16, fused tail) and one train step
+    (the training row, remat_chunk 5): for each its ms (the rollout's split
+    into featurize_halo, the model and the rest), permutes, staged bytes,
+    the permutes' device span and peak memory."""
+    import torch.distributed as dist
+
+    from cosmology_gnn_simulation_tpu_torch.models import encode_process_decode as epd
+    from cosmology_gnn_simulation_tpu_torch.ops import cellblock
+    from cosmology_gnn_simulation_tpu_torch.parallel import collectives as coll
+    from cosmology_gnn_simulation_tpu_torch.parallel import halo
+
+    dev = mesh.device
+    axis = mesh.axis("particle")
+    p = mesh.shape["particle"]
+    cfg, stats, params = _halo_setup(seed, dev, remat_chunk=C5_REMAT_CHUNK)
+    hc = halo.choose_halo_config(C5_N, C5_K, p)
+    spec = cellblock.choose_cellblock_spec_halo(C5_N, hc.grid_size, hc.slab_layers,
+                                                hc.halo_layers, p, query_block=C5_HALO_QB)
+    args, want, want_valid = _fed(feed)
+    out = {"hc": tuple(hc), "spec": tuple(spec)}
+    _progress(mesh, t_spawn, "first window received")
+
+    # The first frame's graph and slab plan (with its reverse table), as the
+    # rollout's first step builds them; its candidates through the exchange
+    # against the host mirror; rank 0's plan against the plain versions.
+    cap = hc.local_capacity
+    valid = args[2].to(dev)
+    graph, sends, _ = halo.featurize_halo(
+        args[0].to(dev), args[1].to(dev), valid, stats,
+        num_neighbors=C5_K, hc=hc, axis=axis, cellblock_spec=spec, cellblock_reverse=True)
+    cand = halo.expand_candidates(torch.cat([graph.positions, valid[:, None].float()], dim=-1),
+                                  sends, axis)
+    cand_pos, cand_valid = cand[:, :3], cand[:, 3] > 0.5
+    if not (np.array_equal(cand_pos.cpu().numpy(), want)
+            and np.array_equal(cand_valid.cpu().numpy(), want_valid)):
+        fail(f"config 5 rank {axis.index}: the exchanged candidates differ from the host mirror")
+    plan = graph.cellblock.plan
+    out["plan"] = {"overflow": int(plan.overflow), "dropped": int(plan.dropped_edges),
+                   "window_overflow": int(plan.window_overflow),
+                   "reverse_mismatch": int(plan.reverse_mismatch)}
+    if axis.index == 0:
+        m = cand_pos.shape[0]
+        nbr = torch.cat([graph.neighbors, graph.neighbors.new_full((m - cap, C5_K), m)])
+        local, box_local = halo._local_frame(cand_pos, hc, spec.gx, 1.0, 0)
+        _reset_counts()
+        checked = slab_kernel_checks(local, box_local, cand_valid, nbr, spec,
+                                     torch.Generator().manual_seed(seed + 52),
+                                     "config 5 rank 0's featurize_halo plan", plan)
+        out["kernels"] = {"launches": _counts()[0], "errs": checked["errs"],
+                          "edges": int(checked["s_total"])}
+        del checked, nbr, local
+    del graph, sends, plan, cand, cand_pos, cand_valid, valid
+    torch.cuda.empty_cache()
+    dist.barrier()
+    _progress(mesh, t_spawn, "first plan and exchange checked")
+
+    spans = {"exchange": _timed(coll, "_permute"), "featurize": _timed(halo, "featurize_halo"),
+             "model": _timed(epd, "apply_encode_process_decode")}
+    fn = halo.make_halo_rollout(cfg, stats, mesh, C5_HALO_STEPS, hc, num_neighbors=C5_K,
+                                dtype=torch.bfloat16, with_certificate_components=True,
+                                cellblock_spec=spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t1 = time.perf_counter()
+    outs, diag, exact, certs = fn(params, *args)
+    torch.cuda.synchronize()
+    rollout_ms = (time.perf_counter() - t1) * 1e3 / C5_HALO_STEPS
+    _, colls, staged = _counts()
+    valid_out = outs["valid"]
+    finite = bool(torch.isfinite(outs["positions"][valid_out]).all()
+                  and torch.isfinite(outs["temperatures"][valid_out]).all())
+    out["rollout"] = {"ms": rollout_ms, "exchange_ms": sum(_span_ms(spans["exchange"]))
+                      / C5_HALO_STEPS,
+                      "featurize_ms": _span_ms(spans["featurize"]),
+                      "model_ms": _span_ms(spans["model"]),
+                      "ppermute": colls["ppermute"] / C5_HALO_STEPS,
+                      "staged": staged / C5_HALO_STEPS, "finite": finite,
+                      "count": valid_out.sum(dim=1).cpu().numpy(),
+                      "diag": {k: int(v) for k, v in diag.items()},
+                      "exact": exact.cpu().numpy(),
+                      "certs": {k: v.cpu().numpy() for k, v in certs.items()},
+                      "peak": torch.cuda.max_memory_allocated() / 2**30}
+    _progress(mesh, t_spawn, f"{C5_HALO_STEPS} rollout steps, {rollout_ms:.1f} ms a step")
+    del outs, valid_out, fn, args
+    torch.cuda.empty_cache()
+
+    hc_t = halo.choose_halo_config(C5_N, C5_K, p, noise=True)
+    spec_t = cellblock.choose_cellblock_spec_halo(C5_N, hc_t.grid_size, hc_t.slab_layers,
+                                                  hc_t.halo_layers, p, query_block=C5_HALO_QB)
+    local = {key: value.to(dev) for key, value in _fed(feed).items()}
+    sgd = _sgd()
+    step = halo.make_halo_train_step(cfg, stats, _train_row(), sgd, mesh, hc_t,
+                                     cellblock_spec=spec_t)
+    _progress(mesh, t_spawn, "train batch received")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t1 = time.perf_counter()
+    _, _, metrics = step(params, sgd.init(params), local,
+                         torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t1) * 1e3
+    launches, colls, staged = _counts()
+    out["train"] = {"ms": train_ms, "exchange_ms": sum(_span_ms(spans["exchange"])),
+                    "ppermute": colls["ppermute"], "staged": staged,
+                    "loss": float(metrics["loss"]), "launches": launches,
+                    "hc": tuple(hc_t), "spec": tuple(spec_t),
+                    "peak": torch.cuda.max_memory_allocated() / 2**30}
+    _progress(mesh, t_spawn, f"train step {train_ms:.1f} ms")
+    return out
+
+
+def halo_flagship_task(mesh, seed, t_spawn):
+    """17a's rollouts, then at 4 shards 17b's train and eval steps."""
+    out = {"rollouts": halo_rollout_task(mesh, seed, t_spawn)}
+    if mesh.shape["particle"] == 4:
+        out["train"] = halo_train_task(mesh, seed, t_spawn)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leading_mesh(p, dev):
+    """A ``(1, p)`` mesh over the world's first p ranks, None on the others.
+    Every rank makes every group, in the same order (``new_group``'s
+    contract); ``make_mesh`` spans the whole world, so this mesh is laid
+    out here."""
+    import torch.distributed as dist
+
+    from cosmology_gnn_simulation_tpu_torch.parallel.mesh import Mesh, MeshAxis
+
+    rank = dist.get_rank()
+    particle = dist.new_group(list(range(p)))
+    data = [dist.new_group([r]) for r in range(p)]
+    if rank >= p:
+        return None
+    return Mesh(("data", "particle"), np.arange(p).reshape(1, p), rank,
+                {"data": MeshAxis("data", data[rank], 1, 0),
+                 "particle": MeshAxis("particle", particle, p, rank)}, dev)
+
+
+def _halo_rank(world, t_spawn, seed, feeds):
+    """One spawned rank, in the gloo group on cuda:0 (no kernel is built
+    here: the parent built them all). Four ranks run 17a at each of
+    HALO_SHARDS (a shard count below the world's on the first ranks while
+    the others wait) and 17b on the world; C5_SHARDS ranks run 17c.
+    ``feeds``: the ranks' queues of 17c's data. Returns the results and
+    this rank's clock at each turn."""
+    import torch.distributed as dist
+
+    from cosmology_gnn_simulation_tpu_torch import kernels
+    from cosmology_gnn_simulation_tpu_torch.parallel.mesh import make_mesh
+
+    unbuilt = [name for name in kernels.SOURCES if not kernels._library_path(name).exists()]
+    if unbuilt:
+        raise RuntimeError(f"kernels not built before the spawn: {unbuilt}")
+    mesh = make_mesh((1, world), device="cuda:0")
+    _progress(mesh, t_spawn, "in the process group")
+    out = {"marks": [t_spawn, time.time()]}
+    if world == C5_SHARDS:
+        out["config5"] = config5_task(mesh, seed, t_spawn, feeds[mesh.rank])
+    else:
+        for p in HALO_SHARDS:
+            # The halo train and eval steps sum over the world: 17b runs on
+            # the world's mesh.
+            sub = mesh if p == world else _leading_mesh(p, mesh.device)
+            if sub is not None:
+                out[p] = halo_flagship_task(sub, seed, t_spawn)
+            dist.monitored_barrier(timeout=datetime.timedelta(seconds=HALO_RANK_TIMEOUT_S))
+            out["marks"].append(time.time())
+    out["marks"].append(time.time())
+    return out
+
+
+def run_ranks(world: int, seed: int, feed=None):
+    """``world`` ranks (``parallel.local_ranks``: spawned, a file store, an
+    explicitly requested gloo group on cuda:0) each running ``_halo_rank``:
+    their results in rank order. ``feed(queues, seed)`` runs here while the
+    ranks start and puts each rank's data on its queue. A rank that raises,
+    dies or has not answered in HALO_RANK_TIMEOUT_S fails the phase; every
+    rank is stopped before this returns."""
+    import torch.multiprocessing as mp
+
+    from cosmology_gnn_simulation_tpu_torch.parallel.local_ranks import LocalRanks
+
+    feeds = [] if feed is None else [mp.get_context("spawn").Queue() for _ in range(world)]
+    for queue in feeds:
+        queue.cancel_join_thread()  # a rank that never reads must not hold up the exit
+    ranks = LocalRanks(world, _halo_rank, (world, time.time(), seed, feeds), device="cuda:0",
+                       backend="gloo", timeout_s=HALO_RANK_TIMEOUT_S,
+                       collective_timeout=datetime.timedelta(seconds=HALO_TIMEOUT_S))
+    try:
+        if feed is not None:
+            feed(feeds, seed)
+    except BaseException:
+        for queue in feeds:
+            queue.put(None)  # the waiting ranks raise at once
+        with contextlib.suppress(RuntimeError):
+            ranks.results()  # stops every rank
+        raise
+    try:
+        return ranks.results()
+    except RuntimeError as err:
+        fail(f"halo ranks ({world}): {err}")
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _check_halo_rollouts(p, ranks, refs, pos, temp, zero, mp, summary):
+    """17a's checks of one spawn's halo rollouts (see the module docstring)."""
+    from cosmology_gnn_simulation_tpu_torch.parallel import halo
+
+    per_step = {"gather f32": ({}, {"all_gather": 1, "all_reduce": 0, "broadcast": 0,
+                                    "ppermute": 2 + 2 * mp + 2}),
+                "hybrid bf16": ({"s_onehot": 1, "window_matmul": mp, "fused_tail": mp},
+                                {"all_gather": 1, "all_reduce": 0, "broadcast": 0,
+                                 "ppermute": 2 + 2 * mp + 2})}
+    tols = {"gather f32": HALO_GATHER_TOL, "hybrid bf16": HALO_HYBRID_TOL}
+    print(f"halo ranks P={p} on {torch.cuda.get_device_name(0)}: process group backends "
+          f"{ranks[0]['backends']} (every rank on cuda:0); {halo.HaloConfig(*ranks[0]['hc'])}; "
+          f"slab spec {ranks[0]['spec']}")
+    for label in ("gather f32", "hybrid bf16"):
+        got = [r[label] for r in ranks]
+        outs = {key: np.concatenate([g["outs"][key] for g in got], axis=1)
+                for key in got[0]["outs"]}
+        traj = halo.reassemble_trajectory(outs, pos, temp)
+        err = max(float(np.abs(traj[key] - refs[label][key]).max())
+                  for key in ("Coordinates", "InternalEnergy"))
+        finite = bool(np.isfinite(traj["Coordinates"]).all())
+        launches = {**zero, **{k: v * HALO_STEPS for k, v in per_step[label][0].items()}}
+        colls = {k: v * HALO_STEPS for k, v in per_step[label][1].items()}
+        counts_ok = all(g["launches"] == launches and g["collectives"] == colls for g in got)
+        cert_ok = all(g["exact"].all() and g["diag"] == {"overflow": 0, "stranded": 0}
+                      for g in got)
+        conserved = bool((outs["valid"].sum(axis=1) == N).all())
+        last = got[0]["outs"]
+        moved = set(ranks[0]["initial_gid"].tolist()) != set(
+            last["gid"][-1][last["valid"][-1]].tolist())
+        if not (err <= tols[label] and finite and counts_ok and cert_ok and conserved and moved):
+            fail(f"halo {label} rollout P={p}: max diff {err} (tol {tols[label]}), finite "
+                 f"{finite}, counts {[(g['launches'], g['collectives']) for g in got]} "
+                 f"(expected {launches}, {colls}), certificate {[g['exact'] for g in got]}, "
+                 f"diag {[g['diag'] for g in got]}, count conserved {conserved}, a gid "
+                 f"changed shard {moved}")
+        summary[f"rollout {label} P={p}"] = [g["ms"] for g in got]
+        print(f"halo {label} rollout P={p}: N={N}, {HALO_STEPS} steps, within {err:.3g} of the "
+              f"single-device rollout (tol {tols[label]}); certificate true every step, "
+              f"overflow and stranded 0, count conserved, rank 0's gids changed; per rank "
+              f"and step launches {_nonzero(per_step[label][0])}, collectives "
+              f"{_nonzero(per_step[label][1])}; host-staged bytes a step per rank "
+              f"{[g['staged'] // HALO_STEPS for g in got]}; ms a step per rank "
+              f"{[round(g['ms'], 3) for g in got]}; max excess "
+              f"{float(got[0]['certs']['max_excess_sq'].max()):.4g}")
+
+
+def _check_halo_train(p, ranks, refs, zero, mp, summary):
+    """17b's checks of the halo train and eval steps (see the module
+    docstring)."""
+    from cosmology_gnn_simulation_tpu_torch.parallel import halo
+
+    want = {**zero, "s_onehot": 1, "reverse_table": 1, "window_matmul": mp,
+            "window_matmul_t": mp, "fused_tail": mp, "fused_tail_bwd": mp}
+    want_colls = {"all_gather": 0, "all_reduce": 3, "broadcast": 0, "ppermute": 2 + 4 * mp}
+    want_eval = {**zero, "fused_tail": mp}
+    want_eval_colls = {"all_gather": 1, "all_reduce": 1, "broadcast": 0, "ppermute": 2 + 2 * mp}
+    single_loss, single_grads = refs["train"]
+    got = ranks[0]
+    loss_err = abs(got["metrics"]["loss"] - single_loss) / abs(single_loss)
+    grad_err = max(float(np.abs(a - b).max()) / float(np.abs(b).max())
+                   for a, b in zip(got["grads"], single_grads) if np.abs(b).max())
+    same = all(all(np.array_equal(a, b) for a, b in zip(r["grads"], got["grads"]))
+               for r in ranks[1:])
+    counts_ok = all(r["launches"] == want and r["collectives"] == want_colls
+                    and r["eval_launches"] == want_eval and r["eval_collectives"] == want_eval_colls
+                    for r in ranks)
+    eval_err = max(abs(float(got["eval"][k][0]) - refs["eval"][k])
+                   / max(abs(refs["eval"][k]), 1e-30) for k in got["eval"])
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL and same and counts_ok
+            and eval_err <= TRAIN_LOSS_RTOL):
+        fail(f"halo train step P={p}: loss rel err {loss_err}, worst gradient rel err {grad_err}, "
+             f"updates equal on every rank {same}, counts "
+             f"{[(r['launches'], r['collectives'], r['eval_launches'], r['eval_collectives']) for r in ranks]}, "
+             f"eval rel err {eval_err}")
+    summary[f"train P={p}"] = [r["ms"] for r in ranks]
+    print(f"halo x cell-block train step P={p} (flagship row: N={N}, bf16, noise {TRAIN_NOISE} "
+          f"keyed per particle, no augmentation, reverse plans; {halo.HaloConfig(*got['hc'])}; "
+          f"slab spec {got['spec']}): loss {got['metrics']['loss']:.6g} (single-device "
+          f"{single_loss:.6g}, rel err {loss_err:.3g}, tol {TRAIN_LOSS_RTOL}), worst "
+          f"gradient leaf rel err {grad_err:.3g} (tol {TRAIN_GRAD_TOL}), the same update on every "
+          f"rank; per rank launches {_nonzero(want)}, collectives {_nonzero(want_colls)}, "
+          f"host-staged bytes {[r['staged'] for r in ranks]}; ms of a second step per rank "
+          f"{[round(r['ms'], 3) for r in ranks]}; peak GiB per rank "
+          f"{[round(r['peak'], 3) for r in ranks]}; the halo eval step's per-sample metrics "
+          f"within {eval_err:.3g} of the single-device eval step's (launches "
+          f"{_nonzero(want_eval)}, collectives {_nonzero(want_eval_colls)})")
+
+
+def halo_ranks_phase(args, dev, zero):
+    """Phase 17 (the halo paths on ranks that share the card; see the module
+    docstring). Returns the numbers the summary line prints."""
+    from cosmology_gnn_simulation_tpu_torch.parallel import halo
+    from cosmology_gnn_simulation_tpu_torch.rollout import rollout
+    from cosmology_gnn_simulation_tpu_torch.training import make_eval_step, make_train_step
+    from cosmology_gnn_simulation_tpu_torch.types import tree_leaves
+
+    torch.cuda.empty_cache()
+    summary = {}
+    cfg, stats, params = _halo_setup(args.seed, dev)
+    mp = cfg.num_message_passing_steps
+    # The ranks' exchanges run on the host's cores: the parent, waiting,
+    # keeps one thread.
+    threads = torch.get_num_threads()
+
+    # The single-device references: 17a's rollouts, 17b's SGD step (lr 1:
+    # the update is the gradient) and eval step, from the same weights.
+    t0 = time.perf_counter()
+    pos, temp = seed_window(N, args.seed)
+    refs = {"gather f32": rollout(params, cfg, pos, temp, stats, HALO_STEPS,
+                                  aggregation="gather", num_neighbors=K, device=dev),
+            "hybrid bf16": rollout(params, cfg, pos, temp, stats, HALO_STEPS,
+                                   aggregation="cellblock_hybrid", num_neighbors=K,
+                                   dtype=torch.bfloat16, device=dev)}
+    refs = {k: {key: v[key].cpu().numpy() for key in ("Coordinates", "InternalEnergy")}
+            for k, v in refs.items()}
+    tbatch = train_batch(N, args.seed)
+    sgd = _sgd()
+    before = [t.detach().clone() for t in tree_leaves(params)]
+    _, _, m_single = make_train_step(cfg, stats, _train_row(), sgd)(
+        params, sgd.init(params), tbatch, torch.Generator(device=dev).manual_seed(args.seed))
+    refs["train"] = (float(m_single["loss"]),
+                     [(b - a.detach()).cpu().numpy() for b, a in zip(before, tree_leaves(params))])
+    _, _, params = _halo_setup(args.seed, dev)
+    # The halo eval step aggregates by gather (as JAX's).
+    single_eval = make_eval_step(cfg, stats, dataclasses.replace(_train_row(),
+                                                                 aggregation="gather"))(
+        params, tbatch)
+    refs["eval"] = {k: float(v) for k, v in single_eval.items()}
+    del before, params, single_eval, tbatch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"phase 17 single-device references: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 17a and 17b: the flagship on 2 and 4 of 4 ranks -------------
+    torch.set_num_threads(1)
+    torch.cuda.empty_cache()
+    world = max(HALO_SHARDS)
+    ranks = run_ranks(world, args.seed)
+    marks = ranks[0]["marks"]
+    print(f"phase 17 ranks: {world} in the process group {marks[1] - marks[0]:.1f} s after the "
+          f"spawn")
+    for i, p in enumerate(HALO_SHARDS):
+        _check_halo_rollouts(p, [r[p]["rollouts"] for r in ranks[:p]], refs, pos, temp, zero,
+                             mp, summary)
+        if p == 4:
+            _check_halo_train(p, [r[p]["train"] for r in ranks[:p]], refs, zero, mp, summary)
+        print(f"phase 17{'a' if p != 4 else 'a, 17b'} halo flagship P={p} (ranks 0-{p - 1} of "
+              f"{world}): {marks[i + 2] - marks[i + 1]:.1f} s")
+    print(f"phase 17a, 17b: {marks[-1] - marks[0]:.1f} s from the spawn")
+
+    # ---- 17c. config 5 over its 8 shards -------------------------------
+    torch.cuda.empty_cache()
+    print(f"the parent holds {torch.cuda.memory_allocated() / 2**30:.3f} GiB of the card "
+          f"({torch.cuda.memory_reserved() / 2**30:.3f} reserved) before the spawn")
+    ranks = run_ranks(C5_SHARDS, args.seed, _feed_config5)
+    marks = ranks[0]["marks"]
+    print(f"phase 17c ranks: {C5_SHARDS} in the process group {marks[1] - marks[0]:.1f} s after "
+          f"the spawn")
+    ranks = [r["config5"] for r in ranks]
+    c5_train = [r["train"] for r in ranks]
+    k0 = ranks[0]["kernels"]
+    k_want = {**zero, "s_onehot": 1, "reverse_table": 1, "window_matmul": 1,
+              "window_matmul_t": 1}
+    rolls = [r["rollout"] for r in ranks]
+    certs = rolls[0]["certs"]
+    # Every component of the certificate is 0 at every step (the search's,
+    # the migration's and the plans'), so the certificate holds.
+    cert_ok = (all(not certs[k].any() for k in certs if not k.startswith("max"))
+               and (certs["max_excess_sq"] <= 0).all() and all(r["exact"].all() for r in rolls)
+               and all(r["plan"]["overflow"] == r["plan"]["dropped"]
+                       == r["plan"]["reverse_mismatch"] == 0 for r in ranks))
+    count = sum(r["count"] for r in rolls)
+    if not (k0["launches"] == k_want and cert_ok and all(r["finite"] for r in rolls)
+            and (count == C5_N).all() and all(r["diag"] == {"overflow": 0, "stranded": 0}
+                                               for r in rolls)
+            and all(np.isfinite(r["loss"]) for r in c5_train)):
+        fail(f"config 5 halo: kernel launches {k0['launches']}, certificate {certs}, exact "
+             f"{[r['exact'] for r in rolls]}, first plans {[r['plan'] for r in ranks]}, finite "
+             f"{[r['finite'] for r in rolls]}, count {count}, diag {[r['diag'] for r in rolls]}, "
+             f"train losses {[r['loss'] for r in c5_train]}")
+    summary["config5 rollout"] = [r["ms"] for r in rolls]
+    summary["config5 train"] = [r["ms"] for r in c5_train]
+    print(f"config 5 halo ({C5_SHARDS} ranks on cuda:0, N={C5_N}, k={C5_K}): "
+          f"{halo.HaloConfig(*ranks[0]['hc'])}, slab spec {ranks[0]['spec']} (query_block "
+          f"{C5_HALO_QB}); every rank's featurize_halo plan of the first frame: overflow, "
+          f"dropped edges, reverse mismatch 0 (rows past a window, per rank: "
+          f"{[r['plan']['window_overflow'] for r in ranks]}), its exchanged candidates "
+          f"bit-equal to the host mirror; rank 0's plan ({k0['edges']} edges): S and S_rev "
+          f"bit-equal to K3's and K7's plain versions, K4 max abs err {k0['errs']['K4']:.3g}, "
+          f"K4^T {k0['errs']['K4^T']:.3g} (tol {K4_MAX_ABS_TOL}); {C5_HALO_STEPS} rollout "
+          f"steps bf16: every certificate component 0 every step (halo, cell, migration and "
+          f"plan overflow, stranded, dropped edges), max excess "
+          f"{float(certs['max_excess_sq'].max()):.4g}, certificate "
+          f"{rolls[0]['exact'].tolist()}; outputs finite, count conserved")
+    for q, r in enumerate(rolls):
+        print(f"  config 5 rank {q}: rollout {r['ms']:.1f} ms a step (the call's first step "
+              f"included), featurize_halo per step "
+              f"{[round(v, 1) for v in r['featurize_ms']]} ms, the model "
+              f"{[round(v, 1) for v in r['model_ms']]} ms (each with its exchanges), the "
+              f"exchanges {r['exchange_ms']:.1f} ms a step, {r['ppermute']:.0f} permutes and "
+              f"{r['staged'] / 2**20:.1f} MiB host-staged a step, peak {r['peak']:.3f} GiB")
+    print(f"config 5's train step ({C5_SHARDS} ranks): {halo.HaloConfig(*c5_train[0]['hc'])}, "
+          f"slab spec {c5_train[0]['spec']}; the training row (noise {TRAIN_NOISE} keyed per "
+          f"particle, remat_chunk {C5_REMAT_CHUNK}), loss {c5_train[0]['loss']:.6g}, launches "
+          f"{_nonzero(c5_train[0]['launches'])}")
+    for q, r in enumerate(c5_train):
+        print(f"  config 5 train rank {q}: {r['ms']:.1f} ms (the first step), its exchanges "
+              f"{r['exchange_ms']:.1f} ms, {r['ppermute']} permutes, "
+              f"{r['staged'] / 2**20:.1f} MiB host-staged, peak {r['peak']:.3f} GiB")
+    print(f"phase 17c config-5 halo: {marks[-1] - marks[0]:.1f} s from the spawn")
+    torch.set_num_threads(threads)
+    return summary
 
 
 def main() -> None:
@@ -3011,6 +3734,7 @@ def main() -> None:
     table_ms = table_phase(args, dev, report, path_launches, zero)
     sharded_ms = sharded_phase(args, dev, report, path_launches, zero)
     slab, gid_ms = halo_phase(args, dev, report, path_launches, zero, cfg, stats, train_ms)
+    halo_ms = halo_ranks_phase(args, dev, zero)
 
     # ---- 12. kernels line ------------------------------------------------
     kernels_line = []
@@ -3027,7 +3751,9 @@ def main() -> None:
                                  for name, r in table_ms.items())
           + "; sharded (1,1) ms " + ", ".join(f"{name} {v:.4f}" for name, v in sharded_ms.items())
           + f"; config-5 slab plan build {slab['build_ms']:.4f} ms (peak "
-          f"{slab['build_peak_gib']:.3f} GiB), gid-keyed train step {gid_ms:.4f} ms")
+          f"{slab['build_peak_gib']:.3f} GiB), gid-keyed train step {gid_ms:.4f} ms; halo ms "
+          f"per rank " + ", ".join(f"{name} {[round(v, 3) for v in values]}"
+                                   for name, values in halo_ms.items()))
     print(smi)
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

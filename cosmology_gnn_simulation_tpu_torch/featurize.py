@@ -226,6 +226,54 @@ def verify_neighbor_exactness(
     return result
 
 
+def window_features(position_seq: torch.Tensor, temperature_seq: torch.Tensor,
+                    stats: NormalizationStats, generator: Optional[torch.Generator], noise_std,
+                    noise_gids: Optional[torch.Tensor]):
+    """A ``[T, N, 3]`` / ``[T, N, 1]`` window's noise-then-wrap, its
+    minimum-image velocities and its node features: ``(pos_seq [N, T, 3],
+    temp_seq [N, T, 1], velocity_seq [N, T - 1, 3], nodes [N, F],
+    position_noise, temperature_noise)``, the noise drawn as ``featurize``
+    describes."""
+    box, dt = stats.box_size, stats.dt
+    pos_seq = position_seq.float().transpose(0, 1)  # [N, T, 3]
+    temp_seq = temperature_seq.float().transpose(0, 1)
+
+    position_noise = random_walk_position_noise(pos_seq, noise_std, dt, generator, noise_gids)
+    pos_seq = wrap_positions(pos_seq + position_noise, box)
+    temperature_noise = random_walk_temperature_noise(
+        temp_seq, noise_std, stats.temp_rate_std, dt, generator, noise_gids
+    )
+    temp_seq = temp_seq + temperature_noise
+
+    velocity_seq = min_image_displacement(pos_seq[:, 1:] - pos_seq[:, :-1], box) / dt
+    n = pos_seq.shape[0]
+    normal_velocity = (velocity_seq - stats.vel_mean) / stats.vel_std
+    normal_temp = (temp_seq - stats.temp_mean) / stats.temp_std
+    nodes = torch.cat(
+        [normal_velocity.reshape(n, -1), normal_temp.reshape(n, -1)], dim=-1
+    )
+    return pos_seq, temp_seq, velocity_seq, nodes, position_noise, temperature_noise
+
+
+def window_targets(target_position, target_temperature, pos_seq, temp_seq, velocity_seq,
+                   position_noise, temperature_noise, stats: NormalizationStats):
+    """The normalized training targets ``(target_acceleration [N, 3] or
+    None, target_temp_rate [N, 1] or None)`` of ``window_features``' window,
+    each target shifted by the last noise frame."""
+    box, dt = stats.box_size, stats.dt
+    target_acceleration = target_temp_rate = None
+    if target_position is not None:
+        shifted = target_position.float() + position_noise[:, -1]
+        next_velocity = min_image_displacement(shifted - pos_seq[:, -1], box) / dt
+        acceleration = (next_velocity - velocity_seq[:, -1]) / dt
+        target_acceleration = (acceleration - stats.acc_mean) / stats.acc_std
+    if target_temperature is not None:
+        shifted_temp = target_temperature.float() + temperature_noise[:, -1]
+        temp_rate = (shifted_temp - temp_seq[:, -1]) / dt
+        target_temp_rate = (temp_rate - stats.temp_rate_mean) / stats.temp_rate_std
+    return target_acceleration, target_temp_rate
+
+
 def featurize(
     position_seq: torch.Tensor,
     temperature_seq: torch.Tensor,
@@ -285,25 +333,9 @@ def featurize(
                          "(the sorted edges would index the gathered rows; the sharded "
                          "train step sorts them itself)")
     box = stats.box_size
-    dt = stats.dt
-    pos_seq = position_seq.float().transpose(0, 1)  # [N, T, 3]
-    temp_seq = temperature_seq.float().transpose(0, 1)
-
-    position_noise = random_walk_position_noise(pos_seq, noise_std, dt, generator, noise_gids)
-    pos_seq = wrap_positions(pos_seq + position_noise, box)
-    temperature_noise = random_walk_temperature_noise(
-        temp_seq, noise_std, stats.temp_rate_std, dt, generator, noise_gids
-    )
-    temp_seq = temp_seq + temperature_noise
-
+    pos_seq, temp_seq, velocity_seq, nodes, position_noise, temperature_noise = window_features(
+        position_seq, temperature_seq, stats, generator, noise_std, noise_gids)
     recent_position = pos_seq[:, -1]
-    velocity_seq = min_image_displacement(pos_seq[:, 1:] - pos_seq[:, :-1], box) / dt
-    n = pos_seq.shape[0]
-    normal_velocity = (velocity_seq - stats.vel_mean) / stats.vel_std
-    normal_temp = (temp_seq - stats.temp_mean) / stats.temp_std
-    nodes = torch.cat(
-        [normal_velocity.reshape(n, -1), normal_temp.reshape(n, -1)], dim=-1
-    )
     codes = codes_cap = spill = None
     all_positions = recent_position
     if particle_axis is not None and (num_neighbors is not None or build_edges):
@@ -337,16 +369,9 @@ def featurize(
         edges = torch.cat([disp, torch.linalg.norm(disp, dim=-1, keepdim=True)], dim=-1)
     sorted_edges = build_sorted_edges(neighbors) if build_reverse else None
 
-    target_acceleration = target_temp_rate = None
-    if target_position is not None:
-        shifted = target_position.float() + position_noise[:, -1]
-        next_velocity = min_image_displacement(shifted - recent_position, box) / dt
-        acceleration = (next_velocity - velocity_seq[:, -1]) / dt
-        target_acceleration = (acceleration - stats.acc_mean) / stats.acc_std
-    if target_temperature is not None:
-        shifted_temp = target_temperature.float() + temperature_noise[:, -1]
-        temp_rate = (shifted_temp - temp_seq[:, -1]) / dt
-        target_temp_rate = (temp_rate - stats.temp_rate_mean) / stats.temp_rate_std
+    target_acceleration, target_temp_rate = window_targets(
+        target_position, target_temperature, pos_seq, temp_seq, velocity_seq, position_noise,
+        temperature_noise, stats)
     graph = ParticleGraph(nodes=nodes, neighbors=neighbors, edges=edges,
                           positions=recent_position,
                           target_acceleration=target_acceleration,

@@ -26,6 +26,12 @@ compacted once before the decoders). With ``fused_tail`` the step's tail
 after the aggregation is the CUDA kernel K5, with K6 as its backward
 (``ops/fused_step.py``). ``carry_dtype="bfloat16"`` carries the residual
 stream in bf16, as the JAX package's scan carry.
+
+Under particle sharding the rows a neighbor index names come from other
+ranks too: all-gathered (the index-sharded path), or with ``halo`` the
+shard's owned rows and its ring neighbours' boundary rows
+(``parallel.halo.expand_candidates``), on which the halo x cell-block
+composition runs K4 over the shard's local slab plan.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from cosmology_gnn_simulation_tpu_torch.ops.cellblock import (
 )
 from cosmology_gnn_simulation_tpu_torch.ops.fused_step import fused_step_tail
 from cosmology_gnn_simulation_tpu_torch.parallel.collectives import all_gather
+from cosmology_gnn_simulation_tpu_torch.parallel.halo import expand_candidates
 from cosmology_gnn_simulation_tpu_torch.types import ParticleGraph, resolve_device, tree_map
 
 Params = Dict[str, Any]
@@ -170,21 +177,28 @@ def _gather_sum(values: torch.Tensor, neighbors: torch.Tensor, sorted_edges=None
     return gather_sum(values, neighbors)
 
 
-def _maybe_all_gather(values: torch.Tensor, particle_axis) -> torch.Tensor:
-    """The rows the neighbor indices name: this rank's alone, or under
-    ``particle_axis`` every rank's, all-gathered (once per message-passing
-    step, in the compute dtype, as the JAX package's index-sharded path)."""
-    return values if particle_axis is None else all_gather(values, particle_axis)
+def _maybe_all_gather(values: torch.Tensor, particle_axis, halo=None) -> torch.Tensor:
+    """The rows the neighbor indices name: this rank's alone; under
+    ``particle_axis`` with ``halo`` (``parallel.halo.HaloSends``) the
+    candidate rows ``[own; halo_from_left; halo_from_right]``, the boundary
+    rows exchanged with the ring neighbours; else every rank's,
+    all-gathered (once per message-passing step, in the compute dtype, as
+    the JAX package's index-sharded path)."""
+    if particle_axis is None:
+        return values
+    if halo is not None:
+        return expand_candidates(values, halo, particle_axis)
+    return all_gather(values, particle_axis)
 
 
 def _processor_step(x, e, neighbors, params: Params, aggregate: str, dtype,
-                    sorted_edges=None, particle_axis=None):
+                    sorted_edges=None, particle_axis=None, halo=None):
     """One unpruned InteractionNetwork step (pre-residual outputs)."""
     latent = x.shape[-1]
     edge_first = params["edge"]["layers"][0]
     w = edge_first["w"]
     w_src, w_dst, w_e = w[:latent], w[latent:2 * latent], w[2 * latent:]
-    y_src = _maybe_all_gather(matmul(x, w_src, dtype), particle_axis)
+    y_src = _maybe_all_gather(matmul(x, w_src, dtype), particle_axis, halo)
     y_dst = matmul(x, w_dst, dtype)
     h_e = torch.relu(
         y_src[neighbors] + y_dst[:, None, :] + matmul(e, w_e, dtype) + edge_first["b"]
@@ -194,7 +208,7 @@ def _processor_step(x, e, neighbors, params: Params, aggregate: str, dtype,
     node_first = params["node"]["layers"][0]
     w_self, w_agg = node_first["w"][:latent], node_first["w"][latent:]
     if aggregate == "sender_latents":
-        agg_h = _gather_sum(_maybe_all_gather(matmul(x, w_agg, dtype), particle_axis),
+        agg_h = _gather_sum(_maybe_all_gather(matmul(x, w_agg, dtype), particle_axis, halo),
                             neighbors, sorted_edges)
     elif aggregate == "edge_messages":
         agg_h = matmul(e_new.sum(dim=1), w_agg, dtype)
@@ -206,18 +220,26 @@ def _processor_step(x, e, neighbors, params: Params, aggregate: str, dtype,
 
 def _pruned_processor_step(x, neighbors, params: Params, dtype, fused_tail: bool,
                            cellblock=None, cellblock_spec=None, sorted_edges=None,
-                           cellblock_mode: str = "slots", particle_axis=None):
+                           cellblock_mode: str = "slots", particle_axis=None, halo=None):
     """Node-stream-only step under ``sender_latents`` aggregation. With
     ``fused_tail`` it returns the full new carry (residual included, kernel
     K5); otherwise the pre-residual step output. With a ``cellblock`` plan
     the aggregation is the cell-block one (float32 result): ``"hybrid"``
     expands the projected latents to slots, runs K4 and compacts back;
-    ``"slots"`` has ``x`` on slot rows already and runs K4 on them."""
+    ``"slots"`` has ``x`` on slot rows already and runs K4 on them. With
+    ``halo`` the plan is the shard's (``parallel.halo.HaloCellBlock``): the
+    projected latents are exchanged, taken into the plan's order, aggregated
+    (K4; K4^T in the backward) and taken back to the owned rows."""
     latent = x.shape[-1]
     node_first = params["node"]["layers"][0]
     w_self, w_agg = node_first["w"][:latent], node_first["w"][latent:]
     z = matmul(x, w_agg, dtype)
-    if cellblock is not None:
+    if cellblock is not None and halo is not None:
+        z_sorted = expand_candidates(z, halo, particle_axis)[cellblock.plan.order]
+        agg_h = cellblock_aggregate(z_sorted, cellblock.plan, cellblock_spec,
+                                    carry_dtype=torch.float32 if dtype is None else dtype)
+        agg_h = agg_h[cellblock.inv_owned]
+    elif cellblock is not None:
         aggregate = cellblock_aggregate if cellblock_mode == "hybrid" else cellblock_aggregate_slots
         agg_h = aggregate(z, cellblock, cellblock_spec,
                           carry_dtype=torch.float32 if dtype is None else dtype)
@@ -226,7 +248,7 @@ def _pruned_processor_step(x, neighbors, params: Params, dtype, fused_tail: bool
             # The gather-sum is the bandwidth-dominant op of the step; carry
             # it in the reduced dtype, as the JAX package does.
             z = z.to(dtype)
-        agg_h = _gather_sum(_maybe_all_gather(z, particle_axis), neighbors, sorted_edges)
+        agg_h = _gather_sum(_maybe_all_gather(z, particle_axis, halo), neighbors, sorted_edges)
     if fused_tail:
         # The kernel widens agg on read: no f32 copy of it is made.
         return fused_step_tail(
@@ -244,6 +266,7 @@ def apply_encode_process_decode(
     cellblock_spec=None,
     cellblock_mode: str = "slots",
     particle_axis=None,
+    halo=None,
 ) -> Dict[str, torch.Tensor]:
     """Forward pass: ``{'acceleration': [N, 3], 'temp_rate': [N, 1]}``.
 
@@ -265,9 +288,15 @@ def apply_encode_process_decode(
     of particles sharded over the axis, with neighbor indices into the
     gathered rows. Each message-passing step all-gathers the projected
     sender latents (``y_src`` too in the unpruned model); everything else,
-    the fused tail K5 included, runs on the local rows. The cell-block
-    aggregation is refused under it (the halo path, ROADMAP queue 1 item 5b,
-    is what composes with it in the JAX package).
+    the fused tail K5 included, runs on the local rows. With ``halo`` (the
+    ``parallel.halo.HaloSends`` of ``featurize_halo``'s graph) the neighbor
+    indices name the candidate rows ``[own; halo_from_left;
+    halo_from_right]`` instead, and each step exchanges the projected
+    boundary rows with the ring neighbours; a graph with a
+    ``parallel.halo.HaloCellBlock`` then aggregates through the shard's slab
+    plan (``cellblock_mode="hybrid"`` only). The cell-block aggregation is
+    refused under the index-sharded path (``halo`` None), as in the JAX
+    package.
     """
     if cellblock_mode not in ("slots", "hybrid"):
         raise ValueError(f"unknown cellblock_mode: {cellblock_mode}")
@@ -277,10 +306,15 @@ def apply_encode_process_decode(
             raise ValueError(
                 "graph carries a cellblock plan but cellblock_spec was not passed"
             )
-        if particle_axis is not None:
+        if particle_axis is not None and halo is None:
             raise ValueError(
                 "cellblock aggregation under the index-sharded all-gather path is "
-                "unsupported (the halo path composes with it: ROADMAP queue 1 item 5b)"
+                "unsupported — use halo sharding (featurize_halo(cellblock_spec=...))"
+            )
+        if halo is not None and cellblock_mode != "hybrid":
+            raise ValueError(
+                "the halo x cellblock composition requires cellblock_mode='hybrid' (the "
+                "residual carry stays on the owned particle rows; slot space is shard-local)"
             )
         if not prune:
             raise ValueError(
@@ -313,14 +347,14 @@ def apply_encode_process_decode(
             x_new = _pruned_processor_step(
                 x, graph.neighbors, step_params(params, i), dtype, config.fused_tail,
                 graph.cellblock, cellblock_spec, graph.sorted_edges, cellblock_mode,
-                particle_axis,
+                particle_axis, halo,
             )
             return (x_new if config.fused_tail else residual_add(x, x_new),)
     else:
         def step(i, x, e):
             x_new, e_new = _processor_step(
                 x, e, graph.neighbors, step_params(params, i), config.aggregate, dtype,
-                graph.sorted_edges, particle_axis,
+                graph.sorted_edges, particle_axis, halo,
             )
             return residual_add(x, x_new), residual_add(e, e_new)
 

@@ -83,14 +83,19 @@ def _iid_normal(generator: Optional[torch.Generator], shape, device) -> torch.Te
     return torch.randn(shape, generator=generator, device=gen_device).to(device)
 
 
+def gid_key(generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """The per-particle keying's integer key of one call: one draw from
+    ``generator`` (on its own device)."""
+    gen_device = generator.device if generator is not None else device
+    return torch.randint(0, 2**32, (1,), generator=generator, device=gen_device)
+
+
 def _gid_normal(generator: Optional[torch.Generator], shape, device,
                 gids: torch.Tensor) -> torch.Tensor:
     """``shape = [N, ...]`` standard normal float32 draws on ``device``
-    keyed per particle by ``gids [N]``: one integer key from ``generator``,
-    then ``gid_normals``."""
-    gen_device = generator.device if generator is not None else device
-    key = torch.randint(0, 2**32, (1,), generator=generator, device=gen_device)
-    return gid_normals(key, gids.to(device), shape)
+    keyed per particle by ``gids [N]``: one integer key from ``generator``
+    (``gid_key``), then ``gid_normals``."""
+    return gid_normals(gid_key(generator, device), gids.to(device), shape)
 
 
 def _double_cumsum_walk(generator, shape, scale, dt, device, gids=None) -> torch.Tensor:

@@ -1,12 +1,16 @@
 """Process meshes over ``torch.distributed`` (counterpart of
 ``parallel/mesh.py``).
 
-One process (rank) per GPU, on ``cuda:{LOCAL_RANK}``, or per CPU process on
-the ``gloo`` backend. A ``Mesh`` lays the world's ranks out on named axes:
+One process (rank) per GPU, on ``cuda:{LOCAL_RANK}`` over NCCL, or per CPU
+process on the ``gloo`` backend. Ranks that share one card ask for it
+explicitly: ``backend="gloo"`` with ``device="cuda:0"`` (the collectives
+then stage CUDA tensors through pinned host buffers, counted); nothing falls
+back to it. A ``Mesh`` lays the world's ranks out on named axes:
 
 * ``data``: batch (sample) data parallelism;
 * ``particle``: particles sharded over ranks (the index-sharded path:
-  positions and projected latents all-gathered each step).
+  positions and projected latents all-gathered each step; the halo path:
+  slabs whose boundary rows go to the ring neighbours).
 
 Each axis has one process group per line of ranks along it, and a rank
 reaches its own through ``Mesh.axis(name)`` (its group, size and this
@@ -19,6 +23,7 @@ DCN.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Dict, NamedTuple, Optional, Sequence
 
@@ -28,10 +33,18 @@ import torch.distributed as dist
 
 from cosmology_gnn_simulation_tpu_torch.types import resolve_device
 
+DATA_AXIS = "data"
+PARTICLE_AXIS = "particle"
+
 
 def device_count() -> int:
     """The GPUs this process sees."""
     return torch.cuda.device_count()
+
+
+def default_backend(device: torch.device) -> str:
+    """NCCL for a card, gloo for the CPU."""
+    return "nccl" if device.type == "cuda" else "gloo"
 
 
 def initialize_distributed(
@@ -39,16 +52,21 @@ def initialize_distributed(
     world_size: Optional[int] = None,
     rank: Optional[int] = None,
     device="cuda",
+    backend: Optional[str] = None,
+    timeout: Optional[datetime.timedelta] = None,
 ) -> bool:
-    """Join the process group: NCCL for a ``cuda`` device, gloo for the CPU
-    (no other backend is tried if that one fails). Call once on every rank
-    before building a mesh.
+    """Join the process group: by default NCCL for a ``cuda`` device, gloo
+    for the CPU; ``backend`` names another (``"gloo"`` for ranks that share
+    one card). No other backend is tried if that one fails. Call once on
+    every rank before building a mesh.
 
     With no ``init_method`` it reads torchrun's environment (``MASTER_ADDR``,
     ``RANK``, ``WORLD_SIZE``); where that is absent it does nothing and
     returns False: the single-process path needs no process group. Returns
     True once this process is in a group. A rank on a card uses
-    ``cuda:{LOCAL_RANK}``."""
+    ``cuda:{LOCAL_RANK}``, or the card ``device`` names (``"cuda:0"``).
+    ``timeout`` bounds each collective (the backend's default otherwise), so
+    a hung peer fails the call instead of waiting."""
     if dist.is_initialized():
         return True
     env = all(os.environ.get(var) for var in ("MASTER_ADDR", "RANK", "WORLD_SIZE"))
@@ -56,10 +74,11 @@ def initialize_distributed(
         return False
     device = resolve_device(device)
     if device.type == "cuda":
-        torch.cuda.set_device(local_rank())
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+        torch.cuda.set_device(local_rank() if device.index is None else device.index)
+    kw = {} if timeout is None else {"timeout": timeout}
+    dist.init_process_group(backend or default_backend(device),
                             init_method=init_method or "env://", world_size=world_size,
-                            rank=rank)
+                            rank=rank, **kw)
     return True
 
 
@@ -154,13 +173,14 @@ def make_mesh(
     it makes a group of one over an in-memory store. Across nodes
     (``LOCAL_WORLD_SIZE`` below the world size) the data axis, or else the
     first axis the node count divides, spans nodes (``hybrid_device_order``).
-    ``device``: ``cuda:{LOCAL_RANK}`` by default, or the CPU."""
+    ``device``: ``cuda:{LOCAL_RANK}`` by default, another card
+    (``"cuda:0"`` for ranks that share it) or the CPU."""
     device = resolve_device(f"cuda:{local_rank()}" if device is None else device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", local_rank())
     if not dist.is_initialized():
-        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                                store=dist.HashStore(), world_size=1, rank=0)
+        dist.init_process_group(default_backend(device), store=dist.HashStore(),
+                                world_size=1, rank=0)
     world, rank = dist.get_world_size(), dist.get_rank()
     axis_names = tuple(axis_names)
     if axis_sizes is None:

@@ -62,7 +62,7 @@ from cosmology_gnn_simulation_tpu_torch.parallel.collectives import (
     pmean,
     psum,
 )
-from cosmology_gnn_simulation_tpu_torch.parallel.mesh import Mesh
+from cosmology_gnn_simulation_tpu_torch.parallel.mesh import DATA_AXIS, PARTICLE_AXIS, Mesh
 from cosmology_gnn_simulation_tpu_torch.training.trainer import (
     Optimizer,
     TrainConfig,
@@ -71,8 +71,6 @@ from cosmology_gnn_simulation_tpu_torch.training.trainer import (
 )
 from cosmology_gnn_simulation_tpu_torch.types import NormalizationStats, tree_leaves
 
-DATA_AXIS = "data"
-PARTICLE_AXIS = "particle"
 _BATCH_KEYS = ("positions", "temperatures", "target_positions", "target_temperatures")
 
 
@@ -81,7 +79,7 @@ def _pruned(model_config: EncodeProcessDecodeConfig, tc: TrainConfig) -> bool:
     if tc.aggregation not in ("auto", "gather"):
         raise ValueError(f"aggregation={tc.aggregation!r} is single-device only: the cell "
                          "block does not compose with the index-sharded path (the halo path, "
-                         "ROADMAP queue 1 item 5b, does)")
+                         "parallel.halo, does)")
     if tc.partition_invariant_noise:
         raise ValueError("partition_invariant_noise does not apply to the index-sharded path, "
                          "which keys its noise per sample and particle coordinate (the JAX "

@@ -48,7 +48,7 @@ global id (``ops.noise``): ``arange(N)``, or the batch's ``gids [B, N]``
 where it carries them (a layout of the particles other than the dataset's,
 as a halo partition gives). Not ported: the halo-sharded trainer
 (``halo``), which raises ``NotImplementedError`` (ROADMAP queue 1 item
-5b-ii).
+5b-iii; its steps are ``parallel/halo.py``'s).
 """
 
 from __future__ import annotations
@@ -368,8 +368,8 @@ class Trainer:
     ``mesh.device``, which replaces ``device``; ``batch_size`` must divide by
     the data-axis size; each step's randomness is keyed by the seed and the
     global step (``parallel/sharded.py``). ``halo`` (the halo-sharded
-    trainer) is not ported (ROADMAP queue 1 items 5b-ii and 5b-iii) and
-    raises.
+    trainer) is not ported (ROADMAP queue 1 item 5b-iii; the halo steps
+    are ``parallel.halo``'s) and raises.
     """
 
     def __init__(
@@ -385,8 +385,8 @@ class Trainer:
     ):
         if halo is not None:
             raise NotImplementedError("Trainer(halo=...) is not ported yet (ROADMAP queue 1 "
-                                      "item 5b-ii, the halo exchange and steps; item 5b-iii, "
-                                      "the entry points)")
+                                      "item 5b-iii, the halo path's entry points; its steps "
+                                      "are parallel.halo's)")
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.model_config = model_config

@@ -1183,3 +1183,47 @@ def test_slab_plan_kernels_match_plain_versions(cuda_device, shard):
     _assert_window_close(
         cellblock.window_matmul_t(s_rev, z_pad, layout.window_starts, spec=spec),
         cellblock.window_matmul_t_reference(s_rev, z_pad, layout.window_starts, spec=spec))
+
+
+@pytest.mark.cuda
+def test_halo_exchange_and_plan_on_two_gloo_ranks_sharing_the_card(cuda_device, tmp_path):
+    """Two gloo ranks on cuda:0 (how the card runs P >= 2 halo shards): the
+    ring permute of CUDA tensors, staged through pinned host buffers, and
+    its backward bit-equal to the CPU tensors' permute; one
+    ``featurize_halo`` slab plan per rank (N = 4,096, k = 4), K3 once, its S
+    equal to K3's plain version and K4 on it within K4's tolerances."""
+    import torch_halo_workers as hw
+    import torch_sharded_workers as workers
+    from cosmology_gnn_simulation_tpu_torch.convert import params_to_numpy
+    from cosmology_gnn_simulation_tpu_torch.parallel import halo
+
+    n, k, p = 4096, 4, 2
+    model = dict(window_size=5, latent_size=16, mlp_hidden_size=16, mlp_num_hidden_layers=1,
+                 num_message_passing_steps=2)
+    params = params_to_numpy(init_encode_process_decode(
+        default_model_config(**model), torch.Generator().manual_seed(0), device="cpu"))
+    rng = np.random.default_rng(41)
+    pos = np.remainder(rng.uniform(0, 1, (1, n, 3)) + rng.normal(0, 5e-4, (5, n, 3)).cumsum(0),
+                       1.0).astype(np.float32)
+    hc = halo.choose_halo_config(n, k, p)
+    spec = cellblock.choose_cellblock_spec_halo(n, hc.grid_size, hc.slab_layers, hc.halo_layers,
+                                                p)
+    part = halo.partition_windows(pos, np.ones((5, n, 1), np.float32), hc, 1.0)
+    cases = [("card", hw.permute_case, (1, p), dict(seed=7, device="cuda")),
+             ("cpu", hw.permute_case, (1, p), dict(seed=7)),
+             ("plan", hw.card_plan_case, (1, p),
+              dict(model=model, meta=METADATA, params=params, hc=tuple(hc), part=part, k=k,
+                   spec=spec))]
+    ranks = workers.Ranks(p, str(tmp_path / "rendezvous"), cases).results()
+    for rank in range(p):
+        card, cpu = ranks[rank]["card"], ranks[rank]["cpu"]
+        for shift in (1, -1):
+            for got, want in zip(card[shift], cpu[shift]):
+                np.testing.assert_array_equal(got, want)
+        assert card["collectives"]["ppermute"] == cpu["collectives"]["ppermute"] == 4
+        # Four permutes of [5, 3] float32, each down and up.
+        assert card["staged"] == 4 * 2 * 5 * 3 * 4 and cpu["staged"] == 0
+        plan = ranks[rank]["plan"]
+        assert plan["launches"] == {"s_onehot": 1}
+        assert plan["s_equal"] and plan["edges"] > 0 and plan["overflow"] == (0, 0)
+        _assert_window_close(*plan["k4"])

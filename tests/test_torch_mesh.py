@@ -138,7 +138,8 @@ def test_collectives_on_one_rank(one_rank):
     assert torch.equal(flat[0], torch.ones(2)) and flat[1].dtype == torch.int64
     sent = coll.broadcast_flat([torch.ones(2, 2)])
     assert torch.equal(sent[0], torch.ones(2, 2))
-    assert coll.collectives == {"all_gather": 1, "all_reduce": 4, "broadcast": 1}
+    assert coll.collectives == {"all_gather": 1, "all_reduce": 4, "broadcast": 1,
+                                "ppermute": 0}
 
 
 def test_sample_generators_key_the_noise_by_shard():

@@ -173,7 +173,8 @@ def _check_train(ranks, refs, shapes, label="train"):
         # the data-axis mean and the gradients' one all-reduce.
         local = refs["local"] // a
         assert got["collectives"] == {"all_gather": local * (1 + m),
-                                      "all_reduce": local * m + 4, "broadcast": 0}
+                                      "all_reduce": local * m + 4, "broadcast": 0,
+                                      "ppermute": 0}
 
 
 def test_sharded_paths_on_two_ranks(setup, tmp_path, one_rank):
@@ -250,7 +251,7 @@ def test_sharded_paths_on_two_ranks(setup, tmp_path, one_rank):
         np.testing.assert_allclose(got, forward_ref[key], rtol=OUT_TOL, atol=OUT_TOL)
         np.testing.assert_allclose(got, np.asarray(jforward[key]), rtol=OUT_TOL, atol=OUT_TOL)
     assert ranks[0]["forward"]["collectives"] == {"all_gather": 1 + 2, "all_reduce": 0,
-                                                  "broadcast": 0}
+                                                  "broadcast": 0, "ppermute": 0}
 
     # Rollouts re-neighboring every step and every other step.
     for r in (1, 2):

@@ -287,8 +287,8 @@ def test_profiling_step_timer_trace_and_profile_epoch(tmp_path):
 
 def test_unported_and_device_arguments_raise():
     # The mesh trainer is ported (tests/test_torch_sharded.py); the halo one
-    # is not.
-    with pytest.raises(NotImplementedError, match="queue 1 item 5b-ii"):
+    # is not (its steps are: tests/test_torch_halo.py).
+    with pytest.raises(NotImplementedError, match="queue 1 item 5b-iii"):
         Trainer(default_model_config(**MODEL), NormalizationStats.from_metadata(
             METADATA, device="cpu"), TrainConfig(), 1, halo=object(), device="cpu")
     if not torch.cuda.is_available():  # the default device is the card; no fallback

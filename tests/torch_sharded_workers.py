@@ -3,22 +3,20 @@ paths run by gloo ranks spawned with ``torch.multiprocessing`` and joined by
 a file store (no TCP port: several test workers run at once). This module
 imports no JAX; the test compares what the ranks return with its references.
 
-``Ranks(world, init_file, cases)`` starts ``world`` ranks, each of which
-runs every case in order and returns its results; a rank that raises, a
-collective that times out or a rank that dies fails ``results()``.
+``Ranks(world, init_file, cases)`` starts ``world`` ranks
+(``parallel.local_ranks``), each of which runs every case in order and
+returns its results; a rank that raises, a collective that times out or a
+rank that dies fails ``results()``. A case's kind names one of ``CASES`` or
+is a module-level function of another rank module
+(``tests/torch_halo_workers.py``), called as ``fn(mesh, **kwargs)``.
 """
 
 from __future__ import annotations
 
 import datetime
-import queue
-import time
-import traceback
 
 import numpy as np
 import torch
-import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from cosmology_gnn_simulation_tpu_torch.cli import train as train_cli
 from cosmology_gnn_simulation_tpu_torch.convert import params_from_jax, params_to_numpy
@@ -26,6 +24,7 @@ from cosmology_gnn_simulation_tpu_torch.data.dataset import SequenceDataset
 from cosmology_gnn_simulation_tpu_torch.models.encode_process_decode import default_model_config
 from cosmology_gnn_simulation_tpu_torch.parallel import sharded
 from cosmology_gnn_simulation_tpu_torch.parallel.collectives import collectives, reset_collectives
+from cosmology_gnn_simulation_tpu_torch.parallel.local_ranks import LocalRanks
 from cosmology_gnn_simulation_tpu_torch.parallel.mesh import make_mesh
 from cosmology_gnn_simulation_tpu_torch.training.trainer import (
     Optimizer,
@@ -137,65 +136,26 @@ CASES = {"train": train_case, "eval": eval_case, "forward": forward_case,
          "rollout": rollout_case, "trainer": trainer_case, "cli": cli_case}
 
 
-def _rank_main(rank, world, init_file, cases, results):
+def run_cases(cases):
+    """One rank: every case in order (a mesh of its shape on the CPU),
+    ``{name: result}``."""
     torch.set_num_threads(1)
-    try:
-        dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=world,
-                                rank=rank, timeout=COLLECTIVE_TIMEOUT)
-        out = {}
-        for name, kind, shape, kwargs in cases:
-            mesh = make_mesh(shape, device="cpu") if shape else None
-            out[name] = CASES[kind](mesh, **kwargs)
-        results.put((rank, None, out))
-    except BaseException:  # reported to the parent, which fails the test
-        results.put((rank, traceback.format_exc(), None))
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    out = {}
+    for name, kind, shape, kwargs in cases:
+        mesh = make_mesh(shape, device="cpu") if shape else None
+        out[name] = (CASES[kind] if isinstance(kind, str) else kind)(mesh, **kwargs)
+    return out
 
 
-class Ranks:
+class Ranks(LocalRanks):
     """``world`` gloo ranks running ``cases`` (``(name, kind, mesh shape or
     None, kwargs)``), started at construction so the caller can compute its
-    references meanwhile; ``results()`` waits for them and returns ``{rank:
-    {name: result}}``."""
+    references meanwhile; ``results()`` waits for them and returns, per
+    rank, ``{name: result}``."""
 
     def __init__(self, world: int, init_file: str, cases):
-        ctx = mp.get_context("spawn")
-        self.queue = ctx.Queue()
-        self.procs = [ctx.Process(target=_rank_main,
-                                  args=(rank, world, init_file, cases, self.queue))
-                      for rank in range(world)]
-        for p in self.procs:
-            p.start()
-        self.deadline = time.monotonic() + RANK_TIMEOUT_S
-
-    def results(self):
-        world = len(self.procs)
-        out, errors = {}, []
-        try:
-            while len(out) < world and time.monotonic() < self.deadline:
-                try:
-                    rank, error, value = self.queue.get(timeout=1.0)
-                except queue.Empty:
-                    if not any(p.is_alive() for p in self.procs):
-                        break  # every rank has exited: no result is coming
-                    continue
-                if error:
-                    errors.append(f"rank {rank}:\n{error}")
-                out[rank] = value
-            if len(out) < world:
-                errors.append(f"results from ranks {sorted(out)} only")
-        finally:
-            for p in self.procs:
-                p.join(timeout=30)
-                if p.is_alive():
-                    p.terminate()
-                    p.join(timeout=10)
-        codes = [p.exitcode for p in self.procs]
-        if errors or any(code != 0 for code in codes):
-            raise RuntimeError(f"ranks failed (exit codes {codes}):\n" + "\n".join(errors))
-        return out
+        super().__init__(world, run_cases, (cases,), device="cpu", timeout_s=RANK_TIMEOUT_S,
+                         collective_timeout=COLLECTIVE_TIMEOUT, init_file=init_file)
 
 
 def equal_on_every_rank(values) -> bool:
