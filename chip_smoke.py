@@ -18,7 +18,9 @@ body); the config-4 path; then the table codes layout of the plan build and
 the index-sharded train step, rollout and Trainer on a one-rank NCCL mesh;
 then one halo shard's open-slab plan at config 5 and the hybrid train step
 with its noise keyed per particle; then the halo paths, run by 2, 4 and 8
-ranks that share the card over a gloo group.
+ranks that share the card over a gloo group; then the last entry points:
+the native (C++) loader's pinned feed, and the halo Trainer and halo render
+through the CLIs' own bodies.
 Before that it builds every CUDA kernel from ``csrc/`` and holds each
 against its plain PyTorch version at the shapes the paths give it. Phases,
 each timed on its own line:
@@ -255,6 +257,41 @@ each timed on its own line:
      rank ms a rollout and train step (the rollout's featurize_halo and
      model spans per step, CUDA events), permutes and host-staged bytes,
      the permutes' device span and peak memory;
+ 18a. the native loader (``data/native_loader.py``) on the card's host: the
+     repository's ``csrc/window_loader.cpp`` built by g++ (its time
+     printed), ``.cgnn`` caches written by ``write_cache`` from phase 12's
+     two simulations (no h5py), ``NativeSequenceLoader(pin_memory=True)``
+     batches bit-equal to the in-memory dataset's with shuffle off, on (the
+     same seed) and with the extras and a tail batch, every buffer pinned;
+     phase 12's first epoch fitted again from the native feed, its
+     model_epoch_0 params and Adam state bit-equal to phase 12's; ms per
+     batch on the host for each feed, ms per train step inside fit for each
+     feed, and the synchronizing calls of one train step (CUDA's sync debug
+     mode) from the pinned feed and from the pageable one, counted;
+ 18b. ENTRY_WORLD ranks (as phase 17's: spawned, an explicitly requested
+     gloo group on cuda:0, the kernels and the loader built before the
+     spawn) each call cli.train's body (``train``) on 18a's native feed
+     with ``--spatial_shards 4 --dist_backend gloo --device cuda:0``: the
+     default model, k = 16, bf16, noise TRAIN_NOISE (keyed per particle,
+     as every halo step keys it), no augmentation, 2 epochs of batch 1,
+     every epoch saved. Losses finite; the params after the last step and
+     the history equal on every rank; rank 0 alone writes model_best,
+     model_epoch_{0,1}, model_final and training_history.json (the JAX
+     Trainer's keys); every train step's launches (K5 and K6 ten times
+     each) and collectives (42 permutes, 3 all-reduces) exact on every
+     rank; a second call with ``--resume`` of model_epoch_0 fits epoch 1,
+     its model_epoch_1 params, Adam state and generator bit-equal to the
+     continuous run's; epoch 0's per-step losses against a single-device
+     Trainer(partition_invariant_noise=True) on the same feed (made while
+     the ranks start): the first within ENTRY_FIRST_LOSS_RTOL, the epoch's
+     within ENTRY_EPOCH_LOSS_RTOL; per rank ms per train step inside fit,
+     host-staged bytes a step, peak memory;
+ 18c. the same ranks call cli.render_rollout's body (``render``) with
+     ``--spatial_shards 2`` (mesh (2, 2)) and 4 (mesh (1, 4)) on the
+     flagship seed window, 4 steps: positions and errors within
+     HALO_GATHER_TOL of the single-device render, the certificate held and
+     no migration overflow or stranded particle (no warning printed), rank
+     0 alone writes the JAX CLI's artifacts; ms a step per rank;
  12. one JSON line of every ported kernel: launches on its path, time, bound,
      plain version's time, library yardstick's time.
 
@@ -378,6 +415,14 @@ HALO_TIMEOUT_S, HALO_RANK_TIMEOUT_S = 60, 300
 # sigma, across the 8 shards' 108,864 windows, and dropped an edge on this
 # seeded first frame. Every certificate component is held to 0.
 C5_HALO_STEPS, C5_REMAT_CHUNK, C5_HALO_QB = 2, 5, 128
+# Phase 18, the entry points: 18b and 18c on ENTRY_WORLD ranks that share
+# the card; 18c renders at each of ENTRY_RENDER_SHARDS. 18b's halo fit
+# against the single-device fit with the noise keyed per particle: the first
+# step within phase 17b's 1e-4 relative (the same step, sums in another
+# order); the epoch's steps within 1e-3 relative (after Adam's first
+# updates, bf16 products of parameters a few ulps apart).
+ENTRY_WORLD, ENTRY_RENDER_SHARDS = 4, (2, 4)
+ENTRY_FIRST_LOSS_RTOL, ENTRY_EPOCH_LOSS_RTOL = 1e-4, 1e-3
 
 METADATA = {
     "temp_mean": 1.0, "temp_std": 0.3, "temp_rate_mean": 0.0,
@@ -525,11 +570,16 @@ def train_batch(n: int, seed: int):
 
 class MemoryDataset:
     """``SequenceDataset.batches``' contract over simulations held in memory
-    (the windows and the shuffle of the port's ``data/dataset.py``)."""
+    (the windows and the shuffle of the port's ``data/dataset.py``; with
+    ``include_extras`` every other field of the simulations, by name)."""
+
+    CORE = {"positions": "Coordinates", "temperatures": "InternalEnergy"}
 
     def __init__(self, sims):
-        self.sims = [(sim["Coordinates"], sim["InternalEnergy"]) for sim in sims]
-        self.per_sim = self.sims[0][0].shape[0] - WINDOW
+        self.sims = sims
+        self.per_sim = sims[0]["Coordinates"].shape[0] - WINDOW
+        self.extras = sorted(name for name, value in sims[0].items()
+                             if np.ndim(value) > 0 and name not in self.CORE.values())
 
     def __len__(self):
         return len(self.sims) * self.per_sim
@@ -543,13 +593,20 @@ class MemoryDataset:
             chunk = order[i:i + batch_size]
             if drop_remainder and len(chunk) < batch_size:
                 break
-            windows = []
-            for j in chunk:
-                (pos, temp), start = self.sims[j // self.per_sim], j % self.per_sim
-                end = start + WINDOW
-                windows.append({"positions": pos[start:end], "temperatures": temp[start:end],
-                                "target_positions": pos[end], "target_temperatures": temp[end]})
-            yield {key: np.stack([w[key] for w in windows]) for key in windows[0]}
+            spans = [(self.sims[j // self.per_sim], j % self.per_sim) for j in chunk]
+
+            def stack(name, target):
+                return np.stack([sim[name][start + WINDOW] if target
+                                 else sim[name][start:start + WINDOW] for sim, start in spans])
+
+            batch = {}
+            for key, name in self.CORE.items():
+                batch[key] = stack(name, False)
+                batch[f"target_{key}"] = stack(name, True)
+            if include_extras:
+                batch["extra_inputs"] = {name: stack(name, False) for name in self.extras}
+                batch["extra_targets"] = {name: stack(name, True) for name in self.extras}
+            yield batch
 
 
 def mostly_close(a, b, rel, mean_rel):
@@ -2266,6 +2323,487 @@ def halo_ranks_phase(args, dev, zero):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the native loader and the halo path's entry points
+# ---------------------------------------------------------------------------
+
+
+def _sync_calls(fn):
+    """``fn()`` under CUDA's sync debug mode: its result and the
+    synchronizing calls it made (each one's warning)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+
+
+def _batch_arrays(batch):
+    """(name, array) of every array of a batch, the extras' too, by name."""
+    for key, value in sorted(batch.items()):
+        if isinstance(value, dict):
+            yield from ((f"{key}.{name}", v) for name, v in sorted(value.items()))
+        else:
+            yield key, value
+
+
+def _states_equal(a, b) -> float:
+    """The largest difference between two saved states' params and Adam
+    state (0.0: bit-equal)."""
+    from cosmology_gnn_simulation_tpu_torch.types import tree_leaves
+
+    diffs = [float((x - y).abs().max()) for x, y in zip(tree_leaves(a["params"]),
+                                                         tree_leaves(b["params"]), strict=True)]
+    for i, state in a["optimizer"]["state"].items():
+        other = b["optimizer"]["state"][i]
+        diffs += [float((state[key].float() - other[key].float()).abs().max())
+                  for key in ("step", "exp_avg", "exp_avg_sq")]
+    return max(diffs)
+
+
+def _files(path):
+    return sorted(os.listdir(path)) if os.path.isdir(path) else []
+
+
+def native_loader_phase(dev, cfg, stats, fit_sims, fit_tc, epoch0, memory_step_ms, work):
+    """Phase 18a (see the module docstring). Returns the caches' paths and
+    the numbers the summary line prints."""
+    from cosmology_gnn_simulation_tpu_torch.data import native_loader
+    from cosmology_gnn_simulation_tpu_torch.training import Trainer
+    from cosmology_gnn_simulation_tpu_torch.utils import checkpoint as ckpt_lib
+
+    t0 = time.perf_counter()
+    lib = native_loader.build()
+    build_s = time.perf_counter() - t0
+    print(f"native loader: g++ {' '.join(native_loader.CXX_FLAGS)} "
+          f"{os.path.relpath(native_loader.SOURCE)} -> {os.path.relpath(lib)}: {build_s:.2f} s")
+    caches = {name: native_loader.write_cache(sim, os.path.join(work, f"{name}.cgnn"))
+              for name, sim in fit_sims.items()}
+    feeds = {name: native_loader.NativeSequenceLoader([path], WINDOW, pin_memory=True)
+             for name, path in caches.items()}
+    memory = {name: MemoryDataset([sim]) for name, sim in fit_sims.items()}
+
+    # Bit-equal batches: shuffle off, on (phase 12's seed), and on with the
+    # extras and a tail batch; every buffer pinned.
+    cases = [(1, dict(shuffle=False)), (1, dict(shuffle=True, seed=fit_tc.seed)),
+             (3, dict(shuffle=True, seed=fit_tc.seed + 1, drop_remainder=False,
+                      include_extras=True))]
+    arrays = 0
+    for name in feeds:
+        for size, kw in cases:
+            got, want = list(feeds[name].batches(size, **kw)), list(memory[name].batches(size, **kw))
+            if len(got) != len(want):
+                fail(f"native loader {name} {kw}: {len(got)} batches, MemoryDataset {len(want)}")
+            for a, b in zip(got, want):
+                pairs = list(zip(_batch_arrays(a), _batch_arrays(b), strict=True))
+                for (key, x), (other, y) in pairs:
+                    if key != other or not x.is_pinned() or not torch.equal(
+                            x, torch.from_numpy(np.ascontiguousarray(y))):
+                        fail(f"native loader {name} {kw}: {key} (pinned {x.is_pinned()}) differs "
+                             f"from MemoryDataset's {other}")
+                arrays += len(pairs)
+
+    def host_ms(feed, reps=5):
+        count, t = 0, time.perf_counter()
+        for _ in range(reps):
+            count += sum(1 for _ in feed.batches(1, shuffle=True, seed=fit_tc.seed))
+        return (time.perf_counter() - t) * 1e3 / count
+
+    host = {"memory": host_ms(memory["train"]), "native pinned": host_ms(feeds["train"])}
+
+    # Phase 12's first epoch again, from the native feed.
+    refit_tc = dataclasses.replace(fit_tc, num_epochs=1, output_dir=os.path.join(work, "refit"))
+    refit = Trainer(cfg, stats, refit_tc, len(feeds["train"]), device=dev)
+    spans, step = [], refit.train_step
+
+    def timed(*step_args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*step_args)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    refit.train_step = timed
+    refit.fit(feeds["train"], feeds["val"], verbose=False)
+    torch.cuda.synchronize()
+    native_step_ms = [start.elapsed_time(end) for start, end in spans]
+    diff = _states_equal(ckpt_lib.load_state(os.path.join(refit_tc.output_dir, "model_epoch_0")),
+                         epoch0)
+    if diff != 0:
+        fail(f"the native feed's refit of phase 12's first epoch differs from it by {diff} "
+             "(params and Adam state of model_epoch_0)")
+    # One more train step from each feed under CUDA's sync debug mode.
+    syncs = {}
+    for label, dataset in (("pinned", feeds["train"]), ("pageable", memory["train"])):
+        batch = next(iter(dataset.batches(1, shuffle=False)))
+        _, calls = _sync_calls(lambda: refit.train_step(refit.params, refit.opt_state, batch,
+                                                        refit.generator))
+        syncs[label] = len(calls)
+    for feed in feeds.values():
+        feed.close()
+    print(f"native loader feed: caches of phase 12's simulations (N={N}; "
+          f"{', '.join(f'{n} {os.path.getsize(p) / 2**20:.1f} MiB' for n, p in caches.items())}); "
+          f"batches bit-equal to MemoryDataset's ({arrays} arrays: shuffle off, on, and with the "
+          f"extras and a tail batch), every buffer pinned; host ms per batch (batch 1, the "
+          f"training set, 5 epochs): {', '.join(f'{k} {v:.4f}' for k, v in host.items())}; "
+          f"phase 12's first epoch refitted from the native feed: model_epoch_0 params and Adam "
+          f"state bit-equal; ms per train step inside fit (CUDA events): memory feed (phase 12a, "
+          f"epoch 0) {[round(x, 4) for x in memory_step_ms]}, native pinned feed "
+          f"{[round(x, 4) for x in native_step_ms]}; synchronizing calls in one train step: "
+          f"pinned feed {syncs['pinned']}, pageable {syncs['pageable']}")
+    return {"caches": caches, "build_s": build_s, "host_ms": host, "step_ms": native_step_ms,
+            "syncs": syncs}
+
+
+class _StepLog:
+    """Wraps ``Trainer.fit`` in this process so that every train step of a
+    fit logs its loss, its CUDA-event span, its kernel launches, collectives
+    and host-staged bytes; the params after the last step are kept as one
+    flat copy on the device. ``read()`` waits for the device and returns
+    (and clears) them."""
+
+    def __init__(self):
+        from cosmology_gnn_simulation_tpu_torch.training.trainer import Trainer
+        from cosmology_gnn_simulation_tpu_torch.types import tree_leaves
+
+        self.steps, self.flat = [], None
+        fit, log = Trainer.fit, self
+
+        def logged_fit(trainer, *args, **kwargs):
+            step = trainer.train_step
+
+            def logged(*step_args):
+                _reset_counts()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(*step_args)
+                end.record()
+                launches, colls, staged = _counts()
+                log.steps.append((start, end, out[2]["loss"], _nonzero(launches), colls, staged))
+                log.flat = torch.cat([t.detach().reshape(-1) for t in tree_leaves(out[0])])
+                return out
+
+            trainer.train_step = logged
+            return fit(trainer, *args, **kwargs)
+
+        Trainer.fit = logged_fit
+
+    def read(self):
+        torch.cuda.synchronize()
+        steps = [{"ms": start.elapsed_time(end), "loss": float(loss), "launches": launches,
+                  "collectives": colls, "staged": staged}
+                 for start, end, loss, launches, colls, staged in self.steps]
+        flat = self.flat.cpu().numpy()
+        self.steps, self.flat = [], None
+        return steps, flat
+
+
+def render_truth(seed):
+    """render's ground truth: the flagship seed window and HALO_STEPS more
+    frames (its last frame again)."""
+    pos, temp = seed_window(N, seed)
+    return {"Coordinates": np.concatenate([pos, np.repeat(pos[-1:], HALO_STEPS, axis=0)]),
+            "InternalEnergy": np.concatenate([temp, np.repeat(temp[-1:], HALO_STEPS, axis=0)])}
+
+
+def entry_train_argv(seed, world):
+    """18b's cli.train flags: the default model, k = 16, bf16, noise
+    TRAIN_NOISE, no augmentation, 2 epochs of batch 1, every epoch saved;
+    ``world`` spatial shards over ranks that share cuda:0 by gloo."""
+    return ["--train_dir", "native", "--val_dir", "native", "--metadata_path", "in-memory",
+            "--spatial_shards", str(world), "--dist_backend", "gloo", "--device", "cuda:0",
+            "--num_neighbors", str(K), "--compute_dtype", "bfloat16",
+            "--noise_std", str(TRAIN_NOISE), "--augment_prob", "0", "--num_epochs", "2",
+            "--batch_size", "1", "--save_every", "1", "--seed", str(seed)]
+
+
+def entry_render_argv(shards, output_dir):
+    """18c's cli.render_rollout flags (``shards`` 0: the single device)."""
+    argv = ["--model_path", "in-memory", "--test_data", "in-memory", "--metadata_path",
+            "in-memory", "--num_neighbors", str(K), "--num_steps", str(HALO_STEPS),
+            "--device", "cuda:0", "--output_dir", output_dir]
+    return argv + (["--spatial_shards", str(shards), "--dist_backend", "gloo"] if shards else [])
+
+
+def _entry_rank(world, t_spawn, seed, caches, work):
+    """One spawned rank of phase 18 (in the gloo group on cuda:0): 18b's
+    halo Trainer through cli.train's body on the native feed, continuous
+    and resumed from rank 0's model_epoch_0, then 18c's cli.render_rollout
+    body at each of ENTRY_RENDER_SHARDS. Returns the results and this
+    rank's clock at each turn."""
+    import torch.distributed as dist
+
+    from cosmology_gnn_simulation_tpu_torch.cli import render_rollout
+    from cosmology_gnn_simulation_tpu_torch.cli import train as train_cli
+    from cosmology_gnn_simulation_tpu_torch.config import build_train_parser
+    from cosmology_gnn_simulation_tpu_torch.data import native_loader
+    from cosmology_gnn_simulation_tpu_torch.models.encode_process_decode import (
+        default_model_config,
+        init_encode_process_decode,
+    )
+    from cosmology_gnn_simulation_tpu_torch.types import NormalizationStats
+
+    rank = dist.get_rank()
+    out = {"marks": [t_spawn, time.time()]}
+    stats = NormalizationStats.from_metadata(METADATA, device="cpu")
+    log = _StepLog()
+    argv = entry_train_argv(seed, world)
+    torch.cuda.reset_peak_memory_stats()
+    for label, extra in (("continuous", []), ("resumed", [
+            "--resume", os.path.join(work, "continuous", "rank0", "model_epoch_0")])):
+        output_dir = os.path.join(work, label, f"rank{rank}")
+        args = build_train_parser().parse_args([*argv, "--output_dir", output_dir, *extra])
+        feeds = [native_loader.NativeSequenceLoader([caches[name]], WINDOW, pin_memory=True)
+                 for name in ("train", "val")]
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            trainer = train_cli.train(args, stats, *feeds)
+        steps, flat = log.read()
+        out[label] = {"history": trainer.history, "steps": steps, "flat": flat,
+                      "files": _files(output_dir), "printed": printed.getvalue(),
+                      "mesh": trainer.mesh.shape, "halo": tuple(trainer.halo)}
+        del trainer, feeds
+        dist.barrier()  # rank 0's checkpoints are written
+        _progress_rank(rank, t_spawn, f"18b {label}")
+        out["marks"].append(time.time())
+    out["train_peak"] = torch.cuda.max_memory_allocated() / 2**30
+
+    cfg = default_model_config()
+    params = init_encode_process_decode(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    truth = render_truth(seed)
+    spans, run = [], render_rollout.run_halo_rollout
+
+    def timed_run(*run_args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run(*run_args, **kwargs)
+        torch.cuda.synchronize()
+        spans.append(((time.perf_counter() - t0) * 1e3, run_args[6].shape))  # the mesh's
+        return result
+
+    render_rollout.run_halo_rollout = timed_run
+    for shards in ENTRY_RENDER_SHARDS:
+        output_dir = os.path.join(work, f"render{shards}", f"rank{rank}")
+        args = render_rollout.build_parser().parse_args(entry_render_argv(shards, output_dir))
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            errors = render_rollout.render(args, params, cfg, stats, truth)
+        ms, mesh_shape = spans[-1]
+        out[f"render{shards}"] = {"errors": errors, "files": _files(output_dir),
+                                  "printed": printed.getvalue(), "ms": ms / HALO_STEPS,
+                                  "mesh": mesh_shape}
+        _progress_rank(rank, t_spawn, f"18c render P={shards}")
+        out["marks"].append(time.time())
+    return out
+
+
+def _progress_rank(rank, t_spawn, msg):
+    if rank == 0:
+        print(f"  phase 18 rank 0: {msg} at {time.time() - t_spawn:.1f} s", flush=True)
+
+
+def _entry_references(args, dev, cfg, stats, caches, work):
+    """18b's and 18c's single-device references, made while the ranks
+    start: the single-device Trainer(partition_invariant_noise=True) over
+    the native feed for 18b's first epoch (its per-step losses), and
+    render_rollout's body on one device."""
+    from cosmology_gnn_simulation_tpu_torch.cli import render_rollout
+    from cosmology_gnn_simulation_tpu_torch.data import native_loader
+    from cosmology_gnn_simulation_tpu_torch.models.encode_process_decode import (
+        init_encode_process_decode,
+    )
+    from cosmology_gnn_simulation_tpu_torch.training import TrainConfig, Trainer
+
+    tc = TrainConfig(num_neighbors=K, batch_size=1, compute_dtype="bfloat16",
+                     noise_std=TRAIN_NOISE, augment_prob=0.0, num_epochs=1, seed=args.seed,
+                     partition_invariant_noise=True, output_dir=os.path.join(work, "single"))
+    feeds = [native_loader.NativeSequenceLoader([caches[name]], WINDOW, pin_memory=True)
+             for name in ("train", "val")]
+    single = Trainer(cfg, stats, tc, len(feeds[0]), device=dev)
+    losses, step = [], single.train_step
+
+    def logged(*step_args):
+        out = step(*step_args)
+        losses.append(out[2]["loss"])
+        return out
+
+    single.train_step = logged
+    single.fit(*feeds, verbose=False)
+    losses = [float(v) for v in losses]
+    output_dir = os.path.join(work, "render_single")
+    params = init_encode_process_decode(cfg, torch.Generator().manual_seed(args.seed), device=dev)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        errors = render_rollout.render(
+            render_rollout.build_parser().parse_args(entry_render_argv(0, output_dir)),
+            params, cfg, stats, render_truth(args.seed))
+    return {"losses": losses, "errors": errors,
+            "coords": np.load(os.path.join(output_dir, "rollout_coordinates.npy"))}
+
+
+def entry_points_phase(args, dev, zero, cfg, stats, fit_sims, fit_tc, fit_epoch0,
+                       memory_step_ms):
+    """Phase 18 (see the module docstring): 18a in this process, then 18b
+    and 18c on ENTRY_WORLD ranks that share the card. Returns the numbers
+    the summary line prints."""
+    from cosmology_gnn_simulation_tpu_torch.ops.fused_step import resolve_fused_tail
+    from cosmology_gnn_simulation_tpu_torch.parallel.local_ranks import LocalRanks
+    from cosmology_gnn_simulation_tpu_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    work_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_entry_")
+    work = work_dir.name
+    threads = torch.get_num_threads()
+    try:
+        torch.cuda.empty_cache()
+        native = native_loader_phase(dev, cfg, stats, fit_sims, fit_tc, fit_epoch0,
+                                     memory_step_ms, work)
+        print(f"phase 18a native loader: {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- 18b, 18c: the halo entry points on 4 ranks ---------------------
+        t0 = time.perf_counter()
+        torch.set_num_threads(1)  # the ranks' host work has the cores
+        ranks = LocalRanks(ENTRY_WORLD, _entry_rank,
+                           (ENTRY_WORLD, time.time(), args.seed, native["caches"], work),
+                           device="cuda:0", backend="gloo", timeout_s=HALO_RANK_TIMEOUT_S,
+                           collective_timeout=datetime.timedelta(seconds=HALO_TIMEOUT_S))
+        try:
+            refs = _entry_references(args, dev, cfg, stats, native["caches"], work)
+            refs_s = time.perf_counter() - t0
+        except BaseException:
+            with contextlib.suppress(RuntimeError):
+                ranks.results()  # stops every rank
+            raise
+        try:
+            results = ranks.results()
+        except RuntimeError as err:
+            fail(f"phase 18 ranks: {err}")
+        marks = results[0]["marks"]
+        print(f"phase 18 ranks: {ENTRY_WORLD} in the process group {marks[1] - marks[0]:.1f} s "
+              f"after the spawn; the single-device references took {refs_s:.1f} s meanwhile, "
+              f"the ranks {time.perf_counter() - t0:.1f} s in all")
+        summary = {"18a": native}
+        summary["18b"] = _check_entry_train(results, refs, cfg, work, ckpt_lib,
+                                            resolve_fused_tail(None, cfg, dev, torch.bfloat16))
+        print(f"phase 18b halo Trainer through cli.train: {marks[3] - marks[1]:.1f} s")
+        summary["18c"] = _check_entry_render(results, refs, work)
+        print(f"phase 18c render_rollout: {marks[-1] - marks[3]:.1f} s")
+    finally:
+        torch.set_num_threads(threads)
+        work_dir.cleanup()
+    summary["s"] = time.perf_counter() - t_phase
+    print(f"phase 18 entry points: {summary['s']:.1f} s")
+    return summary
+
+
+def _check_entry_train(results, refs, cfg, work, ckpt_lib, fused):
+    """18b's checks (see the module docstring); returns the per-rank
+    numbers."""
+    mp = cfg.num_message_passing_steps
+    runs = [r["continuous"] for r in results]
+    resumed = [r["resumed"] for r in results]
+    step_colls = {"all_gather": 0, "all_reduce": 3, "broadcast": 0, "ppermute": 2 + 4 * mp}
+    step_launches = {"fused_tail": mp, "fused_tail_bwd": mp} if fused else {}
+    per_epoch = len(runs[0]["steps"]) // 2
+    h = runs[0]["history"]
+    finite = all(np.isfinite(h["train_loss"] + h["val_loss"])) and len(h["train_loss"]) == 2
+    agree = all(r["history"] == h and np.array_equal(r["flat"], runs[0]["flat"])
+                for r in runs[1:])
+    exact = all(s["collectives"] == step_colls and s["launches"] == step_launches
+                for r in runs + resumed for s in r["steps"])
+    artifacts = {"model_best", "model_epoch_0", "model_epoch_1", "model_final",
+                 "training_history.json"}
+    written = artifacts <= set(runs[0]["files"]) and all(not r["files"] for r in runs[1:])
+    with open(os.path.join(work, "continuous", "rank0", "training_history.json")) as f:
+        saved = json.load(f)
+    keys = sorted(saved) == HISTORY_KEYS and sorted(saved["component_losses"]) == COMPONENT_KEYS
+    if not (finite and agree and exact and written and keys and per_epoch == 4
+            and runs[0]["mesh"] == {"data": 1, "particle": ENTRY_WORLD}):
+        fail(f"halo Trainer through cli.train: history {h}, ranks agree {agree}, per-step "
+             f"collectives {[s['collectives'] for s in runs[0]['steps']]} (want {step_colls}), "
+             f"launches {[s['launches'] for s in runs[0]['steps']]} (want {step_launches}), "
+             f"files {[r['files'] for r in runs]}, history keys {sorted(saved)}, mesh "
+             f"{runs[0]['mesh']}")
+    # The resume from model_epoch_0 equals the continuous run bit for bit.
+    a = ckpt_lib.load_state(os.path.join(work, "continuous", "rank0", "model_epoch_1"))
+    b = ckpt_lib.load_state(os.path.join(work, "resumed", "rank0", "model_epoch_1"))
+    diff = _states_equal(a, b)
+    if (diff != 0 or not torch.equal(a["generator"], b["generator"])
+            or any(r["history"] != h for r in resumed) or len(resumed[0]["steps"]) != per_epoch
+            or any(r["files"] for r in resumed[1:])):
+        fail(f"halo resume: largest difference {diff}, generator equal "
+             f"{torch.equal(a['generator'], b['generator'])}, histories "
+             f"{[r['history'] for r in resumed]}, steps {len(resumed[0]['steps'])}")
+    # Against the single-device Trainer(partition_invariant_noise=True).
+    halo_losses = [s["loss"] for s in runs[0]["steps"][:per_epoch]]
+    rel = [abs(x - y) / abs(y) for x, y in zip(halo_losses, refs["losses"], strict=True)]
+    if not (rel[0] <= ENTRY_FIRST_LOSS_RTOL and max(rel) <= ENTRY_EPOCH_LOSS_RTOL):
+        fail(f"halo fit against the single-device fit: losses {halo_losses} and "
+             f"{refs['losses']}, relative differences {rel}")
+    hc = runs[0]["halo"]
+    print(f"halo Trainer through cli.train's body ({ENTRY_WORLD} ranks on cuda:0, gloo; "
+          f"--spatial_shards {ENTRY_WORLD}, mesh {runs[0]['mesh']}, HaloConfig{tuple(hc)}; the "
+          f"default model bf16, k={K}, noise {TRAIN_NOISE} keyed per particle, no augmentation, "
+          f"the native pinned feed, 2 epochs of {per_epoch} steps): train losses "
+          f"{[float(f'{v:.6g}') for v in h['train_loss']]}, val losses "
+          f"{[float(f'{v:.6g}') for v in h['val_loss']]}; params after the last step and "
+          f"history equal on every rank; rank 0 alone wrote {sorted(artifacts)}; per train step "
+          f"launches {step_launches or 'none'} and collectives {step_colls} on every rank; "
+          f"model_epoch_0 restored and epoch 1 refitted: model_epoch_1 params, Adam state and "
+          f"generator bit-equal, history equal; epoch 0's step losses against the "
+          f"single-device Trainer(partition_invariant_noise=True) on the same feed: relative "
+          f"differences {[float(f'{x:.3g}') for x in rel]} (first step tol "
+          f"{ENTRY_FIRST_LOSS_RTOL}, the epoch's {ENTRY_EPOCH_LOSS_RTOL})")
+    numbers = []
+    for q, (r, s) in enumerate(zip(runs, results)):
+        later = [st["ms"] for st in r["steps"][1:]]
+        numbers.append(float(np.mean(later)))
+        print(f"  18b rank {q}: ms per train step inside fit (CUDA events; the first "
+              f"{r['steps'][0]['ms']:.1f}, then mean {np.mean(later):.1f}, "
+              f"{[round(v, 1) for v in later]}), {r['steps'][1]['staged']} bytes host-staged "
+              f"a step, peak {s['train_peak']:.3f} GiB")
+    return numbers
+
+
+def _check_entry_render(results, refs, work):
+    """18c's checks (see the module docstring); returns each rank's ms a
+    step per shard count."""
+    numbers = {}
+    for shards in ENTRY_RENDER_SHARDS:
+        got = [r[f"render{shards}"] for r in results]
+        worst = max(float(np.max(np.abs(np.asarray(g["errors"][key], np.float64)
+                                        - np.asarray(value, np.float64))))
+                    for g in got for key, value in refs["errors"].items())
+        coords = np.load(os.path.join(work, f"render{shards}", "rank0",
+                                      "rollout_coordinates.npy"))
+        coord_err = float(np.abs(coords - refs["coords"]).max())
+        want_mesh = {"data": ENTRY_WORLD // shards, "particle": shards}
+        files = {"rollout_coordinates.npy", "rollout_temperatures.npy", "rollout_summary.txt"}
+        printed_ok = all("kNN exactness certificate held for every rollout step" in g["printed"]
+                         and "WARNING: halo rollout" not in g["printed"] for g in got)
+        if not (worst <= HALO_GATHER_TOL and coord_err <= HALO_GATHER_TOL and printed_ok
+                and all(g["mesh"] == want_mesh for g in got)
+                and files <= set(got[0]["files"]) and all(not g["files"] for g in got[1:])):
+            fail(f"render_rollout --spatial_shards {shards}: errors off by {worst}, positions "
+                 f"by {coord_err} (tol {HALO_GATHER_TOL}), meshes {[g['mesh'] for g in got]}, "
+                 f"files {[g['files'] for g in got]}, printed {[g['printed'] for g in got]}")
+        numbers[shards] = [g["ms"] for g in got]
+        print(f"render_rollout's body --spatial_shards {shards} (mesh {want_mesh}, "
+              f"{ENTRY_WORLD} ranks on cuda:0): the flagship seed window, {HALO_STEPS} steps f32; "
+              f"positions within {coord_err:.3g} and errors within {worst:.3g} of the "
+              f"single-device render (tol {HALO_GATHER_TOL}); certificate held every step, no "
+              f"migration overflow or stranded particle; rank 0 alone wrote "
+              f"{sorted(got[0]['files'])}; ms a step per rank (run_halo_rollout, the first "
+              f"step's warm-up included) {[round(v, 1) for v in numbers[shards]]}")
+    return numbers
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3202,10 +3740,12 @@ def main() -> None:
 
     # ---- 12a. the Trainer slice ------------------------------------------
     t0 = time.perf_counter()
-    fit_train = MemoryDataset([generate_synthetic_simulation(
-        num_snapshots=FIT_TRAIN_SNAPSHOTS, num_particles=N, seed=args.seed + 10)])
-    fit_val = MemoryDataset([generate_synthetic_simulation(
-        num_snapshots=FIT_VAL_SNAPSHOTS, num_particles=N, seed=args.seed + 11)])
+    # Kept for phase 18a, which refits the first epoch from the native feed.
+    fit_sims = {"train": generate_synthetic_simulation(
+        num_snapshots=FIT_TRAIN_SNAPSHOTS, num_particles=N, seed=args.seed + 10),
+        "val": generate_synthetic_simulation(
+        num_snapshots=FIT_VAL_SNAPSHOTS, num_particles=N, seed=args.seed + 11)}
+    fit_train, fit_val = MemoryDataset([fit_sims["train"]]), MemoryDataset([fit_sims["val"]])
     train_steps, eval_steps = FIT_EPOCHS * len(fit_train), FIT_EPOCHS * len(fit_val)
     fit_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_fit_")  # removed after 12b
     fit_root = fit_tmp.name
@@ -3268,6 +3808,7 @@ def main() -> None:
     loop_ms = [steps[e * per_epoch][0].elapsed_time(steps[(e + 1) * per_epoch - 1][1]) / per_epoch
                for e in range(FIT_EPOCHS)]
     fit_step_ms = float(np.mean(step_ms[per_epoch:]))  # after the first epoch
+    fit_first_epoch_ms = step_ms[:per_epoch]  # phase 18a's memory feed
     epoch_s = fitter.step_timer.summary()["train_epoch"]
     print(f"Trainer.fit cellblock_hybrid: N={N} k={K} default model bf16, noise {TRAIN_NOISE}, "
           f"batch 1, {FIT_EPOCHS} epochs of {per_epoch} train + {len(fit_val)} eval steps; "
@@ -3348,6 +3889,7 @@ def main() -> None:
           f"{len(sync_calls()) - sum(in_step)} in the fit outside its train steps; the first "
           f"step's at "
           f"{dict(sync_sites)}")
+    fit_epoch0 = saved  # phase 18a's refit is held to it
     del fitter, resumed, saved, a, b
     fit_tmp.cleanup()
     print(f"phase 12b resume: {time.perf_counter() - t0:.1f} s")
@@ -3735,6 +4277,8 @@ def main() -> None:
     sharded_ms = sharded_phase(args, dev, report, path_launches, zero)
     slab, gid_ms = halo_phase(args, dev, report, path_launches, zero, cfg, stats, train_ms)
     halo_ms = halo_ranks_phase(args, dev, zero)
+    entry_ms = entry_points_phase(args, dev, zero, cfg, stats, fit_sims, fit_tc, fit_epoch0,
+                                  fit_first_epoch_ms)
 
     # ---- 12. kernels line ------------------------------------------------
     kernels_line = []
@@ -3753,7 +4297,13 @@ def main() -> None:
           + f"; config-5 slab plan build {slab['build_ms']:.4f} ms (peak "
           f"{slab['build_peak_gib']:.3f} GiB), gid-keyed train step {gid_ms:.4f} ms; halo ms "
           f"per rank " + ", ".join(f"{name} {[round(v, 3) for v in values]}"
-                                   for name, values in halo_ms.items()))
+                                   for name, values in halo_ms.items())
+          + f"; entry points: native feed ms per train step "
+          f"{[round(v, 4) for v in entry_ms['18a']['step_ms']]}, halo Trainer (cli.train, P "
+          f"= {ENTRY_WORLD}) ms per step per rank {[round(v, 1) for v in entry_ms['18b']]}, "
+          f"halo render ms per step per rank " + ", ".join(
+              f"P={p} {[round(v, 1) for v in values]}" for p, values in entry_ms["18c"].items())
+          + f"; phase 18 {entry_ms['s']:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

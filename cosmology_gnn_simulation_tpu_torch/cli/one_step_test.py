@@ -5,10 +5,9 @@ the JAX CLI's flags and report, plus ``--device`` (default ``cuda``, as
 
 The model flags stay accepted, but the checkpoint's embedded
 ``config["model"]`` wins over them. Checkpoints are the port's own
-(``state.pt``, ``utils/checkpoint.py``); a JAX Orbax checkpoint is refused,
-since its importer is not ported (ROADMAP queue 1 item 2). The flags of the
-training CLI whose paths the port lacks raise ``NotImplementedError``
-naming their ROADMAP item (``config.check_ported``).
+(``state.pt``, ``utils/checkpoint.py``); a JAX Orbax checkpoint raises a
+``ValueError`` that names its importer, the repository's
+``import_jax_checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -19,7 +18,6 @@ import os
 
 import numpy as np
 
-from cosmology_gnn_simulation_tpu_torch.config import check_ported
 from cosmology_gnn_simulation_tpu_torch.data.hdf5 import read_simulation
 from cosmology_gnn_simulation_tpu_torch.evaluation import validate_one_step
 from cosmology_gnn_simulation_tpu_torch.models.encode_process_decode import (
@@ -48,13 +46,7 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
 def load_model_from_checkpoint(model_path: str, args, device="cuda"):
     """Restore params on ``device``; prefer the checkpoint's embedded model
     config over the flags."""
-    if not os.path.exists(os.path.join(model_path, ckpt_lib.STATE_FILE)):
-        if os.path.isdir(model_path):
-            raise NotImplementedError(
-                f"{model_path} holds no {ckpt_lib.STATE_FILE}: not a checkpoint of the port. "
-                "Importing the JAX package's Orbax checkpoints is not ported yet (ROADMAP "
-                "queue 1 item 2); on a host with JAX, convert the params with "
-                "convert.params_from_jax and save them with utils.checkpoint.save_checkpoint")
+    if not os.path.exists(model_path):
         raise FileNotFoundError(f"checkpoint not found: {model_path}")
     restored = ckpt_lib.load_checkpoint(model_path, device)
     params = restored["params"]
@@ -107,7 +99,6 @@ def main(argv=None):
             "evaluation (each window performs exactly one neighbor "
             "search); use render_rollout for neighbor reuse"
         )
-    check_ported(args)
     device = resolve_device(args.device)
 
     with open(args.metadata_path) as f:

@@ -2,12 +2,13 @@
 rollout entry point (counterpart of ``cli/render_rollout.py``): the JAX
 CLI's flags, messages and artifacts (the two ``.npy`` trajectories,
 ``rollout_summary.txt``, and ``errors.png`` where matplotlib is installed),
-plus ``--device`` (default ``cuda``).
+plus ``--device`` (default ``cuda``) and ``--dist_backend``.
 
 ``main`` parses, loads the metadata, the checkpoint and the HDF5 ground
 truth, and hands the arrays to ``render``, the CLI's body on arrays in
-memory. Flags whose paths the port lacks (``--spatial_shards`` > 1) raise
-``NotImplementedError`` naming their ROADMAP item.
+memory. ``--spatial_shards P`` runs the halo rollout on a ``(world // P,
+P)`` mesh of torchrun's ranks (``torchrun --nproc_per_node=P``), as
+``cli.train`` does; rank 0 alone writes the artifacts.
 """
 
 from __future__ import annotations
@@ -23,15 +24,20 @@ from cosmology_gnn_simulation_tpu_torch.cli.one_step_test import (
     add_model_flags,
     load_model_from_checkpoint,
 )
-from cosmology_gnn_simulation_tpu_torch.config import check_ported
 from cosmology_gnn_simulation_tpu_torch.data.hdf5 import read_simulation
 from cosmology_gnn_simulation_tpu_torch.evaluation import (
     calculate_rollout_errors,
     write_rollout_summary,
 )
 from cosmology_gnn_simulation_tpu_torch.featurize import verify_neighbor_exactness
+from cosmology_gnn_simulation_tpu_torch.parallel.halo import choose_halo_config, run_halo_rollout
+from cosmology_gnn_simulation_tpu_torch.parallel.mesh import spatial_mesh
 from cosmology_gnn_simulation_tpu_torch.rollout import rollout
-from cosmology_gnn_simulation_tpu_torch.types import NormalizationStats, resolve_device
+from cosmology_gnn_simulation_tpu_torch.types import (
+    NormalizationStats,
+    resolve_device,
+    tree_map,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,16 +79,19 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Disable the fused step-tail kernel K5 (on by default for "
                              "pruned bf16 rollouts on the card; ops/fused_step.py)")
     parser.add_argument("--spatial_shards", type=int, default=0,
-                        help="spatially sharded rollout over this many devices "
-                             "(0/1 = single device; > 1 is not ported: raises)")
+                        help="spatially sharded rollout over this many ranks with "
+                             "halo exchange (torchrun --nproc_per_node=P or a "
+                             "multiple of it; 0/1 = single device)")
+    parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                        help="process-group backend (default: NCCL for cuda, gloo for the "
+                             "CPU); gloo with --device cuda:0 runs every rank on one card")
     add_model_flags(parser)
     return parser
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     """Parse and check the flags: a parser error for the brute-force
-    fallback with cell-block aggregation (as the JAX CLI),
-    ``NotImplementedError`` for the unported ones."""
+    fallback with cell-block aggregation (as the JAX CLI)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.aggregation.startswith("cellblock") and args.exactness_guard == "fallback":
@@ -91,7 +100,6 @@ def parse_args(argv=None) -> argparse.Namespace:
             "only: brute-force fallback neighbors can exceed the one-cell "
             "window the selection matrices cover"
         )
-    check_ported(args)
     return args
 
 
@@ -100,9 +108,21 @@ def render(args, params, model_config, stats, ground_truth):
     seed frame, the rollout on ``args.device``, the error metrics and the
     artifacts in ``args.output_dir``. ``ground_truth`` holds
     ``Coordinates [T, N, 3]`` and ``InternalEnergy [T, N, 1]`` arrays.
-    Returns the errors."""
+    With ``--spatial_shards P`` every rank runs the halo rollout (its mesh
+    joined here; ``params`` and ``stats`` go to the rank's device) and
+    returns the errors, and rank 0 alone writes the artifacts. Returns the
+    errors."""
     device = resolve_device(args.device)
-    os.makedirs(args.output_dir, exist_ok=True)
+    spatial = args.spatial_shards or 0
+    mesh = None
+    if spatial > 1:
+        mesh = spatial_mesh(spatial, device, backend=args.dist_backend)
+        device = mesh.device
+        params = tree_map(lambda t: t.to(device), params)
+        stats = stats.to(device)
+    writes = mesh is None or mesh.rank == 0
+    if writes:
+        os.makedirs(args.output_dir, exist_ok=True)
     total_time = ground_truth["Coordinates"].shape[0]
     num_steps = (
         args.num_steps
@@ -117,24 +137,34 @@ def render(args, params, model_config, stats, ground_truth):
         strict=not args.no_strict_neighbors,
     )
     print("Performing rollout")
-    rollout_data = rollout(
-        params,
-        model_config,
-        ground_truth["Coordinates"][: args.window_size],
-        ground_truth["InternalEnergy"][: args.window_size],
-        stats,
-        num_steps,
-        num_neighbors=args.num_neighbors,
-        neighbor_method=args.neighbor_method,
-        reneighbor_every=args.reneighbor_every,
-        exactness_guard=args.exactness_guard,
-        aggregation=args.aggregation,
-        cellblock_variable=args.cellblock_variable,
-        fused_tail=False if args.no_fused_tail else None,
-        sorted_state=args.sorted_state,
-        device=device,
-    )
-    rollout_data = {k: v.cpu().numpy() for k, v in rollout_data.items()}
+    if spatial > 1:
+        hc = choose_halo_config(ground_truth["Coordinates"].shape[1], args.num_neighbors, spatial)
+        rollout_data, diag = run_halo_rollout(
+            params, model_config, ground_truth["Coordinates"][: args.window_size],
+            ground_truth["InternalEnergy"][: args.window_size], stats, num_steps, mesh, hc,
+            num_neighbors=args.num_neighbors)
+        if diag["overflow"] or diag["stranded"]:
+            print(f"WARNING: halo rollout capacity diagnostics {diag} != 0 "
+                  "— results are approximate; raise the halo slacks")
+    else:
+        rollout_data = rollout(
+            params,
+            model_config,
+            ground_truth["Coordinates"][: args.window_size],
+            ground_truth["InternalEnergy"][: args.window_size],
+            stats,
+            num_steps,
+            num_neighbors=args.num_neighbors,
+            neighbor_method=args.neighbor_method,
+            reneighbor_every=args.reneighbor_every,
+            exactness_guard=args.exactness_guard,
+            aggregation=args.aggregation,
+            cellblock_variable=args.cellblock_variable,
+            fused_tail=False if args.no_fused_tail else None,
+            sorted_state=args.sorted_state,
+            device=device,
+        )
+        rollout_data = {k: v.cpu().numpy() for k, v in rollout_data.items()}
     exactness = rollout_data.pop("neighbor_exactness", None)
     if exactness is not None:
         inexact = int((~exactness.astype(bool)).sum())
@@ -167,6 +197,8 @@ def render(args, params, model_config, stats, ground_truth):
 
     print("Calculating errors")
     errors = calculate_rollout_errors(rollout_data, ground_truth)
+    if not writes:
+        return errors
 
     try:
         from cosmology_gnn_simulation_tpu_torch.training.plots import (
@@ -208,16 +240,19 @@ def render(args, params, model_config, stats, ground_truth):
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
+    # A halo run's ranks take their card in render: the statistics and the
+    # weights wait on the host until then.
+    host = "cpu" if (args.spatial_shards or 0) > 1 else device
     with open(args.metadata_path) as f:
         metadata = json.load(f)
-    stats = NormalizationStats.from_metadata(metadata, device=device)
+    stats = NormalizationStats.from_metadata(metadata, device=host)
     print(f"Using time step (dt): {stats.dt}")
     print(f"Using box size: {stats.box_size}")
 
     if args.noise_std:
         print("WARNING: --noise_std is ignored by rollout (kept for "
               "reference-CLI parity; rollouts are always noise-free)")
-    params, model_config = load_model_from_checkpoint(args.model_path, args, device)
+    params, model_config = load_model_from_checkpoint(args.model_path, args, host)
     ground_truth = read_simulation(
         args.test_data, fields=["Coordinates", "InternalEnergy"]
     )

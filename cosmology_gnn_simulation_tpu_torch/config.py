@@ -1,5 +1,5 @@
 """Training CLI configuration (counterpart of ``config.py``): the JAX
-package's flags and defaults, plus ``--device``.
+package's flags and defaults, plus ``--device`` and ``--dist_backend``.
 
 * ``--device`` (default ``cuda``) picks where the port trains; without a
   CUDA device ``cuda`` raises, nothing falls back to the CPU;
@@ -8,9 +8,12 @@ package's flags and defaults, plus ``--device``.
 * ``--distributed`` joins torchrun's process group (NCCL on the card,
   gloo with ``--device cpu``) and ``--data_parallel`` trains on a mesh of
   every rank on the data axis (``parallel/``);
-* flags whose paths the port does not have yet (``--spatial_shards`` > 1,
-  ``--native_loader``) raise ``NotImplementedError`` naming the ROADMAP
-  item that ports them (``check_ported``).
+* ``--spatial_shards P`` trains halo-sharded on a ``(world // P, P)`` mesh
+  of torchrun's ranks (``torchrun --nproc_per_node=P``: the port's shards
+  are processes, JAX's are devices); ``--dist_backend gloo`` with
+  ``--device cuda:0`` puts every rank on one card, which NCCL refuses;
+* ``--native_loader`` feeds the C++ batch loader (``data/native_loader.py``)
+  and raises if it does not build.
 """
 
 from __future__ import annotations
@@ -74,7 +77,11 @@ def build_train_parser() -> argparse.ArgumentParser:
                              "(one rank alone without --distributed)")
     parser.add_argument("--spatial_shards", type=int, default=0,
                         help="Decompose the box into this many x-slabs with "
-                             "halo exchange; 0/1 = off (more is not ported)")
+                             "halo exchange, one rank each (torchrun "
+                             "--nproc_per_node=P or a multiple of it); 0/1 = off")
+    parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                        help="Process-group backend (default: NCCL for cuda, gloo for "
+                             "the CPU); gloo with --device cuda:0 runs every rank on one card")
     parser.add_argument("--neighbor_method", type=str, default="auto",
                         choices=["auto", "bruteforce", "celllist", "pallas"],
                         help="Periodic k-NN backend")
@@ -115,7 +122,8 @@ def build_train_parser() -> argparse.ArgumentParser:
                         help="Downgrade a failed kNN exactness certificate "
                              "from an error to a warning")
     parser.add_argument("--native_loader", action="store_true",
-                        help="Use the C++ mmap/prefetch batch loader (not ported)")
+                        help="Use the C++ mmap/prefetch batch loader (pinned host "
+                             "buffers on the card)")
     parser.add_argument("--resume", type=str, default=None,
                         help="Checkpoint dir for FULL resume (params + "
                              "optimizer + epoch + RNG), unlike "
@@ -123,26 +131,8 @@ def build_train_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for a flag whose path the port does not
-    have yet, naming the ROADMAP queue 1 item that ports it. A flag the
-    parser lacks (the eval CLIs have fewer) counts as not given."""
-    def flag(name, default=None):
-        return getattr(args, name, default)
-
-    unported = [
-        ((flag("spatial_shards") or 0) > 1, "--spatial_shards > 1",
-         "5b-iii (the halo path's entry points)"),
-        (flag("native_loader"), "--native_loader", 6),
-    ]
-    for given, name, item in unported:
-        if given:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1 item {item})")
-
-
 def get_config(argv=None):
     args = build_train_parser().parse_args(argv)
-    check_ported(args)
     os.makedirs(args.output_dir, exist_ok=True)
     with open(args.metadata_path, "r") as f:
         args.metadata = json.load(f)

@@ -33,9 +33,9 @@ the global impulse, so the halo step's gradient is the single-device
 step's (the collectives' convention, ``parallel/collectives.py``).
 
 Ranks that share one card run over a gloo group (``parallel.mesh``): every
-exchange then goes through pinned host buffers, counted. Not ported:
-``Trainer(halo=...)`` and ``--spatial_shards`` (ROADMAP queue 1 item
-5b-iii).
+exchange then goes through pinned host buffers, counted. The entry points
+are ``Trainer(halo=...)`` and ``--spatial_shards`` in ``cli.train`` and
+``cli.render_rollout``.
 """
 
 from __future__ import annotations
@@ -649,12 +649,16 @@ def make_halo_train_step(model_config, stats: NormalizationStats, train_config, 
     ``gid``: with the same generator the noised step is
     ``make_train_step``'s with ``partition_invariant_noise=True``.
 
-    ``cellblock_spec`` (``choose_cellblock_spec_halo``): the aggregation
-    runs on each shard's slab plan (built with its reverse table; K4, and
-    K4^T with the exchange's reverse in the backward)."""
+    Without a spec the aggregation gathers over the candidate rows, and
+    with ``build_reverse`` (as the single-device step) its backward is the
+    sorted-edge segment sum over them, deterministic where autograd's
+    scatter-add is not. ``cellblock_spec`` (``choose_cellblock_spec_halo``):
+    the aggregation runs on each shard's slab plan (built with its reverse
+    table; K4, and K4^T with the exchange's reverse in the backward)."""
     from cosmology_gnn_simulation_tpu_torch.models.encode_process_decode import (
         apply_encode_process_decode,
     )
+    from cosmology_gnn_simulation_tpu_torch.ops.aggregation import build_sorted_edges
     from cosmology_gnn_simulation_tpu_torch.ops.noise import gid_key
     from cosmology_gnn_simulation_tpu_torch.parallel.sharded import _sharded_loss
     from cosmology_gnn_simulation_tpu_torch.training.trainer import _axis_draw
@@ -687,6 +691,9 @@ def make_halo_train_step(model_config, stats: NormalizationStats, train_config, 
                 target_temperature=batch["target_temperatures"][local],
                 noise_gids=batch["gid"][local], cellblock_spec=cellblock_spec,
                 cellblock_reverse=cellblock_spec is not None)
+            if cellblock_spec is None and tc.build_reverse:
+                graph = graph._replace(sorted_edges=build_sorted_edges(graph.neighbors,
+                                                                       hc.candidate_count))
             preds = apply_encode_process_decode(params, graph, cfg, dtype,
                                                 cellblock_spec=cellblock_spec,
                                                 cellblock_mode="hybrid", particle_axis=particle,

@@ -87,6 +87,24 @@ def local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", 0))
 
 
+def spatial_mesh(num_shards: int, device="cuda", backend: Optional[str] = None) -> "Mesh":
+    """The ``(world // P, P)`` mesh of a CLI's halo run (``--spatial_shards
+    P``; JAX lays out its devices so): joins torchrun's process group
+    (``initialize_distributed`` with ``backend``) unless this process is in
+    one. Raises ``ValueError`` without a process group, or when P does not
+    divide the world size."""
+    initialize_distributed(device=device, backend=backend)
+    if not dist.is_initialized():
+        raise ValueError(f"--spatial_shards {num_shards} runs one rank per shard: launch it "
+                         f"with torchrun --nproc_per_node={num_shards} (or a multiple); this "
+                         "process has no process group (MASTER_ADDR, RANK, WORLD_SIZE unset)")
+    world = dist.get_world_size()
+    if world % num_shards:
+        raise ValueError(f"--spatial_shards {num_shards} must divide the world size {world} "
+                         "(torchrun --nproc_per_node)")
+    return make_mesh((world // num_shards, num_shards), device=device)
+
+
 @dataclasses.dataclass(frozen=True)
 class RankInfo:
     """A rank and the node it runs on (the layout logic's view of a device:

@@ -46,9 +46,13 @@ restores on resume.
 ``partition_invariant_noise`` keys each sample's noise per particle by its
 global id (``ops.noise``): ``arange(N)``, or the batch's ``gids [B, N]``
 where it carries them (a layout of the particles other than the dataset's,
-as a halo partition gives). Not ported: the halo-sharded trainer
-(``halo``), which raises ``NotImplementedError`` (ROADMAP queue 1 item
-5b-iii; its steps are ``parallel/halo.py``'s).
+as a halo partition gives).
+
+``Trainer(mesh=..., halo=...)`` runs the halo-sharded steps of
+``parallel/halo.py``: each batch is partitioned into slabs on the host
+(``partition_batch``, which also draws the xyz augmentation there from a
+host generator seeded alike on every rank) and each rank takes its slice;
+validation pads and masks a tail batch as on a mesh.
 """
 
 from __future__ import annotations
@@ -271,8 +275,14 @@ def _prepare(params, batch, model_config, tc, dtype):
     """The batch as float32 tensors on the parameters' device, and the model
     config with the fused tail resolved for that device."""
     device = tree_leaves(params)[0].device
-    batch = {key: torch.as_tensor(value, dtype=torch.int64 if key == "gids" else torch.float32)
-             .to(device) for key, value in batch.items()}
+
+    def upload(key, value):
+        # A pinned tensor (the native loader's) goes up without waiting; the
+        # pinned allocator keeps its block until the copy is done.
+        host = torch.as_tensor(value, dtype=torch.int64 if key == "gids" else torch.float32)
+        return host.to(device, non_blocking=host.is_pinned())
+
+    batch = {key: upload(key, value) for key, value in batch.items()}
     return batch, model_config._replace(
         fused_tail=resolve_fused_tail(tc.fused_tail, model_config, device, dtype))
 
@@ -367,9 +377,16 @@ class Trainer:
     Trainer and calls ``fit``): the steps run index-sharded on
     ``mesh.device``, which replaces ``device``; ``batch_size`` must divide by
     the data-axis size; each step's randomness is keyed by the seed and the
-    global step (``parallel/sharded.py``). ``halo`` (the halo-sharded
-    trainer) is not ported (ROADMAP queue 1 item 5b-iii; the halo steps
-    are ``parallel.halo``'s) and raises.
+    global step (``parallel/sharded.py``).
+
+    ``halo`` (a ``parallel.halo.HaloConfig``; needs ``mesh``, whose particle
+    axis has ``halo.num_shards`` ranks): the halo-sharded steps, with no
+    cell-block spec, as the JAX Trainer builds them. The xyz augmentation
+    runs on the host in ``partition_batch``, drawn from
+    ``np.random.default_rng(seed)``, which every rank advances alike; the
+    train generator draws the noise as the single-device step does, so with
+    ``partition_invariant_noise`` a halo fit is the single-device fit. As
+    in JAX, ``restore`` does not restore that host generator.
     """
 
     def __init__(
@@ -383,11 +400,10 @@ class Trainer:
         halo=None,
         device="cuda",
     ):
-        if halo is not None:
-            raise NotImplementedError("Trainer(halo=...) is not ported yet (ROADMAP queue 1 "
-                                      "item 5b-iii, the halo path's entry points; its steps "
-                                      "are parallel.halo's)")
+        if halo is not None and mesh is None:
+            raise ValueError("halo sharding requires a mesh")
         self.mesh = mesh
+        self.halo = halo
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.model_config = model_config
         self.stats = stats.to(self.device)
@@ -402,10 +418,21 @@ class Trainer:
                 init_params)
         self.optimizer = make_optimizer(train_config, steps_per_epoch)
         self.opt_state = self.optimizer.init(self.params)
+        if mesh is not None and train_config.batch_size % mesh.shape["data"]:
+            raise ValueError(f"batch_size {train_config.batch_size} must divide by "
+                             f"data-axis size {mesh.shape['data']}")
         if mesh is None:
             self.train_step = make_train_step(model_config, self.stats, train_config,
                                               self.optimizer)
             self.eval_step = make_eval_step(model_config, self.stats, train_config)
+        elif halo is not None:
+            from cosmology_gnn_simulation_tpu_torch.parallel import halo as halo_lib
+
+            self.train_step = halo_lib.make_halo_train_step(
+                model_config, self.stats, train_config, self.optimizer, mesh, halo)
+            self.eval_step = halo_lib.make_halo_eval_step(model_config, self.stats,
+                                                          train_config, mesh, halo)
+            self._host_rng = np.random.default_rng(train_config.seed)
         else:
             from cosmology_gnn_simulation_tpu_torch.parallel.sharded import (
                 make_data_parallel_train_step,
@@ -414,9 +441,7 @@ class Trainer:
             )
 
             self.shard_batch = shard_batch
-            if train_config.batch_size % mesh.shape["data"]:
-                raise ValueError(f"batch_size {train_config.batch_size} must divide by "
-                                 f"data-axis size {mesh.shape['data']}")
+
             self.train_step = make_data_parallel_train_step(
                 model_config, self.stats, train_config, self.optimizer, mesh)
             # Per-sample metrics, so a tail batch can be padded and masked.
@@ -489,6 +514,12 @@ class Trainer:
                     if self.mesh is None:
                         self.params, self.opt_state, metrics = self.train_step(
                             self.params, self.opt_state, batch, self.generator)
+                    elif self.halo is not None:
+                        self.params, self.opt_state, metrics = self.train_step(
+                            self.params, self.opt_state,
+                            self._shard_halo(batch, augment_prob=tc.augment_prob,
+                                             rng=self._host_rng),
+                            self.generator)
                     else:
                         step = epoch * (len(train_dataset) // tc.batch_size) + count - 1
                         self.params, self.opt_state, metrics = self.train_step(
@@ -582,6 +613,17 @@ class Trainer:
                 json.dump(h, f, indent=4)
         return self.params
 
+    def _shard_halo(self, batch, **augment):
+        """This rank's slice of the batch partitioned into slabs
+        (``augment``: ``partition_batch``'s augmentation arguments)."""
+        from cosmology_gnn_simulation_tpu_torch.parallel.halo import (
+            partition_batch,
+            shard_halo_batch,
+        )
+
+        part = partition_batch(batch, self.halo, self.stats.box_size, **augment)
+        return shard_halo_batch(part, self.mesh)
+
     def _is_main(self) -> bool:
         """Whether this process writes the run's files (rank 0 of a mesh)."""
         return self.mesh is None or self.mesh.rank == 0
@@ -617,9 +659,12 @@ class Trainer:
                 metrics.append(self.eval_step(self.params, batch))
                 continue
             real = batch["positions"].shape[0]
+            batch = {key: np.asarray(v) for key, v in batch.items()}
             batch = {key: np.concatenate([v, np.repeat(v[-1:], bs - real, axis=0)])
                      for key, v in batch.items()}
-            per_sample = self.eval_step(self.params, self.shard_batch(batch, self.mesh))
+            local = (self.shard_batch(batch, self.mesh) if self.halo is None
+                     else self._shard_halo(batch))
+            per_sample = self.eval_step(self.params, local)
             metrics.append({key: v[:real].mean() for key, v in per_sample.items()})
         if not metrics:
             raise ValueError(

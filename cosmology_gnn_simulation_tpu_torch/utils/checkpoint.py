@@ -14,10 +14,11 @@ A checkpoint is a directory ``<directory>/<name>/`` holding
 * ``history.json``, written beside them by the Trainer.
 
 The payload holds only tensors, dicts, lists, tuples and plain numbers
-(no NamedTuple), so ``weights_only`` loading accepts it. JAX-trained
-weights come across as ``convert.params_from_jax(jax.tree.map(np.asarray,
-load_checkpoint(path)["params"]))`` with the JAX package's loader, on a host
-that has JAX.
+(no NamedTuple), so ``weights_only`` loading accepts it. A JAX package
+checkpoint (Orbax) comes across through the repository's
+``import_jax_checkpoint.py``, run on a host that has JAX: its params,
+epoch and config in this format; a directory without ``state.pt`` handed to
+``load_state`` raises a ``ValueError`` that says so.
 """
 
 from __future__ import annotations
@@ -67,7 +68,14 @@ def save_checkpoint(
 def load_state(path: str) -> Dict:
     """The saved payload of checkpoint ``path`` with every tensor on the CPU
     (``weights_only``), for a full restore."""
-    return torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+    state_file = os.path.join(path, STATE_FILE)
+    if os.path.isdir(path) and not os.path.exists(state_file):
+        raise ValueError(
+            f"{path} holds no {STATE_FILE}: not a checkpoint of the port. A JAX package "
+            f"(Orbax) checkpoint is imported on a host with JAX by `python "
+            f"import_jax_checkpoint.py {path} <output>` at the repository root, which writes "
+            "one that these loaders read")
+    return torch.load(state_file, map_location="cpu", weights_only=True)
 
 
 def load_checkpoint(path: str, device="cuda") -> Dict:

@@ -1,10 +1,11 @@
 """The port's training CLI and metadata CLI on synthetic HDF5 files, on the
 CPU (``--device cpu``): the artifacts of the JAX CLI, a full ``--resume``,
-``--pretrained_model`` loading weights only, every flag the port does not
-have raising ``NotImplementedError`` before any file is read (and the
-config-4 flags ``--aggregation cellblock``, ``--cellblock_variable`` and
-``--carry_dtype bfloat16``, which it has now, training), and
-``generate_metadata`` writing the JAX CLI's JSON.
+``--pretrained_model`` loading weights only, the flags of the later slices
+training (the config-4 flags ``--aggregation cellblock``,
+``--cellblock_variable`` and ``--carry_dtype bfloat16``, the sharded ones
+and ``--native_loader``), ``--spatial_shards`` in a single process raising
+the ``ValueError`` that names torchrun, and ``generate_metadata`` writing
+the JAX CLI's JSON.
 """
 
 import json
@@ -134,10 +135,11 @@ def test_pretrained_model_loads_weights_only(data, tmp_path, monkeypatch, capsys
     # --data_parallel; --distributed without torchrun's environment runs
     # single-process, as the JAX CLI does without a coordinator.
     (["--data_parallel"], None),
-    (["--spatial_shards", "2"], 5),
+    # Ported in slice 15: halo sharding needs a process group of ranks.
+    (["--spatial_shards", "2"], "torchrun --nproc_per_node=2"),
     (["--distributed"], None),
     (["--distributed", "--data_parallel"], None),
-    (["--native_loader"], 6),
+    (["--native_loader"], None),
 ])
 def test_unported_flags_raise(data, tmp_path, flags, item):
     if item is None:
@@ -152,11 +154,10 @@ def test_unported_flags_raise(data, tmp_path, flags, item):
         if trainer.mesh is not None:
             assert trainer.mesh.shape == {"data": 1, "particle": 1}
         return
-    argv = ["--train_dir", "t", "--val_dir", "v", "--metadata_path",
-            str(tmp_path / "no_such_metadata.json"), "--output_dir", str(tmp_path / "out"), *flags]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-        train_cli.main(argv)
-    assert not os.path.exists(tmp_path / "out")
+    with pytest.raises(ValueError, match=item):
+        train_cli.main(_argv(data, tmp_path / "out", *flags))
+    assert not dist.is_initialized()
+    assert not os.path.exists(tmp_path / "out" / "model_final")
 
 
 def test_device_defaults_to_the_card(data, tmp_path):

@@ -1227,3 +1227,38 @@ def test_halo_exchange_and_plan_on_two_gloo_ranks_sharing_the_card(cuda_device, 
         assert plan["launches"] == {"s_onehot": 1}
         assert plan["s_equal"] and plan["edges"] > 0 and plan["overflow"] == (0, 0)
         _assert_window_close(*plan["k4"])
+
+
+@pytest.mark.cuda
+def test_pinned_native_batches_upload_while_the_next_is_built(cuda_device, tmp_path):
+    """The native loader feeding the card: every batch's buffers are fresh
+    pinned tensors, the train step's ``_prepare`` uploads them with
+    ``non_blocking=True`` and drops them while the loader builds the next
+    batch into new ones (no synchronization in between), and after one
+    synchronize every upload equals, bit for bit, the pageable loader's
+    batch of the same windows."""
+    from cosmology_gnn_simulation_tpu_torch.data import native_loader
+    from cosmology_gnn_simulation_tpu_torch.data.synthetic import generate_synthetic_simulation
+    from cosmology_gnn_simulation_tpu_torch.training.trainer import _prepare
+
+    sim = generate_synthetic_simulation(num_snapshots=12, num_particles=65536, seed=4)
+    cache = native_loader.write_cache(sim, str(tmp_path / "sim.cgnn"))
+    pinned = native_loader.NativeSequenceLoader([cache], 5, pin_memory=True)
+    pageable = native_loader.NativeSequenceLoader([cache], 5)
+    cfg = default_model_config(latent_size=16, mlp_hidden_size=16, mlp_num_hidden_layers=1,
+                               num_message_passing_steps=1)
+    params = init_encode_process_decode(cfg, torch.Generator().manual_seed(0), cuda_device)
+    kw = dict(shuffle=True, seed=1, drop_remainder=False)
+    uploads = []
+    for batch in pinned.batches(2, **kw):
+        assert all(value.is_pinned() for value in batch.values())
+        uploads.append(_prepare(params, batch, cfg, TrainConfig(), None)[0])
+        del batch  # the allocator must hold each block until its copy is done
+    torch.cuda.synchronize()
+    want = list(pageable.batches(2, **kw))
+    assert len(uploads) == len(want) == 4  # 7 windows: 3 full batches and a tail
+    for got, ref in zip(uploads, want):
+        for key, value in ref.items():
+            assert torch.equal(got[key].cpu(), torch.from_numpy(value)), key
+    pinned.close()
+    pageable.close()

@@ -10,12 +10,12 @@ cpu``):
   params through ``convert.params_from_jax`` by the port's): equal tested
   timesteps, errors within rtol 1e-4 and trajectories within 1e-5 (float32,
   summation order only), the same summary lines;
-* the refusals: unported flags (``NotImplementedError`` naming the ROADMAP
-  item, before any file is read; the slot-space ``--aggregation cellblock``
-  and ``--cellblock_variable``, which the port has now, run instead), the
-  brute-force fallback with cell-block
-  aggregation (a parser error, as in JAX), a JAX Orbax checkpoint (its
-  importer is ROADMAP item 2), ``--device cuda`` without a card.
+* the flags of the later slices (the slot-space ``--aggregation
+  cellblock`` and ``--cellblock_variable`` run; ``--spatial_shards`` in a
+  single process raises the ``ValueError`` that names torchrun), and the
+  refusals: the brute-force fallback with cell-block aggregation (a parser
+  error, as in JAX), a JAX Orbax checkpoint (a ``ValueError`` naming its
+  importer, ``import_jax_checkpoint.py``), ``--device cuda`` without a card.
 """
 
 import json
@@ -181,7 +181,8 @@ _SLOTS = ["--aggregation", "cellblock"]
     ("one_step_test", [*_SLOTS, "--cellblock_variable"], None),
     ("render_rollout", _SLOTS, None),
     ("render_rollout", [*_SLOTS, "--cellblock_variable"], None),
-    ("render_rollout", ["--spatial_shards", "2"], 5),
+    # Ported in slice 15: a halo render needs a process group of ranks.
+    ("render_rollout", ["--spatial_shards", "2"], "torchrun --nproc_per_node=2"),
 ])
 def test_unported_flags_raise(data, checkpoints, tmp_path, cli, flags, item):
     module = {"one_step_test": one_step_test, "render_rollout": render_rollout}[cli]
@@ -192,12 +193,9 @@ def test_unported_flags_raise(data, checkpoints, tmp_path, cli, flags, item):
         errors = out["position_errors"]
         assert len(errors) == (2 if cli == "one_step_test" else 7) and np.isfinite(errors).all()
         return
-    argv = ["--model_path", str(tmp_path / "model"), "--test_data", str(tmp_path / "t.hdf5"),
-            "--metadata_path", str(tmp_path / "no_such_metadata.json"),
-            "--output_dir" if cli == "render_rollout" else "--num_timesteps",
-            str(tmp_path / "out") if cli == "render_rollout" else "2", *flags]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-        module.main(argv)
+    with pytest.raises(ValueError, match=item):
+        module.main(_eval_argv(data, checkpoints[1], "--device", "cpu", "--output_dir",
+                               str(tmp_path / "out"), *flags))
     assert not os.path.exists(tmp_path / "out")
 
 
@@ -209,7 +207,7 @@ def test_the_other_refusals(data, checkpoints, tmp_path):
     with pytest.raises(SystemExit):
         one_step_test.main(_eval_argv(data, port_path, "--reneighbor_every", "2"))
     for module in (one_step_test, render_rollout):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
+        with pytest.raises(ValueError, match="import_jax_checkpoint.py"):
             module.main(_eval_argv(data, jax_path, "--device", "cpu",
                                    "--output_dir" if module is render_rollout else "--seed",
                                    str(tmp_path / "out") if module is render_rollout else "0"))

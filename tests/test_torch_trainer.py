@@ -286,9 +286,9 @@ def test_profiling_step_timer_trace_and_profile_epoch(tmp_path):
 
 
 def test_unported_and_device_arguments_raise():
-    # The mesh trainer is ported (tests/test_torch_sharded.py); the halo one
-    # is not (its steps are: tests/test_torch_halo.py).
-    with pytest.raises(NotImplementedError, match="queue 1 item 5b-iii"):
+    # The mesh and halo trainers are ported (tests/test_torch_sharded.py,
+    # tests/test_torch_halo_trainer.py); halo sharding needs a mesh, as JAX's.
+    with pytest.raises(ValueError, match="halo sharding requires a mesh"):
         Trainer(default_model_config(**MODEL), NormalizationStats.from_metadata(
             METADATA, device="cpu"), TrainConfig(), 1, halo=object(), device="cpu")
     if not torch.cuda.is_available():  # the default device is the card; no fallback

@@ -1,24 +1,38 @@
-"""Rank functions of ``tests/test_torch_halo.py`` and
-``tests/test_torch_halo_cellblock.py``: the port's halo exchange and halo
-steps run by gloo ranks (``torch_sharded_workers.Ranks``, which calls each
-case as ``fn(mesh, **kwargs)``). This module imports no JAX; the tests hold
-what the ranks return to their references, and the reference functions
-here serve them too (``single_train``).
+"""Rank functions of ``tests/test_torch_halo.py``,
+``tests/test_torch_halo_cellblock.py`` and ``tests/test_torch_halo_trainer.py``:
+the port's halo exchange, halo steps and halo entry points run by gloo
+ranks (``torch_sharded_workers.Ranks``, which calls each case as
+``fn(mesh, **kwargs)``). This module imports no JAX; the tests hold what the
+ranks return to their references, and the reference functions here serve
+them too (``single_train``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from cosmology_gnn_simulation_tpu_torch.cli import render_rollout
+from cosmology_gnn_simulation_tpu_torch.cli import train as train_cli
+from cosmology_gnn_simulation_tpu_torch.convert import params_to_numpy
+from cosmology_gnn_simulation_tpu_torch.data.dataset import SequenceDataset
 from cosmology_gnn_simulation_tpu_torch.parallel import halo
+from cosmology_gnn_simulation_tpu_torch.training import plots
 from cosmology_gnn_simulation_tpu_torch.parallel.collectives import (
     collectives,
     collectives_bytes,
     ppermute,
     reset_collectives,
 )
-from cosmology_gnn_simulation_tpu_torch.training.trainer import TrainConfig, make_train_step
+from cosmology_gnn_simulation_tpu_torch.training.trainer import (
+    TrainConfig,
+    Trainer,
+    make_train_step,
+)
 from cosmology_gnn_simulation_tpu_torch.types import tree_leaves
 from torch_sharded_workers import _setup, optimizer
 
@@ -209,3 +223,77 @@ def single_train(model, meta, params, tc, batch, seed):
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "params": [t.detach().numpy().copy() for t in tree_leaves(tparams)],
             "grads": optim.grads}
+
+
+def _no_plots():
+    """Skip the loss and error plots (seconds each on the CPU; no case
+    reads them) in this rank."""
+    plots.plot_losses = plots.plot_rollout_errors = lambda *args, **kwargs: None
+
+
+def _leaves(params):
+    return [a.copy() for a in tree_leaves(params_to_numpy(params))]
+
+
+def _files(path):
+    return sorted(os.listdir(path)) if os.path.isdir(path) else []
+
+
+def halo_trainer_case(mesh, model, meta, params, hc, tc, train_dir, val_dir, out, resume=False):
+    """``Trainer(mesh, halo).fit`` over the HDF5 sets, rank r's output
+    directory ``out/rank{r}`` (rank 0 alone writes): the params after the
+    fit, the history, the files each rank wrote and the collectives. With
+    ``resume``, a second Trainer restores rank 0's ``model_epoch_0`` and
+    fits the remaining epochs into ``out/resumed{r}``."""
+    _no_plots()
+    cfg, stats, tparams = _setup(model, meta, params)
+    tc = TrainConfig(**dict(tc, output_dir=os.path.join(out, f"rank{mesh.rank}")))
+    train = SequenceDataset(train_dir, tc.window_size, meta)
+    val = SequenceDataset(val_dir, tc.window_size, meta)
+    hc = halo.HaloConfig(*hc)
+    trainer = Trainer(cfg, stats, tc, len(train) // tc.batch_size, tparams, mesh=mesh, halo=hc,
+                      device="cpu")
+    reset_collectives()
+    trainer.fit(train, val, verbose=False)
+    result = {"params": _leaves(trainer.params), "history": trainer.history,
+              "files": _files(tc.output_dir), "collectives": dict(collectives)}
+    if resume:
+        dist.barrier()
+        tc = dataclasses.replace(tc, output_dir=os.path.join(out, f"resumed{mesh.rank}"))
+        resumed = Trainer(cfg, stats, tc, len(train) // tc.batch_size, tparams, mesh=mesh,
+                          halo=hc, device="cpu")
+        start = resumed.restore(os.path.join(out, "rank0", "model_epoch_0"))
+        resumed.fit(train, val, verbose=False, start_epoch=start)
+        result["resumed"] = {"start": start, "history": resumed.history,
+                             "files": _files(tc.output_dir)}
+    return result
+
+
+def cli_train_case(mesh, argv, out):
+    """``cli.train`` with ``argv`` (``--spatial_shards``), rank r writing
+    under ``out/rank{r}``: the params, history, mesh, halo config and the
+    files written."""
+    _no_plots()
+    out = os.path.join(out, f"rank{dist.get_rank()}")
+    trainer = train_cli.main([*argv, "--output_dir", out])
+    return {"params": _leaves(trainer.params), "history": trainer.history,
+            "mesh": trainer.mesh.shape, "halo": tuple(trainer.halo), "files": _files(out)}
+
+
+def cli_refusal_case(mesh, argv):
+    """The message of the ``ValueError`` that ``cli.train`` with ``argv``
+    raises."""
+    try:
+        train_cli.main(argv)
+    except ValueError as err:
+        return str(err)
+    return None
+
+
+def render_case(mesh, argv, out):
+    """``cli.render_rollout`` with ``argv`` (``--spatial_shards``), rank r
+    writing under ``out/rank{r}``: the errors and the files written."""
+    _no_plots()
+    out = os.path.join(out, f"rank{dist.get_rank()}")
+    errors = render_rollout.main([*argv, "--output_dir", out])
+    return {"errors": errors, "files": _files(out)}
