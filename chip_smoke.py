@@ -141,7 +141,11 @@ each timed on its own line:
      bf16 carry (the width-general variants) against their plain versions
      at the config-4 slot count (606,368 rows, f32 agg), with phase 3's
      tolerances (a bf16 carry's output: one more bf16 rounding); events,
-     graph_ms and bounds; their -Xptxas -v lines are phase 1's;
+     graph_ms and bounds; K6's three stages (the chain, the weight
+     gradients, the fixed-order reductions) timed alone by events, each
+     beside its bound, and the three dW products by torch.matmul on the
+     chain's bf16 operands as a yardstick; their -Xptxas -v lines are
+     phase 1's (with a per-kernel summary of registers and spills);
  14b. the config-4 variable plan at N = 500,000, k = 32 (the chooser's
      variable spec, printed) on the seed frame: K1' codes and kth, K2's
      offsets and dropped count and K7's table and total bit-equal to their
@@ -517,6 +521,84 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def k6_wide_stages(x, agg, g, node, w_bytes, fused_step_mod):
+    """The width-general K6's three stages timed alone by CUDA events, through
+    the library's stage entry points on one scratch (launches outside the
+    wrapper: not counted): the chain (the weights' bf16 conversion, the
+    recomputed forward and the backward chain), the weight-gradient
+    products and the fixed-order reductions, each with its bound; and, as a
+    yardstick only, the three dW products by torch.matmul on the chain's
+    bf16 operands with an f32 output (``torch.mm(..., out_dtype=)`` where
+    this PyTorch has it, else a bf16 output, named so)."""
+    from cosmology_gnn_simulation_tpu_torch import kernels
+
+    rows, width = x.shape
+    dev = x.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = fused_step_mod._lib("fused_tail_wide_bwd")
+    x_bf16, agg_bf16 = int(x.dtype == torch.bfloat16), int(agg.dtype == torch.bfloat16)
+    lay = fused_step_mod.wide_bwd_layout(lib, rows, width, x_bf16, sms)
+    scratch = torch.empty(lay["total"], dtype=torch.uint8, device=dev)
+    grads = torch.empty(3 * width * width + 5 * width, dtype=torch.float32, device=dev)
+    dx, dagg = torch.empty_like(x), torch.empty_like(agg)
+    flat = fused_step_mod._flatten(node, width)
+    p, stream, total = kernels.ptr, kernels.stream_handle(dev), lay["total"]
+
+    def run(name, err):
+        if err != 0:
+            fail(f"K6 wide stage {name}: cudaError {err}")
+
+    stages = {
+        "chain": lambda: run("chain", lib.fused_tail_wide_bwd_chain_launch(
+            p(x), p(agg), p(g), x_bf16, agg_bf16, width, *[p(w) for w in flat[:-1]], p(dx),
+            p(dagg), p(scratch), total, sms, rows, stream)),
+        "dw": lambda: run("dw", lib.fused_tail_wide_bwd_dw_launch(
+            p(x), x_bf16, width, p(scratch), total, sms, rows, stream)),
+        "reduce": lambda: run("reduce", lib.fused_tail_wide_bwd_reduce_launch(
+            x_bf16, width, p(scratch), total, sms, p(grads), rows, stream)),
+    }
+    eb, ab = x.element_size(), agg.element_size()
+    nops = 5 if x_bf16 else 6
+    wg, vg = 3 * width * width, 5 * width
+    chain_part = lay["chain_blocks"] * vg * 4
+    w_part = lay["splits"] * wg * 4
+    # Bytes: each input read once, each output written once; operations: the
+    # products' (f32 additions for the reductions).
+    cost = {
+        "chain": (rows * width * (3 * eb + 2 * ab + nops * 2) + w_bytes + wg * 2 + chain_part,
+                  6 * 2 * rows * width * width, BF16_TENSOR_FLOP_PER_S),
+        "dw": (6 * rows * width * 2 + w_part, 3 * 2 * rows * width * width,
+               BF16_TENSOR_FLOP_PER_S),
+        "reduce": (w_part + chain_part + (wg + vg) * 4,
+                   (lay["splits"] - 1) * wg + (lay["chain_blocks"] - 1) * vg, F32_FLOP_PER_S),
+    }
+    out = {}
+    for name, fn in stages.items():  # in order: each stage reads the one before
+        ms = time_ms(fn, 10)
+        nb, ops, rate = cost[name]
+        t_bytes, t_ops = nb / HBM_BYTES_PER_S, ops / rate
+        out[name] = dict(ms=ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+                         bound_by="bytes" if t_bytes >= t_ops else "operations")
+    torch.cuda.synchronize()
+    arrays = scratch[lay["ops"]:lay["ops"] + nops * rows * width * 2].view(torch.bfloat16)
+    arrays = arrays.view(nops, rows, width)
+    a_ops = [x if x_bf16 else arrays[5], arrays[0], arrays[1]]  # x, h0, h1
+    b_ops = [arrays[4], arrays[3], arrays[2]]                    # dpre0, dpre1, dy
+    try:
+        torch.mm(a_ops[0][:16].t(), b_ops[0][:16], out_dtype=torch.float32)
+        name, mm = "torch.mm(bf16, bf16, out_dtype=float32)", (
+            lambda a, b: torch.mm(a.t(), b, out_dtype=torch.float32))
+    except (TypeError, RuntimeError):
+        name, mm = "torch.matmul(bf16, bf16) (bf16 output)", lambda a, b: torch.matmul(a.t(), b)
+    out["yardstick"] = name
+    out["yardstick_ms"] = time_ms(lambda: [mm(a, b) for a, b in zip(a_ops, b_ops)], 5)
+    mine = grads[:wg].view(3, width, width)
+    rel = max(float((mine[i] - mm(a, b).float()).abs().max()) / float(mine[i].abs().max())
+              for i, (a, b) in enumerate(zip(a_ops, b_ops)))
+    out["yardstick_max_rel"] = rel
+    return out
+
+
 # The uncertified regime's clustered frames: (label, share of the particles
 # in a normal ball about the box centre, the ball's sigma). They and
 # clustered_frame must stay the frames of tests/test_torch_knn_select_schedule.py
@@ -675,6 +757,7 @@ def config4_phases(args, dev, report, path_launches, zero):
         step_params,
     )
     from cosmology_gnn_simulation_tpu_torch.ops import cellblock, pallas_knn
+    from cosmology_gnn_simulation_tpu_torch.ops import fused_step as fused_step_mod
     from cosmology_gnn_simulation_tpu_torch.ops.cell_list import choose_cell_grid, f32
     from cosmology_gnn_simulation_tpu_torch.ops.fused_step import (
         fused_step_tail,
@@ -782,16 +865,18 @@ def config4_phases(args, dev, report, path_launches, zero):
         k5_ops, k6_ops = 3 * 2 * rows * width * width, 9 * 2 * rows * width * width
         t["k5_bound"] = max(k5_bytes / HBM_BYTES_PER_S, k5_ops / BF16_TENSOR_FLOP_PER_S) * 1e3
         t["k6_bound"] = max(k6_bytes / HBM_BYTES_PER_S, k6_ops / BF16_TENSOR_FLOP_PER_S) * 1e3
+        t["stages"] = k6_wide_stages(x, agg, g_out, node, w_bytes, fused_step_mod)
         timings[(width, carry)] = t
         if (width, carry) == (C4_WIDTH, torch.bfloat16):  # the config-4 path's variant
             report["fused_tail_wide"] = kernel_entry(
-                "fused_tail.cu", "fused_step.py:66", e_max, t["k5"], t["k5_plain"], k5_bytes,
-                k5_ops, BF16_TENSOR_FLOP_PER_S, None)
+                "fused_tail_wide.cu", "fused_step.py:66", e_max, t["k5"], t["k5_plain"],
+                k5_bytes, k5_ops, BF16_TENSOR_FLOP_PER_S, None)
             report["fused_tail_wide"]["graph_ms"] = t["k5_graph"]
             report["fused_tail_wide_bwd"] = kernel_entry(
-                "fused_tail_bwd.cu", "fused_step.py:113", max(errs), t["k6"], t["k6_plain"],
+                "fused_tail_wide_bwd.cu", "fused_step.py:113", max(errs), t["k6"], t["k6_plain"],
                 k6_bytes, k6_ops, BF16_TENSOR_FLOP_PER_S, None)
             report["fused_tail_wide_bwd"]["graph_ms"] = t["k6_graph"]
+            report["fused_tail_wide_bwd"]["stages"] = t["stages"]
         print(f"K5 {label}: max abs err {e_max:.3g} (tol {tol[0]}), mean {e_mean:.3g} "
               f"(tol {tol[1]}); {t['k5']:.4f} ms (graph {t['k5_graph']:.4f}; bound "
               f"{t['k5_bound']:.4f}); plain {t['k5_plain']:.4f} ms")
@@ -800,6 +885,12 @@ def config4_phases(args, dev, report, path_launches, zero):
               f"{K6_MEAN}); max abs err per output {[float(f'{e:.3g}') for e in errs]}; "
               f"{t['k6']:.4f} ms (graph {t['k6_graph']:.4f}; bound {t['k6_bound']:.4f}); plain "
               f"{t['k6_plain']:.4f} ms")
+        st = t["stages"]
+        print(f"K6 {label} stages, ms (bound ms, by): " + "; ".join(
+            f"{k} {st[k]['ms']:.4f} ({st[k]['bound_ms']:.4f}, {st[k]['bound_by']})"
+            for k in ("chain", "dw", "reduce")) + f"; yardstick {st['yardstick']}: "
+            f"{st['yardstick_ms']:.4f} ms, the kernel's dW within "
+            f"{st['yardstick_max_rel']:.3g} of its largest magnitude")
         del x, agg, g_out, out, dx, dagg, grads, node
     torch.cuda.empty_cache()
     print(f"phase 14a K5, K6 wide: {time.perf_counter() - t0:.1f} s")
@@ -2820,6 +2911,7 @@ def main() -> None:
         step_params,
     )
     from cosmology_gnn_simulation_tpu_torch.ops import cellblock, pallas_knn
+    from cosmology_gnn_simulation_tpu_torch.ops import fused_step as fused_step_mod
     from cosmology_gnn_simulation_tpu_torch.ops.cell_list import choose_cell_grid, f32
     from cosmology_gnn_simulation_tpu_torch.ops.fused_step import (
         fused_step_tail,
@@ -2860,6 +2952,8 @@ def main() -> None:
     logs = kernels.build()
     for name, log in logs.items():
         print(f"--- nvcc -Xptxas -v: {name}\n{log.strip()}")
+    for name in ("fused_tail_wide", "fused_tail_wide_bwd"):
+        print_ptxas(logs, name)
     print(f"phase 1 device+build: {time.perf_counter() - t0:.1f} s")
 
     # ---- 2. K1 and K1' against their plain versions ---------------------

@@ -32,16 +32,9 @@
 // of k-step kt), so h never touches shared or device memory. LayerNorm
 // reduces each row across the four lanes of a quad with two shuffles.
 //
-// The width-general variant (fused_tail_wide_launch, tail_wide.cuh) runs
-// the same tail at latent = hidden = 128 or 256 with an f32 or a bf16 carry:
-// a block a 64-row tile, the weights (converted to bf16 by a first small
-// kernel) streamed through shared memory in 32-row slabs, mma.sync
-// products; the new carry is x + LN(...) in f32, rounded once to x's type.
-// At N = 500,000 and width 256 a row reads x (512 B bf16) and agg (1 KB
-// f32) and writes 512 B against 3 * 2 * 256 * 256 = 393 kFLOP: 192 FLOP/B,
-// under the ridge, so bytes bound it too (0.6 ms at N = 1e6 rows).
+// Width 256, and a bf16 carry at either width, take the width-general
+// variant in fused_tail_wide.cu.
 #include "tail_common.cuh"
-#include "tail_wide.cuh"
 
 namespace {
 
@@ -277,142 +270,4 @@ extern "C" int fused_tail_f32agg_launch(const float* x, const void* agg,
                                         void* stream) {
   return launch(x, static_cast<const float*>(agg), w0, b0, w1, b1, wf, bf,
                 ln_scale, ln_bias, out, n, stream);
-}
-
-namespace {
-
-using tailw::bf16;
-using tailw::Lane;
-
-// The width-general forward (see the file comment and tail_wide.cuh).
-template <int D, typename XT, typename AggT>
-__global__ void __launch_bounds__(tailw::THREADS, 2)
-    fused_tail_wide_kernel(const XT* __restrict__ x, const AggT* __restrict__ agg,
-                           const bf16* __restrict__ wb, const float* __restrict__ b0,
-                           const float* __restrict__ b1, const float* __restrict__ bf,
-                           const float* __restrict__ ln_scale,
-                           const float* __restrict__ ln_bias, XT* __restrict__ out, int n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int NT = D / 32;
-  const Lane l;
-  const int row0 = blockIdx.x * tailw::ROWS;
-  tailw::load_act<D>(smem, x, row0, n);
-  float acc[2][NT][4];
-  tailw::product<D, false>(acc, smem, wb, l);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + l.row(i, 2 * h), c = l.col<D>(j, 0);
-        const float2 a = row < n ? tailw::ld2(agg + (size_t)row * D + c) : make_float2(0.f, 0.f);
-        const float2 bb = tailw::ld2(b0 + c);
-        acc[i][j][2 * h] = fmaxf(acc[i][j][2 * h] + a.x + bb.x, 0.f);
-        acc[i][j][2 * h + 1] = fmaxf(acc[i][j][2 * h + 1] + a.y + bb.y, 0.f);
-      }
-  tailw::stage<D>(smem, acc, l);
-  tailw::product<D, false>(acc, smem, wb + D * D, l);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[i][j][e] = fmaxf(acc[i][j][e] + __ldg(b1 + l.col<D>(j, e)), 0.f);
-  tailw::stage<D>(smem, acc, l);
-  tailw::product<D, false>(acc, smem, wb + 2 * D * D, l);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] += __ldg(bf + l.col<D>(j, e));
-  // LayerNorm over each row: the mean, then the variance of y - mean.
-  float mean[2][2], var[2][2];
-  tailw::row_sums<D>(mean, smem, l, [&](int i, int j, int e) { return acc[i][j][e]; });
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] -= mean[i][e >> 1] / D;
-  tailw::row_sums<D>(var, smem, l,
-                     [&](int i, int j, int e) { return acc[i][j][e] * acc[i][j][e]; });
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float rstd = rsqrtf(var[i][h] / D + tailw::LN_EPS);
-      const int row = row0 + l.row(i, 2 * h);
-      if (row >= n) continue;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int c = l.col<D>(j, 0);
-        const float2 xr = tailw::ld2(x + (size_t)row * D + c);
-        const float2 sc = tailw::ld2(ln_scale + c), bb = tailw::ld2(ln_bias + c);
-        tailw::st2(out + (size_t)row * D + c,
-                   xr.x + (acc[i][j][2 * h] * rstd * sc.x + bb.x),
-                   xr.y + (acc[i][j][2 * h + 1] * rstd * sc.y + bb.y));
-      }
-    }
-}
-
-template <int D, typename XT, typename AggT>
-int launch_wide(const void* x, const void* agg, const float* w0, const float* b0,
-                const float* w1, const float* b1, const float* wf, const float* bf,
-                const float* ln_scale, const float* ln_bias, void* wb, void* out, int n,
-                cudaStream_t stream) {
-  constexpr int smem = tailw::Wide<D>::FWD_BYTES;
-  auto kernel = fused_tail_wide_kernel<D, XT, AggT>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  bf16* w = static_cast<bf16*>(wb);
-  if ((err = tailw::convert_weights(w0, w1, wf, w, D, stream)) != cudaSuccess) return (int)err;
-  const int tiles = (n + tailw::ROWS - 1) / tailw::ROWS;
-  kernel<<<tiles, tailw::THREADS, smem, stream>>>(
-      static_cast<const XT*>(x), static_cast<const AggT*>(agg), w, b0, b1, bf, ln_scale,
-      ln_bias, static_cast<XT*>(out), n);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_wide_d(const void* x, const void* agg, int x_bf16, int agg_bf16, const float* w0,
-                  const float* b0, const float* w1, const float* b1, const float* wf,
-                  const float* bf, const float* ln_scale, const float* ln_bias, void* wb,
-                  void* out, int n, cudaStream_t s) {
-#define WIDE_ARGS x, agg, w0, b0, w1, b1, wf, bf, ln_scale, ln_bias, wb, out, n, s
-  if (x_bf16)
-    return agg_bf16 ? launch_wide<D, bf16, bf16>(WIDE_ARGS)
-                    : launch_wide<D, bf16, float>(WIDE_ARGS);
-  if constexpr (D == 128) return (int)cudaErrorInvalidValue;  // the tuned kernel's layout
-  else
-    return agg_bf16 ? launch_wide<D, float, bf16>(WIDE_ARGS)
-                    : launch_wide<D, float, float>(WIDE_ARGS);
-#undef WIDE_ARGS
-}
-
-}  // namespace
-
-// The width-general forward. x, out: [n, d] f32 (x_bf16 = 0) or bf16; agg:
-// [n, d] f32 (agg_bf16 = 0) or bf16; w0, w1, wf: [d, d] f32 in the JAX
-// [in, out] layout; b0, b1, bf, ln_scale, ln_bias: [d] f32; wb: scratch of
-// 3 * d * d bf16 (the converted weights). d = 256, or 128 with a bf16 x
-// (an f32 x at 128 is the tuned kernel's); all contiguous
-// and 16-byte aligned, out not aliasing x. Launches on `stream`, does not
-// synchronize, returns the cudaError_t.
-extern "C" int fused_tail_wide_launch(const void* x, const void* agg, int x_bf16, int agg_bf16,
-                                      int d, const float* w0, const float* b0, const float* w1,
-                                      const float* b1, const float* wf, const float* bf,
-                                      const float* ln_scale, const float* ln_bias, void* wb,
-                                      void* out, int n, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 128)
-    return launch_wide_d<128>(x, agg, x_bf16, agg_bf16, w0, b0, w1, b1, wf, bf, ln_scale,
-                              ln_bias, wb, out, n, s);
-  if (d == 256)
-    return launch_wide_d<256>(x, agg, x_bf16, agg_bf16, w0, b0, w1, b1, wf, bf, ln_scale,
-                              ln_bias, wb, out, n, s);
-  return (int)cudaErrorInvalidValue;
 }

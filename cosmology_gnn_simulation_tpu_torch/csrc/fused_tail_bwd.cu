@@ -55,33 +55,9 @@
 // then spills less and the kernel runs faster; what it still spills is
 // mostly the running column sums, touched a few times a tile.
 //
-// The width-general variant (fused_tail_wide_bwd_launch, tail_wide.cuh)
-// takes latent = hidden = 128 or 256 and an f32 or a bf16 carry. Three
-// f32 [256, 256] weight gradients (768 KB) do not fit on an SM, so it runs
-// in three kernels after the weights' bf16 conversion:
-// - the chain: a block a 64-row tile at a time (persistent, two blocks an
-//   SM), recomputing the forward and walking the backward through six
-//   products with the weights streamed in slabs (tail_wide.cuh); it writes
-//   dx (x's type), dagg (agg's type) and, as bf16 [n, d] arrays in the
-//   scratch, the operands of the weight gradients: bf16(x) (for an f32 x),
-//   h0, h1, dy, dpre1 and dpre0; and its column sums (db0, db1, dbf,
-//   dscale, dbias) as a per-block partial;
-// - the weight gradients dW0 = x^T dpre0, dW1 = h0^T dpre1, dWf = h1^T dy:
-//   a split-k product over the rows, a block a 128 x 128 output tile of one
-//   weight over one run of rows, its f32 partial written once;
-// - the reduction of both kinds of partial in a fixed order by
-//   reduce_partials_kernel, the tuned kernel's (two launches give
-//   bit-equal gradients).
-// Why the operands go through global memory and not per-block gradient
-// partials, as the tuned kernel keeps them: a block's running dW0, dW1 and
-// dWf would have to stay on the SM across its tiles (768 KB), or be read,
-// added and written back in global memory each 64-row tile (1.5 MB a tile,
-// ~14 GB a call at 606,368 rows), or each block would hold one 128 x 128
-// output tile and recompute the chain once per tile (12 times). Writing
-// the six bf16 operands once (6 n d bytes, ~1.86 GB at 606,368 rows) and
-// reading them in the split-k product moves the least.
+// Width 256, and a bf16 carry at either width, take the width-general
+// variant in fused_tail_wide_bwd.cu.
 #include "tail_common.cuh"
-#include "tail_wide.cuh"
 
 namespace {
 
@@ -552,16 +528,6 @@ __global__ void __launch_bounds__(THREADS, 1) fused_tail_bwd_kernel(
   }
 }
 
-// out[i] = sum over blocks b (in order) of partials[b * len + i], i < len.
-__global__ void reduce_partials_kernel(const float* __restrict__ partials, int blocks, int len,
-                                       float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= len) return;
-  float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partials[(size_t)b * len + i];
-  out[i] = s;
-}
-
 template <typename AggT>
 int launch(const float* x, const AggT* agg, const float* g, const float* w0,
            const float* b0, const float* w1, const float* b1, const float* wf,
@@ -620,397 +586,4 @@ extern "C" int fused_tail_bwd_f32agg_launch(const float* x, const void* agg, con
                                             int n, void* stream) {
   return launch(x, static_cast<const float*>(agg), g, w0, b0, w1, b1, wf, bf, ln_scale, dx,
                 static_cast<float*>(dagg), partials, max_blocks, grads, n, stream);
-}
-
-namespace {
-
-using tailw::bf16;
-using tailw::Lane;
-
-// Where the width-general backward keeps what it writes between its
-// kernels, in one scratch buffer: the bf16 weights, the six bf16 [n, d]
-// operand arrays (x, h0, h1, dy, dpre1, dpre0), the chain's per-block
-// column sums and the weight gradients' per-split partials.
-struct WideBwdLayout {
-  size_t wb, ops, vec, wpart, total;
-  int chain_blocks, splits, rows_per_split;
-};
-
-inline size_t align256(size_t v) { return (v + 255) & ~(size_t)255; }
-
-inline WideBwdLayout wide_bwd_layout(int n, int d, int sms) {
-  WideBwdLayout lay{};
-  const int tiles = (n + tailw::ROWS - 1) / tailw::ROWS;
-  lay.chain_blocks = tiles < 2 * sms ? tiles : 2 * sms;
-  const int out_tiles = 3 * (d / 128) * (d / 128);
-  int splits = (2 * sms + out_tiles - 1) / out_tiles;
-  const int chunks = (n + 31) / 32;
-  splits = splits < chunks ? splits : chunks;
-  splits = splits < 1 ? 1 : splits;
-  lay.rows_per_split = ((n + splits - 1) / splits + 31) / 32 * 32;
-  lay.splits = lay.rows_per_split > 0 ? (n + lay.rows_per_split - 1) / lay.rows_per_split : 1;
-  if (lay.splits < 1) lay.splits = 1;
-  lay.wb = 0;
-  lay.ops = align256(lay.wb + (size_t)3 * d * d * 2);
-  lay.vec = align256(lay.ops + (size_t)6 * n * d * 2);
-  lay.wpart = align256(lay.vec + (size_t)lay.chain_blocks * 5 * d * 4);
-  lay.total = align256(lay.wpart + (size_t)lay.splits * 3 * d * d * 4);
-  return lay;
-}
-
-// The chain of the width-general backward (see the file comment).
-template <int D, typename XT, typename AggT>
-__global__ void __launch_bounds__(tailw::THREADS, 2)
-    fused_tail_wide_bwd_kernel(const XT* __restrict__ x, const AggT* __restrict__ agg,
-                               const XT* __restrict__ g, const bf16* __restrict__ wb,
-                               const float* __restrict__ b0, const float* __restrict__ b1,
-                               const float* __restrict__ bf,
-                               const float* __restrict__ ln_scale, XT* __restrict__ dx,
-                               AggT* __restrict__ dagg, bf16* __restrict__ ops,
-                               float* __restrict__ vecpart, int n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  using L = tailw::Wide<D>;
-  constexpr int NT = D / 32;
-  const Lane l;
-  const size_t nd = (size_t)n * D;
-  bf16 *x16 = ops, *h0s = ops + nd, *h1s = ops + 2 * nd, *dys = ops + 3 * nd,
-       *dp1s = ops + 4 * nd, *dp0s = ops + 5 * nd;
-  // Running column sums: db0, db1, dbf, dscale, dbias.
-  float* run = reinterpret_cast<float*>(smem + L::OFF_RUN);
-  for (int c = threadIdx.x; c < 5 * D; c += tailw::THREADS) run[c] = 0.f;
-  const int num_tiles = (n + tailw::ROWS - 1) / tailw::ROWS;
-  const auto bit = [](int i, int j, int e) { return 1ull << ((i * NT + j) * 4 + e); };
-
-  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const int row0 = tile * tailw::ROWS;
-    const auto grow = [&](int i, int e) { return row0 + l.row(i, e); };
-    // g of accumulator (i, j, e), 0 past n (read again where needed: L2).
-    const auto gval = [&](int i, int j, int e) {
-      const int row = grow(i, e);
-      if (row >= n) return 0.f;
-      const float2 v = tailw::ld2(g + (size_t)row * D + l.col<D>(j, 0));
-      return (e & 1) ? v.y : v.x;
-    };
-    __syncthreads();  // the last tile's reads of the activation tile are done
-    tailw::load_act<D>(smem, x, row0, n);
-    __syncthreads();
-    if (sizeof(XT) == 4) tailw::store_act<D>(x16, smem, row0, n);
-
-    // ---- recompute the forward ------------------------------------------
-    float acc[2][NT][4];
-    tailw::product<D, false>(acc, smem, wb, l);
-    uint64_t mask0 = 0, mask1 = 0;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = grow(i, 2 * h), c = l.col<D>(j, 0);
-          const float2 a = row < n ? tailw::ld2(agg + (size_t)row * D + c) : make_float2(0.f, 0.f);
-          const float2 bb = tailw::ld2(b0 + c);
-          const float p0 = acc[i][j][2 * h] + a.x + bb.x, p1 = acc[i][j][2 * h + 1] + a.y + bb.y;
-          if (p0 > 0.f) mask0 |= bit(i, j, 2 * h);
-          if (p1 > 0.f) mask0 |= bit(i, j, 2 * h + 1);
-          acc[i][j][2 * h] = fmaxf(p0, 0.f);
-          acc[i][j][2 * h + 1] = fmaxf(p1, 0.f);
-        }
-    tailw::stage<D>(smem, acc, l);
-    __syncthreads();
-    tailw::store_act<D>(h0s, smem, row0, n);
-    tailw::product<D, false>(acc, smem, wb + D * D, l);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = acc[i][j][e] + __ldg(b1 + l.col<D>(j, e));
-          if (p > 0.f) mask1 |= bit(i, j, e);
-          acc[i][j][e] = fmaxf(p, 0.f);
-        }
-    tailw::stage<D>(smem, acc, l);
-    __syncthreads();
-    tailw::store_act<D>(h1s, smem, row0, n);
-    tailw::product<D, false>(acc, smem, wb + 2 * D * D, l);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += __ldg(bf + l.col<D>(j, e));
-    float mean[2][2], var[2][2], rstd[2][2];
-    tailw::row_sums<D>(mean, smem, l, [&](int i, int j, int e) { return acc[i][j][e]; });
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] -= mean[i][e >> 1] / D;
-    tailw::row_sums<D>(var, smem, l,
-                       [&](int i, int j, int e) { return acc[i][j][e] * acc[i][j][e]; });
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) rstd[i][h] = rsqrtf(var[i][h] / D + tailw::LN_EPS);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] *= rstd[i][e >> 1];  // yn
-
-    // ---- LayerNorm backward: dy = rstd (dyn - mean(dyn) - yn mean(dyn yn))
-    tailw::col_sums<D>(run + 3 * D, smem, l,
-                       [&](int i, int j, int e) { return gval(i, j, e) * acc[i][j][e]; });
-    tailw::col_sums<D>(run + 4 * D, smem, l, gval);
-    const auto dyn = [&](int i, int j, int e) {
-      return gval(i, j, e) * __ldg(ln_scale + l.col<D>(j, e));
-    };
-    float m1[2][2], m2[2][2];
-    tailw::row_sums<D>(m1, smem, l, dyn);
-    tailw::row_sums<D>(m2, smem, l,
-                       [&](int i, int j, int e) { return dyn(i, j, e) * acc[i][j][e]; });
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1;
-          acc[i][j][e] = rstd[i][h] * (dyn(i, j, e) - m1[i][h] / D - acc[i][j][e] * (m2[i][h] / D));
-        }
-    tailw::col_sums<D>(run + 2 * D, smem, l, [&](int i, int j, int e) { return acc[i][j][e]; });
-    tailw::stage<D>(smem, acc, l);
-    __syncthreads();
-    tailw::store_act<D>(dys, smem, row0, n);
-
-    // ---- back through the final and the hidden Linear ---------------------
-    tailw::product<D, true>(acc, smem, wb + 2 * D * D, l);  // dh1 = dy Wf^T
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (!(mask1 & bit(i, j, e))) acc[i][j][e] = 0.f;
-    tailw::col_sums<D>(run + D, smem, l, [&](int i, int j, int e) { return acc[i][j][e]; });
-    tailw::stage<D>(smem, acc, l);
-    __syncthreads();
-    tailw::store_act<D>(dp1s, smem, row0, n);
-    tailw::product<D, true>(acc, smem, wb + D * D, l);  // dh0 = dpre1 W1^T
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (!(mask0 & bit(i, j, e))) acc[i][j][e] = 0.f;
-    tailw::col_sums<D>(run, smem, l, [&](int i, int j, int e) { return acc[i][j][e]; });
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = grow(i, 2 * h);
-          if (row < n)
-            tailw::st2(dagg + (size_t)row * D + l.col<D>(j, 0), acc[i][j][2 * h],
-                       acc[i][j][2 * h + 1]);
-        }
-    tailw::stage<D>(smem, acc, l);
-    __syncthreads();
-    tailw::store_act<D>(dp0s, smem, row0, n);
-    tailw::product<D, true>(acc, smem, wb, l);  // dpre0 W0^T
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = grow(i, 2 * h);
-          if (row < n)
-            tailw::st2(dx + (size_t)row * D + l.col<D>(j, 0), gval(i, j, 2 * h) + acc[i][j][2 * h],
-                       gval(i, j, 2 * h + 1) + acc[i][j][2 * h + 1]);
-        }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < 5 * D; c += tailw::THREADS)
-    vecpart[(size_t)blockIdx.x * 5 * D + c] = run[c];
-}
-
-// dW_l = A_l^T B_l over rows [z rows_per_split, + rows_per_split) of n:
-// block (tile, l, z) computes the 128 x 128 output tile `tile` of weight l
-// (A = x, h0, h1; B = dpre0, dpre1, dy; bf16 [n, D]) into its partial
-// wpart[z][l] ([D, D] f32). Rows stream through shared memory in 32-row
-// chunks, two in flight; both operands are read k-major (rows = k) by
-// ldmatrix.trans.
-template <int D>
-__global__ void __launch_bounds__(tailw::THREADS)
-    fused_tail_wide_dw_kernel(const bf16* __restrict__ a0, const bf16* __restrict__ a1,
-                              const bf16* __restrict__ a2, const bf16* __restrict__ d0,
-                              const bf16* __restrict__ d1, const bf16* __restrict__ d2,
-                              float* __restrict__ wpart, int n, int rows_per_split) {
-  constexpr int TM = 128, KR = 32, LD = TM + 8;
-  __shared__ __align__(16) bf16 sa[2][KR * LD], sb[2][KR * LD];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3, q = lane >> 3, r = lane & 7;
-  const int tiles_n = D / TM;
-  const int m0 = (blockIdx.x / tiles_n) * TM, n0 = (blockIdx.x % tiles_n) * TM;
-  const int w = blockIdx.y;
-  const bf16* A = w == 0 ? a0 : (w == 1 ? a1 : a2);
-  const bf16* B = w == 0 ? d0 : (w == 1 ? d1 : d2);
-  const int r_begin = blockIdx.z * rows_per_split;
-  const int r_end = min(n, r_begin + rows_per_split);
-  const int chunks = r_end > r_begin ? (r_end - r_begin + KR - 1) / KR : 0;
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  const auto issue = [&](int c, int buf) {
-    for (int idx = tid; idx < KR * (TM / 8); idx += tailw::THREADS) {
-      const int rr = idx / (TM / 8), cc = idx % (TM / 8);
-      const int row = r_begin + c * KR + rr;
-      const bool ok = row < r_end;
-      const size_t off = (size_t)(ok ? row : 0) * D;
-      tailw::cp_async16(tailw::saddr(&sa[buf][rr * LD + cc * 8]), A + off + m0 + cc * 8, ok);
-      tailw::cp_async16(tailw::saddr(&sb[buf][rr * LD + cc * 8]), B + off + n0 + cc * 8, ok);
-    }
-    tailw::cp_commit();
-  };
-  if (chunks > 0) issue(0, 0);
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) {
-      issue(c + 1, (c + 1) & 1);
-      tailw::cp_wait<1>();
-    } else {
-      tailw::cp_wait<0>();
-    }
-    __syncthreads();
-    const uint32_t pa = tailw::saddr(sa[c & 1]), pb = tailw::saddr(sb[c & 1]);
-#pragma unroll
-    for (int kk = 0; kk < KR / 16; ++kk) {
-      uint32_t a[4][4], b[2][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        tailw::ldsm_x4_t(a[i], pa + ((kk * 16 + (q >> 1) * 8 + r) * LD + wm * 64 + i * 16 +
-                                     (q & 1) * 8) * 2);
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp)
-        tailw::ldsm_x4_t(b[jp], pb + ((kk * 16 + (q & 1) * 8 + r) * LD + wn * 32 + jp * 16 +
-                                      (q >> 1) * 8) * 2);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jp = 0; jp < 2; ++jp) {
-          tailw::mma(acc[i][2 * jp], a[i], b[jp][0], b[jp][1]);
-          tailw::mma(acc[i][2 * jp + 1], a[i], b[jp][2], b[jp][3]);
-        }
-    }
-    __syncthreads();
-  }
-  float* out = wpart + ((size_t)blockIdx.z * 3 + w) * D * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * 64 + i * 16 + g + 8 * h, nn = n0 + wn * 32 + j * 8 + 2 * t;
-        tailw::st2(out + (size_t)m * D + nn, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-}
-
-template <int D, typename XT, typename AggT>
-int launch_wide_bwd(const void* x, const void* agg, const void* g, const float* w0,
-                    const float* b0, const float* w1, const float* b1, const float* wf,
-                    const float* bf, const float* ln_scale, void* dx, void* dagg,
-                    unsigned char* scratch, const WideBwdLayout& lay, float* grads, int n,
-                    cudaStream_t s) {
-  constexpr int smem = tailw::Wide<D>::BWD_BYTES;
-  auto chain = fused_tail_wide_bwd_kernel<D, XT, AggT>;
-  cudaError_t err = cudaFuncSetAttribute(chain, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  bf16* wb = reinterpret_cast<bf16*>(scratch + lay.wb);
-  bf16* ops = reinterpret_cast<bf16*>(scratch + lay.ops);
-  float* vec = reinterpret_cast<float*>(scratch + lay.vec);
-  float* wpart = reinterpret_cast<float*>(scratch + lay.wpart);
-  if ((err = tailw::convert_weights(w0, w1, wf, wb, D, s)) != cudaSuccess) return (int)err;
-  chain<<<lay.chain_blocks, tailw::THREADS, smem, s>>>(
-      static_cast<const XT*>(x), static_cast<const AggT*>(agg), static_cast<const XT*>(g), wb,
-      b0, b1, bf, ln_scale, static_cast<XT*>(dx), static_cast<AggT*>(dagg), ops, vec, n);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t nd = (size_t)n * D;
-  const bf16* xa = sizeof(XT) == 2 ? static_cast<const bf16*>(x) : ops;
-  const dim3 grid((D / 128) * (D / 128), 3, lay.splits);
-  fused_tail_wide_dw_kernel<D><<<grid, tailw::THREADS, 0, s>>>(
-      xa, ops + nd, ops + 2 * nd, ops + 5 * nd, ops + 4 * nd, ops + 3 * nd, wpart, n,
-      lay.rows_per_split);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // grads = [dW0, dW1, dWf (sums of the splits' partials), db0, db1, dbf,
-  // dscale, dbias (sums of the chain blocks')], each in a fixed order.
-  constexpr int wg = 3 * D * D, vg = 5 * D;
-  reduce_partials_kernel<<<(wg + 255) / 256, 256, 0, s>>>(wpart, lay.splits, wg, grads);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<(vg + 255) / 256, 256, 0, s>>>(vec, lay.chain_blocks, vg, grads + wg);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_wide_bwd_d(const void* x, const void* agg, const void* g, int x_bf16, int agg_bf16,
-                      const float* w0, const float* b0, const float* w1, const float* b1,
-                      const float* wf, const float* bf, const float* ln_scale, void* dx,
-                      void* dagg, unsigned char* scratch, const WideBwdLayout& lay,
-                      float* grads, int n, cudaStream_t s) {
-#define WIDE_ARGS x, agg, g, w0, b0, w1, b1, wf, bf, ln_scale, dx, dagg, scratch, lay, grads, n, s
-  if (x_bf16)
-    return agg_bf16 ? launch_wide_bwd<D, bf16, bf16>(WIDE_ARGS)
-                    : launch_wide_bwd<D, bf16, float>(WIDE_ARGS);
-  if constexpr (D == 128) return (int)cudaErrorInvalidValue;  // the tuned kernel's layout
-  else
-    return agg_bf16 ? launch_wide_bwd<D, float, bf16>(WIDE_ARGS)
-                    : launch_wide_bwd<D, float, float>(WIDE_ARGS);
-#undef WIDE_ARGS
-}
-
-}  // namespace
-
-// Bytes of scratch the width-general backward needs for n rows of width d
-// on a device of `sms` SMs.
-extern "C" long long fused_tail_wide_bwd_scratch_bytes(int n, int d, int sms) {
-  return (long long)wide_bwd_layout(n, d, sms).total;
-}
-
-// The width-general backward. x, g, dx: [n, d] f32 (x_bf16 = 0) or bf16;
-// agg, dagg: [n, d] f32 (agg_bf16 = 0) or bf16; w0, w1, wf: [d, d] f32
-// ([in, out]); b0, b1, bf, ln_scale: [d] f32; scratch: at least
-// fused_tail_wide_bwd_scratch_bytes(n, d, sms) bytes, 256-byte aligned;
-// grads: out, 3 d^2 + 5 d f32 = dW0, dW1, dWf, db0, db1, dbf, dscale,
-// dbias. d = 256, or 128 with a bf16 x (an f32 x at 128 is the tuned
-// kernel's); all contiguous and 16-byte aligned. Launches on
-// `stream`, does not synchronize, returns the cudaError_t.
-extern "C" int fused_tail_wide_bwd_launch(const void* x, const void* agg, const void* g,
-                                          int x_bf16, int agg_bf16, int d, const float* w0,
-                                          const float* b0, const float* w1, const float* b1,
-                                          const float* wf, const float* bf,
-                                          const float* ln_scale, void* dx, void* dagg,
-                                          void* scratch, long long scratch_bytes, int sms,
-                                          float* grads, int n, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((d != 128 && d != 256) || sms < 1) return (int)cudaErrorInvalidValue;
-  if (n <= 0) {
-    const cudaError_t err = cudaMemsetAsync(grads, 0, (3 * d * d + 5 * d) * sizeof(float), s);
-    return (int)(err != cudaSuccess ? err : cudaGetLastError());
-  }
-  const WideBwdLayout lay = wide_bwd_layout(n, d, sms);
-  if ((long long)lay.total > scratch_bytes) return (int)cudaErrorInvalidValue;
-  unsigned char* sc = static_cast<unsigned char*>(scratch);
-  if (d == 128)
-    return launch_wide_bwd_d<128>(x, agg, g, x_bf16, agg_bf16, w0, b0, w1, b1, wf, bf, ln_scale,
-                                  dx, dagg, sc, lay, grads, n, s);
-  return launch_wide_bwd_d<256>(x, agg, g, x_bf16, agg_bf16, w0, b0, w1, b1, wf, bf, ln_scale,
-                                dx, dagg, sc, lay, grads, n, s);
 }

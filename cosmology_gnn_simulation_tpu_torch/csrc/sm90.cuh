@@ -1,9 +1,10 @@
 // Hopper (sm_90a) helpers shared by the kernels that stage operands with
 // TMA and multiply on the warpgroup tensor cores: window_matmul.cu (K4,
-// K4^T) and, through tail_common.cuh, fused_tail.cu (K5) and
-// fused_tail_bwd.cu (K6). The PTX of mbarriers, 2-D tensor copies, the
-// async-proxy fence and wgmma's fence / commit / wait, and on the host the
-// encoding of a 2-D tensor map.
+// K4^T) and, through tail_common.cuh, fused_tail.cu (K5), fused_tail_bwd.cu
+// (K6) and their width-general variants fused_tail_wide.cu and
+// fused_tail_wide_bwd.cu. The PTX of mbarriers, 2-D tensor copies (loads,
+// stores, L2 prefetch), the async-proxy fence and wgmma's fence / commit /
+// wait, and on the host the encoding of a 2-D tensor map.
 #pragma once
 
 #include <cuda.h>
@@ -62,6 +63,35 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// One box of a 2-D tensor map at coordinates (x, y) from shared memory at
+// src (boxes past the tensor's bounds are clipped), in this thread's bulk
+// group; bulk_commit closes the group, bulk_wait_read<N> waits until at
+// most N of the thread's groups still read shared memory.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int x, int y, uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(x), "r"(y), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// ... until at most N of them are still in flight (their writes done).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Bring `bytes` (a multiple of 16) of global memory at p (16-byte aligned)
+// into L2, asynchronously.
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
+}
+
 // ---- warpgroup products ----------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -72,6 +102,12 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N of the warpgroup's committed product groups are in
+// flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- host: tensor maps --------------------------------------------------

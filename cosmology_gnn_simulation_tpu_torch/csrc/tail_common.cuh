@@ -204,6 +204,16 @@ __device__ __forceinline__ float quad_sum(float s) {
   return s;
 }
 
+// out[i] = sum over blocks b (in order) of partials[b * len + i], i < len.
+__global__ void reduce_partials_kernel(const float* __restrict__ partials, int blocks, int len,
+                                       float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= len) return;
+  float s = 0.f;
+  for (int b = 0; b < blocks; ++b) s += partials[(size_t)b * len + i];
+  out[i] = s;
+}
+
 // ---- host: tensor maps --------------------------------------------------
 
 // A map of a row-major [n, 128] array of 2- or 4-byte elements, boxes of

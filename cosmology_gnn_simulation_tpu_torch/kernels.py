@@ -11,8 +11,7 @@ never loaded.
 ``launches[name]`` counts the launches of kernel ``name`` (one source may
 host several: ``knn_select.cu`` has ``knn_select``, ``knn_codes`` and
 ``knn_dual``, ``window_matmul.cu`` has ``window_matmul`` and its S^T mode
-``window_matmul_t``, ``fused_tail.cu`` the tuned ``fused_tail`` and its
-width-general variant ``fused_tail_wide``): each
+``window_matmul_t``): each
 wrapper adds one where it launches its kernel and nowhere else, so a caller
 can zero the counts, drive a path, and see which kernels it went through.
 """
@@ -34,8 +33,9 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
-SOURCES = ("knn_select", "fused_tail", "fused_tail_bwd", "s_decode", "s_onehot",
-           "window_matmul", "reverse_table", "dense_select", "knn_brute")
+SOURCES = ("knn_select", "fused_tail", "fused_tail_bwd", "fused_tail_wide",
+           "fused_tail_wide_bwd", "s_decode", "s_onehot", "window_matmul", "reverse_table",
+           "dense_select", "knn_brute")
 KERNELS = ("knn_select", "knn_codes", "knn_dual", "s_decode", "dense_select", "s_onehot",
            "reverse_table", "window_matmul", "window_matmul_t", "fused_tail",
            "fused_tail_bwd", "fused_tail_wide", "fused_tail_wide_bwd", "knn_brute")
@@ -43,7 +43,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# One library's flags beside NVCC_FLAGS. K6 is built without FMA
+# One library's flags beside NVCC_FLAGS. The tuned K6 is built without FMA
 # contraction: its row warpgroup then spills less and runs faster.
 EXTRA_FLAGS: Dict[str, List[str]] = {"fused_tail_bwd": ["--fmad=false"]}
 

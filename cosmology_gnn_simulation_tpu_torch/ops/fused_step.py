@@ -1,7 +1,9 @@
 """Fused message-passing step tail around the CUDA kernels K5 (forward) and
 K6 (backward) (counterpart of ``ops/fused_step.py``; the Pallas kernels
 ``_tail_kernel`` and ``_tail_bwd_kernel`` become ``csrc/fused_tail.cu`` and
-``csrc/fused_tail_bwd.cu``).
+``csrc/fused_tail_bwd.cu`` at width 128 with an f32 carry, and
+``csrc/fused_tail_wide.cu`` and ``csrc/fused_tail_wide_bwd.cu`` at width 256
+or with a bf16 carry).
 
     out = x + LN(W_f @ relu(W_h @ relu(x @ w_self + agg + b0) + b_h) + b_f)
 
@@ -135,20 +137,25 @@ def _lib(name: str):
 
 
 def _bind(lib, name: str):
-    """``lib`` (K5's or K6's library) with its entry points' C types set."""
-    p, i = ctypes.c_void_p, ctypes.c_int
+    """``lib`` (a library of K5 or K6) with its entry points' C types set."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "fused_tail":
         entries = [(lib.fused_tail_launch, [p] * 11 + [i, p]),
-                   (lib.fused_tail_f32agg_launch, [p] * 11 + [i, p]),
-                   (lib.fused_tail_wide_launch, [p, p, i, i, i] + [p] * 10 + [i, p])]
-    else:
+                   (lib.fused_tail_f32agg_launch, [p] * 11 + [i, p])]
+    elif name == "fused_tail_bwd":
         entries = [(lib.fused_tail_bwd_launch, [p] * 13 + [i, p, i, p]),
-                   (lib.fused_tail_bwd_f32agg_launch, [p] * 13 + [i, p, i, p]),
-                   (lib.fused_tail_wide_bwd_launch, ([p, p, p, i, i, i] + [p] * 10
-                                                     + [ctypes.c_longlong, i, p, i, p]))]
+                   (lib.fused_tail_bwd_f32agg_launch, [p] * 13 + [i, p, i, p])]
         lib.fused_tail_bwd_partial_floats.restype = i
-        lib.fused_tail_wide_bwd_scratch_bytes.argtypes = [i, i, i]
-        lib.fused_tail_wide_bwd_scratch_bytes.restype = ctypes.c_longlong
+    elif name == "fused_tail_wide":
+        entries = [(lib.fused_tail_wide_launch, [p, p, i, i, i] + [p] * 10 + [i, p])]
+    else:
+        entries = [(lib.fused_tail_wide_bwd_launch, [p, p, p, i, i, i] + [p] * 10
+                    + [ll, i, p, i, p]),
+                   (lib.fused_tail_wide_bwd_layout, [i, i, i, i, p]),
+                   (lib.fused_tail_wide_bwd_chain_launch, [p, p, p, i, i, i] + [p] * 10
+                    + [ll, i, i, p]),
+                   (lib.fused_tail_wide_bwd_dw_launch, [p, i, i, p, ll, i, i, p]),
+                   (lib.fused_tail_wide_bwd_reduce_launch, [i, i, p, ll, i, p, i, p])]
     for entry, argtypes in entries:
         entry.argtypes = argtypes
         entry.restype = i
@@ -198,9 +205,9 @@ def _tail_forward(x, agg, flat, dtype):
         return _forward_plain(x, agg, flat, dtype)
     _check_kernel_inputs("fused_step_tail", x, agg, flat, dtype)
     out = torch.empty_like(x)
-    lib = _lib("fused_tail")
     stream = kernels.stream_handle(x.device)
     if _tuned(x):
+        lib = _lib("fused_tail")
         launch = (lib.fused_tail_launch if agg.dtype == torch.bfloat16
                   else lib.fused_tail_f32agg_launch)
         err = launch(kernels.ptr(x), kernels.ptr(agg), *[kernels.ptr(w) for w in flat],
@@ -210,13 +217,28 @@ def _tail_forward(x, agg, flat, dtype):
         return out
     d = x.shape[1]
     wb = torch.empty(3 * d * d, dtype=torch.bfloat16, device=x.device)
-    err = lib.fused_tail_wide_launch(
+    err = _lib("fused_tail_wide").fused_tail_wide_launch(
         kernels.ptr(x), kernels.ptr(agg), int(x.dtype == torch.bfloat16),
         int(agg.dtype == torch.bfloat16), d, *[kernels.ptr(w) for w in flat], kernels.ptr(wb),
         kernels.ptr(out), x.shape[0], stream)
     kernels.check("fused_tail_wide", err)
     kernels.launches["fused_tail_wide"] += 1
     return out
+
+
+WIDE_BWD_LAYOUT = ("wb", "ops", "vec", "wpart", "total", "chain_blocks", "splits",
+                   "rows_per_split")
+
+
+def wide_bwd_layout(lib, n: int, d: int, x_bf16: int, sms: int) -> dict:
+    """The width-general K6's scratch layout (``WIDE_BWD_LAYOUT``: byte
+    offsets of the bf16 weights, the operand arrays, the column-sum and the
+    weight-gradient partials, the total bytes, and the chain's blocks, the
+    splits of the rows and the rows of a split) for n > 0 rows of width d
+    on a card of ``sms`` SMs; ``lib`` is ``fused_tail_wide_bwd``'s library."""
+    out = (ctypes.c_longlong * len(WIDE_BWD_LAYOUT))()
+    kernels.check("fused_tail_wide_bwd", lib.fused_tail_wide_bwd_layout(n, d, x_bf16, sms, out))
+    return dict(zip(WIDE_BWD_LAYOUT, out))
 
 
 def _unflatten_grads(grads, d):
@@ -230,12 +252,12 @@ def _tail_backward(x, agg, g, flat, dtype):
         return _backward_plain(x, agg, g, flat, dtype)
     _check_kernel_inputs("fused_step_tail_bwd", x, agg, flat, dtype, extra=[("g", g)])
     n, d = x.shape
-    lib = _lib("fused_tail_bwd")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     stream = kernels.stream_handle(x.device)
     dx = torch.empty_like(x)
     dagg = torch.empty_like(agg)
     if _tuned(x):
+        lib = _lib("fused_tail_bwd")
         part = lib.fused_tail_bwd_partial_floats()
         partials = torch.empty(sms * part, dtype=torch.float32, device=x.device)
         grads = torch.empty(part, dtype=torch.float32, device=x.device)
@@ -249,11 +271,13 @@ def _tail_backward(x, agg, g, flat, dtype):
         kernels.check("fused_tail_bwd", err)
         kernels.launches["fused_tail_bwd"] += 1
         return dx, dagg, _unflatten_grads(grads, d)
-    nbytes = lib.fused_tail_wide_bwd_scratch_bytes(n, d, sms)
+    lib = _lib("fused_tail_wide_bwd")
+    x_bf16 = int(x.dtype == torch.bfloat16)
+    nbytes = wide_bwd_layout(lib, n, d, x_bf16, sms)["total"] if n > 0 else 0
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     grads = torch.empty(3 * d * d + 5 * d, dtype=torch.float32, device=x.device)
     err = lib.fused_tail_wide_bwd_launch(
-        kernels.ptr(x), kernels.ptr(agg), kernels.ptr(g), int(x.dtype == torch.bfloat16),
+        kernels.ptr(x), kernels.ptr(agg), kernels.ptr(g), x_bf16,
         int(agg.dtype == torch.bfloat16), d, *[kernels.ptr(w) for w in flat[:-1]],
         kernels.ptr(dx), kernels.ptr(dagg), kernels.ptr(scratch), nbytes, sms,
         kernels.ptr(grads), n, stream)
@@ -265,7 +289,9 @@ def _tail_backward(x, agg, g, flat, dtype):
 def fused_step_tail_bwd(x, agg, g, node_params, *, dtype=torch.bfloat16):
     """K6: the fused recompute-backward (see ``fused_step_tail_bwd_reference``).
     CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/fused_tail_bwd.cu`` (K5's layout; ``g`` in ``x``'s dtype) or raise."""
+    ``csrc/fused_tail_bwd.cu`` or, at width 256 or with a bf16 carry,
+    ``csrc/fused_tail_wide_bwd.cu`` (K5's layouts; ``g`` in ``x``'s dtype),
+    or raise."""
     return _tail_backward(x, agg, g, _flatten(node_params, x.shape[1]), dtype)
 
 

@@ -594,14 +594,17 @@ def test_fused_tail_bwd_launches_are_bit_equal(cuda_device, agg_dtype, n):
         assert torch.equal(a, b)
 
 
-# The width-general K5 and K6 (tail_wide.cuh): width 256 with either
-# carry, width 128 with a bf16 carry. A bf16 carry rounds the output (and
+# The width-general K5 and K6 (fused_tail_wide.cu, fused_tail_wide_bwd.cu):
+# width 256 with either carry, width 128 with a bf16 carry; n at the edges
+# of their 64-row warpgroup tiles and 128-row block tiles (127, 128, 129,
+# 255, 257, and 385: an odd count of block tiles). A bf16 carry rounds the output (and
 # dx) to bf16 on both sides, from f32 values that differ in the last bits:
 # one bf16 ulp at |v| < 8 is 2^-5, so the forward's maximum is 1e-1 there.
 # At width 256 the pre-activations sum twice the terms, and more ReLU masks
 # flip: 202 of dagg's 16.8 M entries at n = 65,536 (1.2e-5; on an H100), so
 # the backward allows 5e-5 of the entries off there.
 _WIDE_CASES = [(128, "bfloat16"), (256, "float32"), (256, "bfloat16")]
+_WIDE_NS = [1, 63, 65, 127, 128, 129, 255, 257, 385, 4099, 65536]
 
 
 def _wide_inputs(n, width, x_dtype, agg_dtype, device):
@@ -612,7 +615,7 @@ def _wide_inputs(n, width, x_dtype, agg_dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("agg_dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("width,x_dtype", _WIDE_CASES)
-@pytest.mark.parametrize("n", [1, 63, 65, 4099, 65536])
+@pytest.mark.parametrize("n", _WIDE_NS)
 def test_fused_tail_wide_kernel_matches_plain_version(cuda_device, n, width, x_dtype,
                                                       agg_dtype):
     x, agg, node = _wide_inputs(n, width, x_dtype, agg_dtype, cuda_device)
@@ -631,7 +634,7 @@ def test_fused_tail_wide_kernel_matches_plain_version(cuda_device, n, width, x_d
 @pytest.mark.cuda
 @pytest.mark.parametrize("agg_dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("width,x_dtype", _WIDE_CASES)
-@pytest.mark.parametrize("n", [1, 63, 65, 4099, 65536])
+@pytest.mark.parametrize("n", _WIDE_NS)
 def test_fused_tail_wide_bwd_kernel_matches_plain_version(cuda_device, n, width, x_dtype,
                                                           agg_dtype):
     x, agg, node = _wide_inputs(n, width, x_dtype, agg_dtype, cuda_device)
@@ -646,6 +649,17 @@ def test_fused_tail_wide_bwd_kernel_matches_plain_version(cuda_device, n, width,
     for a, b in zip([dx, dagg, *grads], [ref_dx, ref_dagg, *ref_grads]):
         assert a.shape == b.shape
         _mostly_close(a, b, 1e-2, 1e-3, off_share=5e-5 if width == 256 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,x_dtype", _WIDE_CASES)
+def test_fused_tail_wide_launches_are_bit_equal(cuda_device, width, x_dtype):
+    """Each row's sums run in a fixed order: two launches agree to the bit."""
+    x, agg, node = _wide_inputs(4099, width, x_dtype, "float32", cuda_device)
+    first = fused_step_tail(x, agg, node)
+    second = fused_step_tail(x, agg, node)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

@@ -21,7 +21,10 @@ def _copy_package(tmp_path, monkeypatch):
 def test_both_tails_hash_their_shared_header():
     for name in ("fused_tail", "fused_tail_bwd"):
         names = [p.name for p in kernels._sources(kernels.PACKAGE_DIR / "csrc" / f"{name}.cu")]
-        assert names == [f"{name}.cu", "tail_common.cuh", "sm90.cuh", "tail_wide.cuh"]
+        assert names == [f"{name}.cu", "tail_common.cuh", "sm90.cuh"]
+    for name in ("fused_tail_wide", "fused_tail_wide_bwd"):
+        names = [p.name for p in kernels._sources(kernels.PACKAGE_DIR / "csrc" / f"{name}.cu")]
+        assert names == [f"{name}.cu", "tail_wide.cuh", "tail_common.cuh", "sm90.cuh"]
 
 
 def test_window_matmul_hashes_the_hopper_header():
@@ -29,10 +32,13 @@ def test_window_matmul_hashes_the_hopper_header():
     assert names == ["window_matmul.cu", "sm90.cuh"]
 
 
+_TAILS = {"fused_tail", "fused_tail_bwd", "fused_tail_wide", "fused_tail_wide_bwd"}
+
+
 @pytest.mark.parametrize("header, changed", [
-    ("tail_common.cuh", {"fused_tail", "fused_tail_bwd"}),
-    ("sm90.cuh", {"fused_tail", "fused_tail_bwd", "window_matmul"}),
-    ("tail_wide.cuh", {"fused_tail", "fused_tail_bwd"}),
+    ("tail_common.cuh", _TAILS),
+    ("sm90.cuh", _TAILS | {"window_matmul"}),
+    ("tail_wide.cuh", {"fused_tail_wide", "fused_tail_wide_bwd"}),
 ])
 def test_editing_an_included_header_changes_the_library_path(tmp_path, monkeypatch, header,
                                                              changed):
