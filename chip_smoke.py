@@ -56,7 +56,9 @@ each timed on its own line:
      way); K4 and K4^T also on the
      aux spec's plan (grid 14, with its reverse table), each mode's rate
      (its bound's bytes over its time), its registers and spills, and S's
-     share of live (32-row, 64-deep) blocks; K8 (the dense-query
+     share of live (32-row, 64-deep) blocks; on both specs each mode's two
+     CUDA kernels (the tiled and the persistent one; cellblock.window_kernel
+     picks one by shape) each against the plain version and timed in turns; K8 (the dense-query
      search) against its plain version on the dense plan's inputs of the
      uniform frame, of a frame whose search windows truncate and of the
      lattice frame, at k = 16 and (but the truncating frame) 48, on the
@@ -153,7 +155,10 @@ each timed on its own line:
      reverse_mismatch equal to the plain plan's (every step of the build in
      its plain version); K4 and K4^T at H = 256 on that plan against their
      plain versions with phase 4's tolerances; K2, K7, K4 and K4^T timed
-     (events and CUDA graph);
+     (events and CUDA graph); each mode's rate and share of its bytes bound,
+     its two kernels timed in turns, the share of live (128-row, 64-deep)
+     chunks, and its torch.bmm yardstick (S or S_rev^T as bf16 against the
+     gathered windows, in chunks of 256 tiles, their times summed);
  14c. the config-4 rollout (latent = hidden = 256, 15 message-passing
      steps, bf16, k = 32, aggregation="cellblock"), variable and uniform: 1
      warm-up and 4 timed steps, exact launches (per step K1', K2, K3 once,
@@ -213,7 +218,8 @@ each timed on its own line:
      aggregation at the owned rows (through the inverse order) within them
      of the gather-sum over the neighbor ids; on shard 0 each kernel timed
      by events and from a CUDA graph with its bound and its plain version's
-     time, and the plan build's time and peak memory;
+     time, K4's and K4^T's two kernels timed in turns, and the plan
+     build's time and peak memory;
  16b. phase 11's hybrid train step with partition_invariant_noise=True
      (the noise keyed by each particle's global id): 1 warm-up and 4 timed
      steps, exact launches, cellblock_violations 0, ms per step against
@@ -374,6 +380,7 @@ EVAL_SNAPSHOTS, EVAL_WINDOWS, RENDER_STEPS = 12, 4, 6
 # N = 500,000, k = 32, latent = hidden = 256, 15 message-passing steps.
 C4_N, C4_K, C4_WIDTH, C4_MP = 500000, 32, 256, 15
 C4_ROLLOUT_STEPS, C4_TRAIN_STEPS, C4_REMAT_CHUNK = 4, 2, 5
+C4_BMM_TILES = 256  # tiles a chunk of the config-4 bmm yardstick (~0.85 GB of operands)
 # The steps from the seed window whose certificate the JAX benchmark asserts
 # (bench_config4.py:97-100: a 2-step rollout). Later steps of the random-
 # weight dynamics can drop an edge in the variable spec, whose windows (W 384
@@ -519,6 +526,73 @@ def kernel_entry(source, replaces, max_abs_err, ms, plain_ms, nbytes, ops, op_ra
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def window_kernels(label, table, pad, starts, spec, transpose, reps):
+    """Both CUDA kernels of window_matmul.cu (``cellblock.WINDOW_KERNELS``:
+    PR 8's tiled one and the persistent one) on one K4 (or, with
+    ``transpose``, K4^T) shape: each held against the plain version with
+    phase 4's tolerances, then timed by events in turns (tiled, persistent,
+    persistent, tiled), through ``cellblock.window_matmul_launch`` (outside
+    the wrappers: no launch is counted). Prints one line; returns
+    {kernel: [ms, ms]} and the kernel ``window_kernel`` picks for the
+    shape."""
+    from cosmology_gnn_simulation_tpu_torch.ops import cellblock
+
+    ref = (cellblock.window_matmul_t_reference if transpose
+           else cellblock.window_matmul_reference)(table, pad, starts, spec=spec)
+    times = {}
+    for kernel in cellblock.WINDOW_KERNELS:
+        err = (cellblock.window_matmul_launch(table, pad, starts, spec=spec,
+                                              transpose=transpose, kernel=kernel) - ref).abs()
+        if not (float(err.max()) <= K4_MAX_ABS_TOL and float(err.mean()) <= K4_MEAN_ABS_TOL):
+            fail(f"{label} {kernel} kernel: max abs err {float(err.max())}, mean "
+                 f"{float(err.mean())}")
+        del err
+    del ref
+    for kernel in (*cellblock.WINDOW_KERNELS, *reversed(cellblock.WINDOW_KERNELS)):
+        times.setdefault(kernel, []).append(time_ms(lambda: cellblock.window_matmul_launch(
+            table, pad, starts, spec=spec, transpose=transpose, kernel=kernel), reps))
+    picked = cellblock.window_kernel(pad.shape[1], spec.window)
+    print(f"{label} kernels (QB {spec.query_block}, W {spec.window}, H {pad.shape[1]}), ms in "
+          f"turns: " + ", ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)}"
+                                 for k, v in times.items()) + f"; the shape rule takes {picked}")
+    return times, picked
+
+
+def window_bmm_ms(table, pad, starts, spec, transpose, tiles):
+    """The library yardstick of K4 (or K4^T) on one plan: torch.bmm of S
+    (S_rev^T) as bf16 [T, QB, 9W] against the tiles' gathered windows [T,
+    9W, H] (bf16 out), in chunks of ``tiles`` tiles whose times (events) are
+    summed; the casts and the gather are not timed."""
+    t_all, qb = spec.num_tiles, spec.query_block
+    lanes = torch.arange(spec.window, device=pad.device)
+    total = 0.0
+    for t0 in range(0, t_all, tiles):
+        t1 = min(t0 + tiles, t_all)
+        if transpose:
+            s_b = table[t0:t1, :, :qb].transpose(1, 2).to(torch.bfloat16).contiguous()
+        else:
+            s_b = table.view(t_all, qb, -1)[t0:t1].to(torch.bfloat16)
+        windows = pad[(starts[t0:t1].long()[:, :, None] + lanes).reshape(t1 - t0, -1)]
+        total += time_ms(lambda: torch.bmm(s_b, windows), 3)
+        del s_b, windows
+    return total
+
+
+def live_chunks(table, spec, transpose):
+    """The share of the persistent window kernel's units of work, a 128-row
+    (K4) or 128-lane (K4^T) slice of a tile x a 64-deep chunk of its S row,
+    that hold a count: the chunks whose window it loads (9W a multiple of
+    64)."""
+    t, qb = spec.num_tiles, spec.query_block
+    if transpose:  # [T, chunks, lanes] -> [T, QB, chunks]
+        nz = (table.view(t, spec.s_width // 64, 64, -1) != 0).any(2)[:, :, :qb].transpose(1, 2)
+    else:
+        nz = (table.view(t, qb, spec.s_width // 64, 64) != 0).any(3)
+    slices = -(-qb // 128)
+    nz = torch.nn.functional.pad(nz.to(torch.uint8), (0, 0, 0, 128 * slices - qb))
+    return float(nz.view(t, slices, 128, -1).amax(2).float().mean())
 
 
 def k6_wide_stages(x, agg, g, node, w_bytes, fused_step_mod):
@@ -987,6 +1061,23 @@ def config4_phases(args, dev, report, path_launches, zero):
           f"{k4_errs['K4^T'][1]:.3g} (tol {K4_MAX_ABS_TOL}, {K4_MEAN_ABS_TOL}); K4 {k4_ms:.4f} ms "
           f"(graph {k4_graph:.4f}; bytes bound {k4_bound:.4f}); K4^T {k4t_ms:.4f} ms (graph "
           f"{k4t_graph:.4f}; bytes bound {k4t_bound:.4f})")
+    # Each mode's rate and share of its bound, the two kernels in turns, the
+    # share of live chunks and the torch.bmm yardstick (in chunks of tiles).
+    for label, name, table, ms, graph, bound, transpose in (
+            ("K4", "window_matmul", s_table, k4_ms, k4_graph, k4_bound, False),
+            ("K4^T", "window_matmul_t", s_rev, k4t_ms, k4t_graph, k4t_bound, True)):
+        kern, _ = window_kernels(f"{label} config 4", table, z_pad, layout.window_starts, c4_spec,
+                                 transpose, 10)
+        lib = window_bmm_ms(table, z_pad, layout.window_starts, c4_spec, transpose,
+                            C4_BMM_TILES)
+        live = live_chunks(table, c4_spec, transpose)
+        rate = bound / 1e3 * HBM_BYTES_PER_S / (ms / 1e3) / 1e9
+        print(f"config-4 {label}: {ms:.4f} ms, {rate:.1f} GB/s ({100 * bound / ms:.1f} % of its "
+              f"bytes bound); bmm {lib:.4f} ms (summed over chunks of {C4_BMM_TILES} tiles); "
+              f"{100 * live:.2f} % of (128-row, 64-deep) chunks live")
+        report[name].update(config4_ms=ms, config4_graph_ms=graph, config4_bound_ms=bound,
+                            config4_library_ms=lib, config4_live_chunks=live)
+        report[name]["kernels_ms"]["config4"] = kern
     del z_pad, s_table, table
     del codes, spill, layout, offsets, ref_off, packs, s_rev
     torch.cuda.empty_cache()
@@ -1664,6 +1755,10 @@ def halo_phase(args, dev, report, path_launches, zero, cfg, stats, train_ms):
                 print(f"{name} on the slab plan: {t['slab_ms']:.4f} ms (graph "
                       f"{t['slab_graph_ms']:.4f}; bound {t['slab_bound_ms']:.4f}, {nb} bytes); "
                       f"plain {t['slab_plain_ms']:.4f} ms")
+            for name, label, table, transpose in (("window_matmul", "K4", s_table, False),
+                                                  ("window_matmul_t", "K4^T", s_rev, True)):
+                report[name]["kernels_ms"]["slab"] = window_kernels(
+                    f"{label} slab", table, z_pad, layout.window_starts, spec, transpose, 10)[0]
             slab["build_ms"], slab["build_peak_gib"] = build_ms, build_peak
             print(f"slab plan build (shard {shard}: layout, aux offsets, K3, sender packs, K7): "
                   f"{build_ms:.4f} ms by events, peak {build_peak:.3f} GiB above the "
@@ -3348,6 +3443,8 @@ def main() -> None:
           f"{k4_nnz} nonzero S entries of {k4_s.numel()} ({100 * (1 - k4_nnz / k4_s.numel()):.3f} % "
           f"zeros), {100 * k4_live:.2f} % of (32-row, 64-deep) S blocks live, dense bf16 work "
           f"{2 * spec.num_slots * width * 128} FLOP")
+    report["window_matmul"]["kernels_ms"] = {
+        "flagship": window_kernels("K4 flagship", k4_s, z_pad, k4_starts, spec, False, 100)[0]}
     del out, ref, k4_s, z_pad
 
     # K7's time; K4^T against its plain version on the uniform frame's S_rev.
@@ -3429,6 +3526,8 @@ def main() -> None:
           f"K4^T time {k4t_ms:.4f} ms, "
           f"plain {k4t_plain_ms:.4f} ms, bmm {k4t_lib_ms:.4f} ms, {k4t_nnz} nonzero S_rev "
           f"entries")
+    report["window_matmul_t"]["kernels_ms"] = {
+        "flagship": window_kernels("K4^T flagship", k7_s, g_pad, k4_starts, spec, True, 100)[0]}
     del out, ref, g_pad, k7_s
 
     # K4 and K4^T on the aux spec (grid 14: QB 224, W 384, S width 3,456),
@@ -3490,6 +3589,9 @@ def main() -> None:
               f"{plain_ms:.3f} ms, bmm {bmm_ms:.4f} ms; {a_bytes} bytes, bound "
               f"{a_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms, {a_bytes / ms / 1e6:.1f} GB/s")
         del out, ref
+        report["window_matmul_t" if label == "K4^T" else "window_matmul"]["kernels_ms"]["aux"] = \
+            window_kernels(f"{label} aux", table, a_pad, aux_plan.window_starts, aux_spec,
+                           label == "K4^T", 100)[0]
     for name in ("window_matmul", "window_matmul_t"):
         entry = report[name]
         rate = entry["bound_ms"] / 1e3 * HBM_BYTES_PER_S / (entry["ms"] / 1e3) / 1e9

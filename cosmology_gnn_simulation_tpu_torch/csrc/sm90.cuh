@@ -57,6 +57,22 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The same for a 3-D tensor map at (x, y, z).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int x, int y,
+                                            int z, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar)
+      : "memory");
+}
+
+// Bring a tensor map (a kernel parameter) into the copy engine's
+// descriptor cache ahead of its first copy.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // Make this thread's shared-memory writes visible to the async proxy
 // (wgmma, TMA) before a barrier.
 __device__ __forceinline__ void fence_async_smem() {
@@ -72,6 +88,15 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int x, int 
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(x), "r"(y), "r"(src)
+      : "memory");
+}
+// The same for a 3-D tensor map at (x, y, z).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, int x, int y, int z,
+                                             uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(x), "r"(y), "r"(z), "r"(src)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -150,6 +175,25 @@ inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* b
   const cuuint32_t box[2] = {b0, b1};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D tensor map of a [d2][d1][d0] array with its d1 and d2 strides in
+// bytes and a [b2][b1][b0] box: coordinates past d1 within one d2 index
+// read as 0 and are not written, so a box never spills into the next d2
+// slice.
+inline bool tensor_map_3d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                          uint64_t d0, uint64_t d1, uint64_t d2, uint64_t stride1,
+                          uint64_t stride2, uint32_t b0, uint32_t b1,
+                          CUtensorMapSwizzle swizzle, uint32_t b2 = 1) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {stride1, stride2};
+  const cuuint32_t box[3] = {b0, b1, b2};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -1321,8 +1321,8 @@ def _lib(name: str):
     elif name == "dense_select":
         entries = {"dense_select_launch": [p] * 4 + [i] * 5 + [ctypes.c_float] + [p] * 3}
     else:
-        entries = {"window_matmul_launch": [p] * 4 + [i] * 6 + [p],
-                   "window_matmul_t_launch": [p] * 4 + [i] * 6 + [p]}
+        entries = {"window_matmul_launch": [p] * 4 + [i] * 7 + [p],
+                   "window_matmul_t_launch": [p] * 4 + [i] * 7 + [p]}
     for entry, argtypes in entries.items():
         getattr(lib, entry).argtypes = argtypes
         getattr(lib, entry).restype = i
@@ -1741,21 +1741,52 @@ def _window_output(name, s, s_shape, z_pad, window_starts, spec):
     return torch.empty((spec.num_slots, h), dtype=torch.float32, device=z_pad.device)
 
 
+WINDOW_KERNELS = ("tiled", "persistent")
+
+
+def window_kernel(h: int, w: int) -> str:
+    """The CUDA kernel of ``csrc/window_matmul.cu`` that K4 and K4^T take
+    for latent width ``h`` and window ``w``, by shape alone:
+    ``"persistent"`` (128-row items across up to 256 columns, S read once,
+    the windows of chunks with no count never loaded) wherever TMA can
+    describe the operands (``w % 16 == 0`` and ``h >= 64``: every spec the
+    chooser makes), else ``"tiled"`` (a block a query tile x 128 columns,
+    filled by cp.async). The persistent kernel was as fast or faster at
+    every measured shape (PERF.md)."""
+    return "persistent" if w % 16 == 0 and h >= 64 else "tiled"
+
+
+def window_matmul_launch(table, pad, window_starts, *, spec: CellBlockSpec, transpose: bool,
+                         kernel: str) -> torch.Tensor:
+    """Launch one kernel of ``csrc/window_matmul.cu`` (``kernel`` in
+    ``WINDOW_KERNELS``) on CUDA tensors: K4 on S, or with ``transpose`` K4^T
+    on S_rev. Counts nothing: ``window_matmul`` and ``window_matmul_t`` are
+    the wrappers, and a caller timing the two kernels on one shape calls
+    this. Raises on a refused shape or a failed launch."""
+    if transpose:
+        name, s_shape, lanes = "window_matmul_t", (spec.num_tiles, spec.s_width,
+                                                   spec.rev_lanes), spec.rev_lanes
+    else:
+        name, s_shape, lanes = "window_matmul", (spec.num_slots, spec.s_width), spec.s_width
+    out = _window_output(name, table, s_shape, pad, window_starts, spec)
+    lib = _lib("window_matmul")
+    fn = lib.window_matmul_t_launch if transpose else lib.window_matmul_launch
+    err = fn(kernels.ptr(table), kernels.ptr(pad), kernels.ptr(window_starts), kernels.ptr(out),
+             spec.num_tiles, spec.query_block, spec.window, pad.shape[1], pad.shape[0], lanes,
+             WINDOW_KERNELS.index(kernel), kernels.stream_handle(pad.device))
+    kernels.check(name, err)
+    return out
+
+
 def window_matmul(s_table, z_pad, window_starts, *, spec: CellBlockSpec) -> torch.Tensor:
     """K4: the cell-block aggregation in slot space (see
     ``window_matmul_reference``). CPU tensors take the plain version; CUDA
     tensors launch ``csrc/window_matmul.cu`` (bf16 ``z_pad`` with
-    ``H % 8 == 0``) or raise."""
+    ``H % 8 == 0``; the kernel ``window_kernel`` picks) or raise."""
     if s_table.device.type == "cpu":
         return window_matmul_reference(s_table, z_pad, window_starts, spec=spec)
-    out = _window_output("window_matmul", s_table, (spec.num_slots, spec.s_width),
-                               z_pad, window_starts, spec)
-    err = _lib("window_matmul").window_matmul_launch(
-        kernels.ptr(s_table), kernels.ptr(z_pad), kernels.ptr(window_starts),
-        kernels.ptr(out), spec.num_tiles, spec.query_block, spec.window, z_pad.shape[1],
-        z_pad.shape[0], spec.s_width, kernels.stream_handle(z_pad.device),
-    )
-    kernels.check("window_matmul", err)
+    out = window_matmul_launch(s_table, z_pad, window_starts, spec=spec, transpose=False,
+                               kernel=window_kernel(z_pad.shape[1], spec.window))
     kernels.launches["window_matmul"] += 1
     return out
 
@@ -1764,19 +1795,12 @@ def window_matmul_t(s_rev, g_pad, window_starts, *, spec: CellBlockSpec) -> torc
     """K4^T: the aggregation's backward in slot space, ``dz = S^T g`` through
     the reverse table (see ``window_matmul_t_reference``). CPU tensors take
     the plain version; CUDA tensors launch the S^T mode of
-    ``csrc/window_matmul.cu`` (bf16 ``g_pad`` with ``H % 8 == 0``) or
-    raise."""
+    ``csrc/window_matmul.cu`` (bf16 ``g_pad`` with ``H % 8 == 0``; the
+    kernel ``window_kernel`` picks) or raise."""
     if s_rev.device.type == "cpu":
         return window_matmul_t_reference(s_rev, g_pad, window_starts, spec=spec)
-    out = _window_output(
-        "window_matmul_t", s_rev, (spec.num_tiles, spec.s_width, spec.rev_lanes), g_pad,
-        window_starts, spec)
-    err = _lib("window_matmul").window_matmul_t_launch(
-        kernels.ptr(s_rev), kernels.ptr(g_pad), kernels.ptr(window_starts),
-        kernels.ptr(out), spec.num_tiles, spec.query_block, spec.window, g_pad.shape[1],
-        g_pad.shape[0], spec.rev_lanes, kernels.stream_handle(g_pad.device),
-    )
-    kernels.check("window_matmul_t", err)
+    out = window_matmul_launch(s_rev, g_pad, window_starts, spec=spec, transpose=True,
+                               kernel=window_kernel(g_pad.shape[1], spec.window))
     kernels.launches["window_matmul_t"] += 1
     return out
 

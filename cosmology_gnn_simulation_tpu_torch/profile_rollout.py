@@ -2,7 +2,7 @@
 
     python -m cosmology_gnn_simulation_tpu_torch.profile_rollout [--n N] [--steps S]
         [--aggregation gather|cellblock_hybrid] [--cellblock-search codes|dense]
-        [--aux-spec] [--train]
+        [--aux-spec] [--train] [--config4]
 
 Runs the rollout of the default model (bf16, k = 16, certificate on) with
 the given aggregation (on the hybrid path: the re-neighboring route of
@@ -14,8 +14,11 @@ device time of every kernel (largest first), the device's busy share of
 the traced window, the device operations (kernels, copies, fills)
 launched per step, the peak device memory of the timed run, and the
 card's name and power limit. ``--train`` does the same for ``--steps`` train steps (batch
-1, noise 3e-4, Adam; the fused tail on) in place of the rollout. Needs a
-CUDA device.
+1, noise 3e-4, Adam; the fused tail on) in place of the rollout. ``--config4``
+profiles the rollout of BASELINE config 4 instead (N = 500,000, k = 32,
+latent = hidden = 256, 15 message-passing steps, bf16, the slot-space
+cell-block aggregation on the variable plan: chip_smoke.py's phase 14c).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -57,22 +60,34 @@ def main() -> None:
     parser.add_argument("--cellblock-search", default="codes", choices=("codes", "dense"))
     parser.add_argument("--aux-spec", action="store_true")
     parser.add_argument("--train", action="store_true")
+    parser.add_argument("--config4", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA device")
+    if args.config4 and args.train:
+        raise SystemExit("--config4 profiles the rollout only")
+    k = 32 if args.config4 else 16
+    if args.config4:
+        args.n = 500000
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
     pos = np.remainder(rng.uniform(0, 1, (1, args.n, 3))
                        + rng.normal(0, 5e-4, (5, args.n, 3)).cumsum(0), 1.0).astype(np.float32)
     temp = np.abs(rng.normal(1.0, 0.3, (5, args.n, 1))).astype(np.float32)
-    cfg = default_model_config()
+    cfg = (default_model_config(latent_size=256, mlp_hidden_size=256,
+                                num_message_passing_steps=15) if args.config4
+           else default_model_config())
     params = init_encode_process_decode(cfg, torch.Generator().manual_seed(args.seed), device=dev)
     stats = NormalizationStats.from_metadata(METADATA, device=dev)
 
     spec = choose_cellblock_spec(args.n) if args.aux_spec else None
 
     def run():
-        return rollout(params, cfg, pos, temp, stats, args.steps, num_neighbors=16,
+        if args.config4:
+            return rollout(params, cfg, pos, temp, stats, args.steps, num_neighbors=k,
+                           dtype=torch.bfloat16, aggregation="cellblock",
+                           cellblock_variable=True, device=dev)
+        return rollout(params, cfg, pos, temp, stats, args.steps, num_neighbors=k,
                        dtype=torch.bfloat16, aggregation=args.aggregation,
                        cellblock_search=args.cellblock_search, cellblock_spec=spec, device=dev)
 
@@ -117,7 +132,9 @@ def main() -> None:
         busy[e.name] = busy.get(e.name, 0.0) + e.device_time / 1e3  # ms
     total = sum(busy.values())
     what = "train" if args.train else "rollout"
-    if args.aggregation != "gather" and not args.train:
+    if args.config4:
+        what, args.aggregation = "config-4 rollout (variable plan)", "cellblock"
+    elif args.aggregation != "gather" and not args.train:
         what += f" ({args.cellblock_search}{', aux spec' if args.aux_spec else ''})"
     print(f"{what} {args.aggregation}, N={args.n}, {args.steps} steps: {step_ms:.3f} ms/step (CUDA "
           f"events), peak memory {peak_gib:.3f} GiB; traced window {wall_ms:.1f} ms wall, "

@@ -282,16 +282,25 @@ def test_s_decode_and_onehot_kernels_match_plain_versions(cuda_device, case):
         assert int(layout.overflow) > 0
 
 
-# Synthetic window-matmul specs on the edges of the kernel's contract, with
+# Synthetic window-matmul specs on the edges of the kernels' contract, with
 # the latent width H: the JAX tests' SPEC (QB 32, W 96: a partial 64-row
 # stage; H 16), the aux spec's QB 224 and W 384 with a ragged second
-# 128-column block (H 136), and W 8 (72-byte S rows, 8-byte copies; H 8).
+# 128-column block (H 136), W 8 (72-byte S rows, 8-byte copies; H 8), and
+# config 4's QB 224, W 384 and H 256 (the persistent kernel's 128-row items:
+# a tile of one full and one 96-row slice) and a ragged H 200 that ends
+# inside an item's 256 columns. All but "small" hold sparse counts up to 127
+# and candidates on a 1/16 lattice, so every sum is exact.
 _WINDOW_SPECS = {
     "small": (dict(grid_size=4, col_capacity=32, query_block=32, window=96, wrap_cap=32), 16),
     "h136": (dict(grid_size=3, col_capacity=224, query_block=224, window=384, wrap_cap=80), 136),
     "w8": (dict(grid_size=3, col_capacity=32, query_block=32, window=8, wrap_cap=16), 8),
+    "h256": (dict(grid_size=3, col_capacity=224, query_block=224, window=384, wrap_cap=80), 256),
+    "h200": (dict(grid_size=3, col_capacity=224, query_block=224, window=384, wrap_cap=80), 200),
 }
 _WINDOW_SHAPES = ["flagship", "aux", *_WINDOW_SPECS]
+# The shapes the persistent kernel takes, whose lattice sums it must match
+# bit for bit.
+_WINDOW_EXACT = ("h256", "h200")
 
 
 def _aux_plan(device):
@@ -365,12 +374,18 @@ def test_window_matmul_kernel_matches_plain_version(cuda_device, shape):
     torch.cuda.synchronize()
     assert kernels.launches["window_matmul"] == 1
     _assert_window_close(out, ref)
+    if shape in _WINDOW_EXACT:
+        assert torch.equal(out, ref)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("transpose", [False, True])
-def test_window_matmul_launches_are_bit_equal(cuda_device, transpose):
-    spec, table, starts, z_pad = _window_inputs("flagship", cuda_device, transpose)
+@pytest.mark.parametrize("transpose, shape", [
+    pytest.param(False, "flagship", id="False"),
+    pytest.param(True, "flagship", id="True"),
+    *(pytest.param(t, shape, id=f"{shape}-{t}") for shape in _WINDOW_EXACT for t in (False, True)),
+])
+def test_window_matmul_launches_are_bit_equal(cuda_device, transpose, shape):
+    spec, table, starts, z_pad = _window_inputs(shape, cuda_device, transpose)
     fn = cellblock.window_matmul_t if transpose else cellblock.window_matmul
     first = fn(table, z_pad, starts, spec=spec)
     second = fn(table, z_pad, starts, spec=spec)
@@ -727,6 +742,8 @@ def test_window_matmul_t_kernel_matches_plain_version(cuda_device, shape):
     torch.cuda.synchronize()
     assert kernels.launches["window_matmul_t"] == 1
     _assert_window_close(out, ref)
+    if shape in _WINDOW_EXACT:
+        assert torch.equal(out, ref)
 
 
 @pytest.mark.cuda

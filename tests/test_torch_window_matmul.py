@@ -99,3 +99,18 @@ def test_cpu_tensors_take_the_plain_versions(name):
                                                                   st, spec=spec))
     # S and S_rev hold the same counts, so the two modes agree exactly.
     assert torch.equal(out, out_t)
+
+
+@pytest.mark.parametrize("h, w, kernel", [
+    (256, 384, "persistent"),  # config 4
+    (136, 384, "persistent"),
+    (264, 256, "persistent"),  # two 256-column blocks
+    (128, 256, "persistent"),  # the flagship
+    (128, 384, "persistent"),  # the aux spec and the config-5 slab
+    (64, 96, "persistent"),
+    (16, 96, "tiled"),         # H < 64: a 64-column box wider than the candidates
+    (256, 8, "tiled"),         # W % 16 != 0: no TMA map of S
+])
+def test_window_kernel_is_picked_by_shape(h, w, kernel):
+    assert cellblock.window_kernel(h, w) == kernel
+    assert kernel in cellblock.WINDOW_KERNELS
